@@ -1,0 +1,159 @@
+// K2 — deterministic voxel scatter-mean, and K3 — 8-corner weighted gather.
+//
+// K2 replaces: rift_tpu/ops/pallas/onehot_ops.py, `_scatter_kernel`
+// (launched by `scatter_mean_pallas`; the TPU's default route computes the
+// same function as `scatter_mean_factored`).
+//   out[b, v, c] = mean of features[b, p, c] over the points p with
+//   inds[b, p] == v; cnt[b, v] = that number (f32); negative indices are
+//   dropped; empty voxels hold 0.
+// Bound on this card: bytes. The dense grid is written in full
+// (b·s·c floats: 281 MB at b = 32, s = 32768, c = 67) against b·n·c
+// floats read; the arithmetic is one add per point and channel.
+// Design: no float atomics, so the result does not depend on scheduling.
+// Pass 1 (one block per cloud) sorts the keys (voxel, point index) with a
+// bitonic sort in shared memory — unique keys, so the order is total and
+// stable by construction — then writes, per voxel, where its run of points
+// starts in the sorted order (-1 when empty) and its count. Pass 2 runs one
+// thread per (voxel, channel), channel fastest so stores coalesce: it sums
+// its run in point-index order, scales by 1/count, or writes 0.
+//
+// K3 replaces: onehot_ops.py, `_gather_kernel` (launched by
+// `corner_gather_pallas`; factored twin `corner_gather_factored`).
+//   out[b, p, c] = Σ_k w[b, p, k] · grid[b, idx[b, p, k], c] over the 8
+//   corners, skipping idx < 0.
+// Bound on this card: bytes — each output element needs 8 grid loads and
+// 1 store; the grid rows a cloud touches are few (≤ 8·n rows) and stay in
+// L2, so the least traffic is the b·n·c output plus the b·n·8 corner
+// indices and weights (the grid is counted once as an input).
+// Design: one thread per (point, channel), channel fastest, so the 8 loads
+// of a warp read contiguous grid rows. Corners are summed in k order with
+// unfused multiply and add, as the plain PyTorch version does.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSortThreads = 1024;
+constexpr int kMaxSortPoints = 4096;  // 32 KB of 64-bit keys
+
+__global__ void voxel_runs_kernel(const int* __restrict__ inds, int n, int s,
+                                  int* __restrict__ order, int* __restrict__ vstart,
+                                  float* __restrict__ cnt) {
+  __shared__ unsigned long long keys[kMaxSortPoints];
+  const int b = blockIdx.x;
+  const int* ind = inds + (size_t)b * n;
+  int p2 = 1;
+  while (p2 < n) p2 <<= 1;
+  for (int i = threadIdx.x; i < p2; i += blockDim.x) {
+    unsigned long long v = 0xffffffffull;  // dropped point or padding: sorts last
+    if (i < n && ind[i] >= 0 && ind[i] < s) v = (unsigned long long)ind[i];
+    keys[i] = (v << 32) | (unsigned long long)i;
+  }
+  int* vs = vstart + (size_t)b * s;
+  float* cn = cnt + (size_t)b * s;
+  for (int v = threadIdx.x; v < s; v += blockDim.x) {
+    vs[v] = -1;
+    cn[v] = 0.0f;
+  }
+  __syncthreads();
+  // Bitonic sort, ascending.
+  for (int size = 2; size <= p2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p2; i += blockDim.x) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const bool up = (i & size) == 0;
+          const unsigned long long a = keys[i], c = keys[j];
+          if ((a > c) == up) { keys[i] = c; keys[j] = a; }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  int* ord = order + (size_t)b * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned long long key = keys[i];
+    ord[i] = (int)(key & 0xffffffffull);
+    const unsigned int v = (unsigned int)(key >> 32);
+    if (v == 0xffffffffu) continue;
+    if (i > 0 && (unsigned int)(keys[i - 1] >> 32) == v) continue;  // not a run head
+    int len = 1;
+    while (i + len < n && (unsigned int)(keys[i + len] >> 32) == v) ++len;
+    vs[v] = i;
+    cn[v] = (float)len;
+  }
+}
+
+__global__ void voxel_mean_kernel(const float* __restrict__ feat, const int* __restrict__ order,
+                                  const int* __restrict__ vstart, const float* __restrict__ cnt,
+                                  float* __restrict__ out, int n, int s, int c, long long total) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int ch = (int)(e % c);
+  const long long bv = e / c;          // b * s + v
+  const int b = (int)(bv / s);
+  const int start = vstart[bv];
+  float v = 0.0f;
+  if (start >= 0) {
+    const int len = (int)cnt[bv];
+    const int* ord = order + (size_t)b * n + start;
+    const float* f = feat + (size_t)b * n * c + ch;
+    float sum = 0.0f;
+    for (int t = 0; t < len; ++t) sum = __fadd_rn(sum, f[(size_t)ord[t] * c]);
+    v = __fmul_rn(sum, __frcp_rn((float)len));
+  }
+  out[e] = v;
+}
+
+__global__ void corner_gather_kernel(const float* __restrict__ grid, const int* __restrict__ idx,
+                                     const float* __restrict__ w, float* __restrict__ out,
+                                     int n, int s, int c, long long total) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int ch = (int)(e % c);
+  const long long bp = e / c;          // b * n + p
+  const int b = (int)(bp / n);
+  const int* ix = idx + bp * 8;
+  const float* wt = w + bp * 8;
+  const float* g = grid + (size_t)b * s * c + ch;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int v = ix[k];
+    if (v >= 0) acc = __fadd_rn(acc, __fmul_rn(wt[k], g[(size_t)v * c]));
+  }
+  out[e] = acc;
+}
+
+}  // namespace
+
+// features [b, n, c] f32, inds [b, n] int32 (negative = dropped; n <= 4096);
+// scratch order [b, n] int32 and vstart [b, s] int32; outputs out [b, s, c]
+// and cnt [b, s] f32. Returns cudaGetLastError() after the two launches.
+extern "C" int rift_scatter_mean(const float* features, const int* inds, int b, int n, int c,
+                                 int s, int* order, int* vstart, float* out, float* cnt,
+                                 void* stream) {
+  if (b <= 0 || s <= 0 || c <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  voxel_runs_kernel<<<b, kSortThreads, 0, st>>>(inds, n, s, order, vstart, cnt);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long total = (long long)b * s * c;
+  const int threads = 256;
+  voxel_mean_kernel<<<(unsigned int)((total + threads - 1) / threads), threads, 0, st>>>(
+      features, order, vstart, cnt, out, n, s, c, total);
+  return (int)cudaGetLastError();
+}
+
+// grid [b, s, c] f32, idx [b, n, 8] int32 (negative = skipped), w [b, n, 8]
+// f32 -> out [b, n, c]. Returns cudaGetLastError() after the launch.
+extern "C" int rift_corner_gather(const float* grid, const int* idx, const float* w, int b,
+                                  int n, int c, int s, float* out, void* stream) {
+  const long long total = (long long)b * n * c;
+  if (total <= 0) return 0;
+  const int threads = 256;
+  corner_gather_kernel<<<(unsigned int)((total + threads - 1) / threads), threads, 0,
+                         (cudaStream_t)stream>>>(grid, idx, w, out, n, s, c, total);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,94 @@
+"""K1: hybrid-radius neighbourhood moments (CUDA kernel and plain version).
+
+Twin of `rift_tpu/ops/pallas/normals_kernel.py:neighborhood_moments_pallas`.
+For each query i: d²(i, j) = (|q|² + |p|²) − 2·q·p clamped at 0; the exact
+k-th smallest d² by 32 bisection steps by counting and the min inside the
+bracket (empty bracket -> 0); r² = max(radius², kth·(1 + 1e-6)) (k = 0:
+fixed radius); then Σp, Σp⊗p and the count over the j with d² < r².
+
+The kernel is `csrc/normals_moments.cu`. `neighborhood_moments` launches it
+for a CUDA tensor and takes `neighborhood_moments_plain` only for a CPU
+tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+Tensor = torch.Tensor
+
+_BISECT_STEPS = 32
+MAX_POINTS = 1024  # the kernel stages one cloud in shared memory
+
+
+def point_sqdist(q: Tensor, p: Tensor) -> Tensor:
+    """d² [..., m, n] of 3-d points by the kernel's expansion, written out
+    component by component so every product and sum rounds once, in the
+    kernel's order: ((qx·px + qy·py) + qz·pz), |q|² + |p|², minus 2·cross."""
+    qx, qy, qz = (q[..., :, None, i] for i in range(3))
+    px, py, pz = (p[..., None, :, i] for i in range(3))
+    q2 = (qx * qx + qy * qy) + qz * qz
+    p2 = (px * px + py * py) + pz * pz
+    cross = (qx * px + qy * py) + qz * pz
+    return torch.clamp((q2 + p2) - 2.0 * cross, min=0.0)
+
+
+def _hybrid_radius_sq(d2: Tensor, k: int, radius_sq: float) -> Tensor:
+    """r² [..., m] from the exact k-th smallest d² by bracketed counting."""
+    if k <= 0:
+        return torch.full(d2.shape[:-1], radius_sq, dtype=d2.dtype, device=d2.device)
+    lo = torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
+    hi = d2.amax(-1)
+    for _ in range(_BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        pred = (d2 <= mid[..., None]).sum(-1) >= k
+        lo = torch.where(pred, lo, mid)
+        hi = torch.where(pred, mid, hi)
+    inside = (d2 > lo[..., None]) & (d2 <= hi[..., None])
+    kth = torch.where(inside, d2, torch.full_like(d2, float("inf"))).amin(-1)
+    kth = torch.where(torch.isfinite(kth), kth, torch.zeros_like(kth))
+    grow = torch.tensor(1.0 + 1e-6, dtype=d2.dtype, device=d2.device)
+    return torch.clamp(kth * grow, min=radius_sq)
+
+
+def neighborhood_moments_plain(points: Tensor, k: int, radius_sq: float
+                               ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version: points [b, n, 3] f32 -> (s1 [b, n, 3],
+    s2 [b, n, 3, 3], cnt [b, n])."""
+    b, n, _ = points.shape
+    d2 = point_sqdist(points, points)
+    r2 = _hybrid_radius_sq(d2, k, radius_sq)
+    mask = (d2 < r2[..., None]).to(points.dtype)
+    outer = (points[..., :, None] * points[..., None, :]).reshape(b, n, 9)
+    rhs = torch.cat([points, outer, torch.ones_like(points[..., :1])], dim=-1)
+    out = torch.matmul(mask, rhs)  # [b, n, 13]
+    return out[..., :3], out[..., 3:12].reshape(b, n, 3, 3), out[..., 12]
+
+
+def neighborhood_moments(points: Tensor, k: int, radius_sq: float
+                         ) -> tuple[Tensor, Tensor, Tensor]:
+    """K1. points [b, n, 3] f32 -> (s1 [b, n, 3], s2 [b, n, 3, 3],
+    cnt [b, n]). CPU tensor: the plain version; CUDA tensor: the kernel."""
+    if points.device.type == "cpu":
+        return neighborhood_moments_plain(points, k, radius_sq)
+    if points.device.type != "cuda":
+        raise ValueError(f"unsupported device {points.device}")
+    if points.dtype != torch.float32 or points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(f"points must be f32 [b, n, 3], got {points.dtype} "
+                         f"{tuple(points.shape)}")
+    b, n, _ = points.shape
+    if n > MAX_POINTS:
+        raise ValueError(f"the moments kernel takes n <= {MAX_POINTS}, got {n}")
+    lib = build.load()
+    pts = points.contiguous()
+    out = torch.empty((b, n, 13), dtype=torch.float32, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    build.check(lib.rift_normals_moments(pts.data_ptr(), out.data_ptr(), b, n,
+                                         int(k), float(radius_sq), stream),
+                "rift_normals_moments")
+    neighborhood_moments.launches += 1
+    return out[..., :3], out[..., 3:12].reshape(b, n, 3, 3), out[..., 12]
+
+
+neighborhood_moments.launches = 0

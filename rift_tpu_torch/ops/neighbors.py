@@ -1,0 +1,108 @@
+"""Neighbour search: squared distances, ball query, grouping, mutual NN.
+
+Twin of `rift_tpu/ops/neighbors.py`. The TPU shapes of that module (the
+one-hot gathers and the [m, u, n] slot selector of `ball_query_group`,
+64 GiB at flagship shapes) exist only to feed the MXU; here the same
+neighbour sets come from `topk` over index keys and a row gather.
+
+Layout: channels-last, points [..., n, 3], features [..., n, c].
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def pairwise_sqdist(a: Tensor, b: Tensor) -> Tensor:
+    """Squared distances [..., n, m] between [..., n, c] and [..., m, c].
+
+    Same expansion as the reference, ‖a‖² + ‖b‖² − 2·a·bᵀ, clamped at 0.
+    """
+    a2 = (a * a).sum(-1, keepdim=True)
+    b2 = (b * b).sum(-1, keepdim=True)
+    cross = torch.matmul(a, b.transpose(-1, -2))
+    return torch.clamp(a2 + b2.transpose(-1, -2) - 2.0 * cross, min=0.0)
+
+
+def _first_valid(d2: Tensor, radius: float, u: int) -> tuple[Tensor, Tensor]:
+    """First `u` in-radius indices in index order (self excluded by
+    d² > 1e-5), `n` where a slot is empty; and the in-radius count."""
+    n = d2.shape[-1]
+    valid = (d2 < radius * radius) & (d2 > 1e-5)
+    arange = torch.arange(n, device=d2.device, dtype=torch.int64)
+    key = torch.where(valid, arange, torch.full_like(arange, n))
+    u_eff = min(u, n)
+    first_u = torch.topk(key, u_eff, dim=-1, largest=False, sorted=True).values
+    if u_eff < u:  # fewer points than slots: pad with empties
+        pad = torch.full(first_u.shape[:-1] + (u - u_eff,), n,
+                         dtype=first_u.dtype, device=first_u.device)
+        first_u = torch.cat([first_u, pad], dim=-1)
+    return first_u, valid.sum(-1)
+
+
+def ball_query(centers: Tensor, points: Tensor, radius: float,
+               num_neighbors: int) -> Tensor:
+    """Fixed-radius neighbour indices, int64 [..., m, u].
+
+    The first u points with 1e-5 < d² < r², in index order; empty slots
+    repeat the first-found neighbour; a center with no neighbour at all
+    gets the nearest point (first index on ties) in every slot.
+    """
+    n = points.shape[-2]
+    d2 = pairwise_sqdist(centers, points)
+    first_u, cnt = _first_valid(d2, radius, num_neighbors)
+    has = first_u < n
+    padded = torch.where(has, first_u, first_u[..., :1].expand_as(first_u))
+    nearest = torch.argmin(d2, dim=-1, keepdim=True)
+    return torch.where((cnt > 0)[..., None], padded, nearest.expand_as(padded))
+
+
+def grouping(features: Tensor, indices: Tensor) -> Tensor:
+    """features [..., n, c], indices [..., m, u] -> [..., m, u, c]."""
+    m, u = indices.shape[-2:]
+    c = features.shape[-1]
+    flat = indices.reshape(indices.shape[:-2] + (m * u, 1)).expand(
+        indices.shape[:-2] + (m * u, c))
+    return torch.gather(features, -2, flat).reshape(
+        indices.shape[:-2] + (m, u, c))
+
+
+def ball_query_group(centers: Tensor, points: Tensor, features: Tensor,
+                     radius: float, num_neighbors: int
+                     ) -> tuple[Tensor, Tensor]:
+    """Eval grouping: (grouped [..., m, u, c], slot_valid bool [..., m, u]).
+
+    The neighbour set of `ball_query`; slots past the in-radius count hold
+    zero rows and `slot_valid` False, a center with no neighbour holds its
+    nearest point in slot 0. Consumers mask with `slot_valid` before any
+    reduction that is not duplicate-invariant.
+    """
+    n = points.shape[-2]
+    u = num_neighbors
+    d2 = pairwise_sqdist(centers, points)
+    first_u, cnt = _first_valid(d2, radius, u)
+    nearest = torch.argmin(d2, dim=-1, keepdim=True)
+    idx = torch.where(first_u < n, first_u, torch.zeros_like(first_u))
+    idx = torch.where((cnt > 0)[..., None], idx, nearest.expand_as(idx))
+    slot = torch.arange(u, device=d2.device)
+    slot_valid = slot < torch.clamp(cnt, min=1)[..., None]
+    grouped = grouping(features, idx)
+    return grouped * slot_valid[..., None].to(grouped.dtype), slot_valid
+
+
+def mutual_nearest_neighbors(feat1: Tensor, feat2: Tensor
+                             ) -> tuple[Tensor, Tensor, Tensor]:
+    """Cycle-consistent mutual nearest neighbours in feature space.
+
+    feat1 [..., n1, c], feat2 [..., n2, c] -> (idx1 [n1], idx2 [..., n1],
+    mask bool [..., n1]): idx2[i] is the NN of i in cloud 2 and mask[i]
+    says the NN of idx2[i] in cloud 1 is i. Ties go to the first index.
+    """
+    d = pairwise_sqdist(feat1, feat2)
+    corr12 = torch.argmin(d, dim=-1)
+    corr21 = torch.argmin(d, dim=-2)
+    n1 = feat1.shape[-2]
+    arange = torch.arange(n1, device=feat1.device)
+    mask = torch.gather(corr21, -1, corr12) == arange
+    return arange, corr12, mask

@@ -1,0 +1,122 @@
+"""Convert a flax parameter tree of `rift_tpu.models.PVCNNClassifier` into a
+`state_dict` of `rift_tpu_torch.models.PVCNNClassifier`.
+
+The input is plain nested dicts of numpy arrays (restore the checkpoint
+wherever JAX lives and hand over the arrays); nothing here imports JAX.
+Flax's automatic names map explicitly:
+
+  top level  SharedMLP_i / PVConv_i      -> layers.<same name>
+  SharedMLP  Dense_i, BatchNorm_i        -> layers.i.dense, layers.i.bn
+  PVConv     Conv_i, BatchNorm_i         -> convs.i, bns.i
+             SE3d_0/Dense_0, /Dense_1    -> se.fc1, se.fc2
+             SharedMLP_0                 -> point
+             coefficient                 -> coefficient (a scalar)
+  Dense kernel [in, out]                 -> Linear weight [out, in]
+  Conv kernel [kd, kh, kw, in, out]      -> Conv3d weight [out, in, kd, kh, kw]
+  BatchNorm scale, bias + mean, var      -> weight, bias, running_mean, running_var
+
+Any key that no rule consumes raises, so a tree from another configuration
+(a classifier head, a dgcnn block) fails loudly instead of loading partly.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+class _Tree:
+    """Reads leaves of a nested dict and remembers which were read."""
+
+    def __init__(self, tree: dict, name: str):
+        self.tree = tree
+        self.name = name
+        self.used: set[tuple[str, ...]] = set()
+
+    def get(self, *path: str):
+        node = self.tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"{self.name}: missing {'/'.join(path)}")
+            node = node[key]
+        self.used.add(path)
+        return node
+
+    def has(self, *path: str) -> bool:
+        node = self.tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                return False
+            node = node[key]
+        return True
+
+    def check_all_used(self) -> None:
+        left = []
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            elif path not in self.used:
+                left.append("/".join(path))
+
+        walk(self.tree, ())
+        if left:
+            raise ValueError(f"{self.name}: keys with no torch counterpart: {left}")
+
+
+def _dense(out: dict, prefix: str, params: _Tree, path: tuple, bias: bool = True):
+    out[prefix + "weight"] = _t(params.get(*path, "kernel")).T.contiguous()
+    if bias:
+        out[prefix + "bias"] = _t(params.get(*path, "bias"))
+
+
+def _bn(out: dict, prefix: str, params: _Tree, stats: _Tree, path: tuple):
+    out[prefix + "weight"] = _t(params.get(*path, "scale"))
+    out[prefix + "bias"] = _t(params.get(*path, "bias"))
+    out[prefix + "running_mean"] = _t(stats.get(*path, "mean"))
+    out[prefix + "running_var"] = _t(stats.get(*path, "var"))
+    out[prefix + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _shared_mlp(out, prefix, params, stats, path):
+    i = 0
+    while params.has(*path, f"Dense_{i}"):
+        _dense(out, f"{prefix}layers.{i}.dense.", params, path + (f"Dense_{i}",))
+        _bn(out, f"{prefix}layers.{i}.bn.", params, stats, path + (f"BatchNorm_{i}",))
+        i += 1
+
+
+def _pvconv(out, prefix, params, stats, path):
+    for i in range(2):
+        kernel = _t(params.get(*path, f"Conv_{i}", "kernel"))
+        out[f"{prefix}convs.{i}.weight"] = kernel.permute(4, 3, 0, 1, 2).contiguous()
+        out[f"{prefix}convs.{i}.bias"] = _t(params.get(*path, f"Conv_{i}", "bias"))
+        _bn(out, f"{prefix}bns.{i}.", params, stats, path + (f"BatchNorm_{i}",))
+    if params.has(*path, "SE3d_0"):
+        _dense(out, f"{prefix}se.fc1.", params, path + ("SE3d_0", "Dense_0"), bias=False)
+        _dense(out, f"{prefix}se.fc2.", params, path + ("SE3d_0", "Dense_1"), bias=False)
+    _shared_mlp(out, f"{prefix}point.", params, stats, path + ("SharedMLP_0",))
+    if params.has(*path, "coefficient"):
+        out[f"{prefix}coefficient"] = _t(params.get(*path, "coefficient")).reshape(())
+
+
+def from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """flax `params` and `batch_stats` (nested dicts of numpy arrays) ->
+    state_dict for `rift_tpu_torch.models.PVCNNClassifier`."""
+    p = _Tree(params, "params")
+    s = _Tree(batch_stats, "batch_stats")
+    out: dict[str, torch.Tensor] = {}
+    for name in params:
+        if re.fullmatch(r"SharedMLP_\d+", name):
+            _shared_mlp(out, f"layers.{name}.", p, s, (name,))
+        elif re.fullmatch(r"PVConv_\d+", name):
+            _pvconv(out, f"layers.{name}.", p, s, (name,))
+    p.check_all_used()
+    s.check_all_used()
+    return out

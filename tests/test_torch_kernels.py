@@ -1,0 +1,108 @@
+"""The plain PyTorch versions of the port's kernels (K1 normals moments, K2
+voxel scatter-mean, K3 corner gather) against the Pallas kernels they
+replace, run in interpret mode on the CPU as tests/test_pallas_ops.py runs
+them. On a CPU tensor each wrapper takes the plain version, so these also
+cover the wrappers' CPU route."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rift_tpu.ops.pallas import corner_gather_pallas, scatter_mean_pallas
+from rift_tpu.ops.pallas.normals_kernel import neighborhood_moments_pallas
+from rift_tpu_torch.ops.cuda import corner_gather, neighborhood_moments, scatter_mean
+from rift_tpu_torch.ops.cuda.normals_kernel import neighborhood_moments_plain, point_sqdist
+from rift_tpu_torch.ops.cuda.onehot_ops import corner_gather_plain, scatter_mean_plain
+
+
+def _cloud(rng, b, n, duplicates):
+    pts = rng.uniform(-1.0, 1.0, (b, n, 3)).astype(np.float32)
+    if duplicates:
+        # 20 coincident copies of one point (>= k at distance 0: the empty
+        # bracket rule) and a tight cluster.
+        pts[:, 1:21] = pts[:, :1]
+        pts[:, 40:60] = pts[:, 40:41] + 1e-4 * rng.randn(b, 20, 3).astype(np.float32)
+    return pts
+
+
+@pytest.mark.parametrize("k,duplicates", [(16, False), (16, True), (0, False)])
+def test_moments_plain_matches_pallas(rng, k, duplicates):
+    pts = _cloud(rng, 2, 256, duplicates)
+    r2 = 0.01
+    s1_j, s2_j, cnt_j = (np.asarray(a) for a in neighborhood_moments_pallas(
+        jnp.asarray(pts), k, r2, tile=128, interpret=True))
+    s1, s2, cnt = (a.numpy() for a in neighborhood_moments(torch.from_numpy(pts), k, r2))
+    # JAX forms a·t by an f32 matmul, the port by the kernel's unfused
+    # component sums: d² may differ by an ulp, which can move a point across
+    # the radius. Bound the share of queries whose neighbour count differs.
+    same = cnt == cnt_j
+    assert same.mean() >= 0.99, same.mean()
+    # Where the sets agree the moments are the same sums in another order.
+    np.testing.assert_allclose(s1[same], s1_j[same], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s2[same], s2_j[same], rtol=1e-5, atol=1e-5)
+    if duplicates:
+        assert np.all(cnt[:, 0] >= 21)  # the coincident copies are neighbours
+
+
+def test_point_sqdist_is_the_kernel_expansion(rng):
+    q = rng.randn(1, 7, 3).astype(np.float32)
+    p = rng.randn(1, 9, 3).astype(np.float32)
+    want = np.zeros((1, 7, 9), np.float32)
+    for i in range(7):
+        for j in range(9):
+            a, t = q[0, i], p[0, j]
+            q2 = np.float32(np.float32(a[0] * a[0]) + np.float32(a[1] * a[1])) + np.float32(a[2] * a[2])
+            p2 = np.float32(np.float32(t[0] * t[0]) + np.float32(t[1] * t[1])) + np.float32(t[2] * t[2])
+            cross = np.float32(np.float32(a[0] * t[0]) + np.float32(a[1] * t[1])) + np.float32(a[2] * t[2])
+            want[0, i, j] = max(np.float32(np.float32(q2 + p2) - np.float32(2 * cross)), 0)
+    got = point_sqdist(torch.from_numpy(q), torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_scatter_mean_plain_matches_pallas(rng):
+    b, n, c, s = 2, 128, 16, 64
+    feat = rng.randn(b, n, c).astype(np.float32)
+    inds = rng.randint(-1, s, (b, n)).astype(np.int32)
+    inds[:, :10] = 5  # a crowded voxel
+    inds[inds == 7] = 8  # voxel 7 stays empty
+    out_j, cnt_j = scatter_mean_pallas(jnp.asarray(feat), jnp.asarray(inds), s, tile=32)
+    out, cnt = scatter_mean(torch.from_numpy(feat), torch.from_numpy(inds), s)
+    # Both sum each voxel's points then scale by 1/count, in another order.
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+    assert np.all(out.numpy()[:, 7] == 0) and np.all(cnt.numpy()[:, 7] == 0)
+    assert cnt.numpy().sum() == (inds >= 0).sum()
+
+
+def test_corner_gather_plain_matches_pallas(rng):
+    b, n, c, s = 2, 64, 8, 128
+    grid = rng.randn(b, s, c).astype(np.float32)
+    idx = rng.randint(0, s, (b, n, 8)).astype(np.int32)
+    idx[0, 3] = -1  # an undefined point
+    idx[1, 5, :4] = -1  # skipped corners with nonzero weight
+    w = rng.rand(b, n, 8).astype(np.float32)
+    want = np.asarray(corner_gather_pallas(jnp.asarray(grid), jnp.asarray(idx),
+                                           jnp.asarray(w), tile=32))
+    got = corner_gather(torch.from_numpy(grid), torch.from_numpy(idx),
+                        torch.from_numpy(w)).numpy()
+    # Eight products summed in another order (the Pallas kernel contracts
+    # a one-hot matrix tile by tile).
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.all(got[0, 3] == 0)
+
+
+def test_wrappers_take_plain_version_on_cpu_and_count_no_launch(rng):
+    pts = torch.from_numpy(_cloud(rng, 1, 64, False))
+    before = (neighborhood_moments.launches, scatter_mean.launches, corner_gather.launches)
+    for a, b in zip(neighborhood_moments(pts, 8, 0.01), neighborhood_moments_plain(pts, 8, 0.01)):
+        assert torch.equal(a, b)
+    feat = torch.randn(1, 64, 4)
+    inds = torch.randint(-1, 16, (1, 64))
+    assert all(torch.equal(a, b) for a, b in
+               zip(scatter_mean(feat, inds, 16), scatter_mean_plain(feat, inds, 16)))
+    grid = torch.randn(1, 16, 4)
+    idx = torch.randint(-1, 16, (1, 64, 8))
+    w = torch.rand(1, 64, 8)
+    assert torch.equal(corner_gather(grid, idx, w), corner_gather_plain(grid, idx, w))
+    assert before == (neighborhood_moments.launches, scatter_mean.launches,
+                      corner_gather.launches)

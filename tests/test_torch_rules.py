@@ -1,0 +1,118 @@
+"""The port's ground rules: no JAX anywhere in rift_tpu_torch or
+chip_smoke.py, entry points default to the card and raise without one, and
+chip_smoke.py fails where there is no card or no package."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rift_tpu")
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "rift_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_rift_tpu():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_roots(p)
+           if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def _run(code, cwd=ROOT, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_package_imports_and_builds_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'rift_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch, rift_tpu_torch\n"
+        "from rift_tpu_torch.models import PVCNNClassifier\n"
+        "from rift_tpu_torch.registration import register_batch\n"
+        "from rift_tpu_torch.data import SyntheticPairs\n"
+        "m = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8).eval()\n"
+        "s, d, _ = SyntheticPairs(num_pairs=1, num_points=64).arrays()\n"
+        "print(tuple(register_batch(m, s, d, device='cpu').shape))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "(1, 4, 4)"
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from rift_tpu_torch import resolve_device
+    from rift_tpu_torch.models import PVCNNClassifier
+    from rift_tpu_torch.registration import register_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8).eval()
+    pts = np.zeros((1, 32, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        register_batch(model, pts, pts)
+
+
+def test_kernel_wrappers_never_fall_back_on_other_devices():
+    from rift_tpu_torch.ops.cuda import corner_gather, neighborhood_moments, scatter_mean
+
+    meta = torch.zeros((1, 8, 3), device="meta")
+    with pytest.raises(ValueError):
+        neighborhood_moments(meta, 4, 0.01)
+    with pytest.raises(ValueError):
+        scatter_mean(meta, torch.zeros((1, 8), dtype=torch.long, device="meta"), 4)
+    with pytest.raises(ValueError):
+        corner_gather(meta, torch.zeros((1, 8, 8), dtype=torch.long, device="meta"),
+                      torch.zeros((1, 8, 8), device="meta"))
+
+
+def test_importing_chip_smoke_runs_nothing():
+    out = _run("import chip_smoke; print('imported', callable(chip_smoke.main))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "imported True"
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
