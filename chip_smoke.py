@@ -13,7 +13,9 @@ Phases (each prints one line with its wall time):
   4. main    — register_batch on 16 SyntheticPairs(mode="noise", seed=0)
                pairs, flagship width (mn40_sph_pt_r4), seeded random weights;
                one warm-up and 3 timed batches; every launch counter must rise.
-  5. parity  — 2 pairs through the same stages with device="cpu".
+  5. parity  — the first 8 pairs of the timed batch against the same path
+               with device="cpu"; GNC-TLS and Kabsch on the card against
+               the CPU on the CPU run's matches.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -35,13 +37,8 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 NUM_PAIRS = 16
 NUM_POINTS = 1024
-PARITY_PAIRS = 2
+PARITY_PAIRS = 8
 TIMED_BATCHES = 3
-FLAGSHIP = dict(blocks=((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None)),
-                dim_k=512, point_kernel_formal="pointnet_kernel", voxel_shape="spherical",
-                with_coeff=True, with_se=True, extra_feature_channels=0,
-                rot_invariant_preprocess="change_coords", lrf_kind="pca",
-                with_local_feat="ppf", local_radius=0.3, local_neighbors=128)
 
 # Tolerances of the kernel checks (kernel vs plain version on the card).
 # K1: neighbour counts must be equal (both compute d² with the same
@@ -55,11 +52,31 @@ TOL = {"normals_moments": 1e-5, "scatter_mean": 1e-5, "corner_gather": 1e-6}
 # End-to-end parity, card vs CPU: share of points whose feature differs by
 # more than 1e-3 of the largest feature (a one-ulp change in a voxel
 # boundary or a ball-query radius test moves single points) <= 1%; share of
-# mutual-NN mask entries that agree >= 0.99; pairs whose masks agree
-# exactly must give transforms within 1e-3 (max abs entry).
+# mutual-NN mask entries that agree >= 0.99. Poses, for every pair whose
+# pose the inputs determine: within 1e-3 (max abs entry) for Kabsch on the
+# card at the CPU run's final GNC weights, for GNC-TLS on the same matches,
+# and end to end where the masks agree. A pair is not determined when
+# GNC-TLS on the CPU moves its pose by more than 1e-3 once the matches are
+# nudged by 1e-6 (about 10 ulps): with one or two inliers (random weights)
+# the optimum is not unique, and rounding picks the fixed point on either
+# device. At least half of the pairs must be determined. Residuals, for
+# every pair: over the matches both runs share, the card pose's TLS cost
+# Σ min(r², c²)/c² may exceed the CPU pose's by at most 1 (one match's
+# worth): both must be equally good TLS solutions.
 FEAT_POINT_TOL, FEAT_POINT_SHARE = 1e-3, 0.01
 MASK_AGREE = 0.99
 TRANSFORM_TOL = 1e-3
+NUDGE, NUDGE_TRIES = 1e-6, 4
+TLS_COST_SLACK = 1.0
+
+
+def tls_cost(transform, src, dst, mask, noise_bound: float):
+    """Σ over the masked matches of min(r², c²)/c² under each pose [b]."""
+    import torch
+
+    moved = src @ transform[..., :3, :3].transpose(-1, -2) + transform[..., None, :3, 3]
+    r2 = ((moved - dst) ** 2).sum(-1) / noise_bound ** 2
+    return torch.where(mask, torch.clamp(r2, max=1.0), torch.zeros_like(r2)).sum(-1)
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -88,6 +105,11 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return float(sorted(times)[len(times) // 2])
 
 
+def short(t) -> list:
+    """A tensor's values at 3 significant digits, for the log."""
+    return [float(f"{float(x):.3g}") for x in t]
+
+
 def rel_err(got, want) -> tuple[float, float]:
     """(max abs error, max abs error over the largest |want|)."""
     err = float((got - want).abs().max())
@@ -95,13 +117,15 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def seeded_model(seed: int):
-    """The flagship-width model with weights and BN statistics drawn from a
-    seeded torch.Generator (BN means around 0, variances in [0.5, 1.5])."""
+    """The flagship model (PVCNNClassifier's defaults are the configuration
+    of checkpoints/mn40_sph_pt_r4) with weights and BN statistics drawn
+    from a seeded torch.Generator (BN means around 0, variances in
+    [0.5, 1.5])."""
     import torch
 
     from rift_tpu_torch.models import PVCNNClassifier
 
-    model = PVCNNClassifier(**FLAGSHIP)
+    model = PVCNNClassifier()
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -258,7 +282,8 @@ def check_kernels(clouds, report: dict) -> None:
 
 
 def path_stages(model, src, dst):
-    """The stages of register_batch, returning what the parity check reads."""
+    """The stages of register_batch up to the matches: (normals, features,
+    match indices into dst, mutual-NN mask)."""
     import torch
 
     from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors
@@ -270,8 +295,8 @@ def path_stages(model, src, dst):
         normals = estimate_normals(clouds)
         feats = model(torch.cat([clouds, normals], -1))
         b = src.shape[0]
-        _, _, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
-    return normals, feats, mask
+        _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+    return normals, feats, idx2, mask
 
 
 def main() -> int:
@@ -297,10 +322,13 @@ def main() -> int:
     t0 = time.perf_counter()
     from rift_tpu_torch.data import SyntheticPairs
     from rift_tpu_torch.ops.cuda import build, kernel_wrappers
-    from rift_tpu_torch.registration import pair_errors, register_batch
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import (gnc_pose, pair_errors, register_batch,
+                                             weighted_kabsch)
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
 
-    lib = build.load()
-    phase("build", t0, f"{lib.path} built in {lib.build_seconds:.2f} s")
+    build.load()
+    phase("build", t0, f"{build.lib_path} built in {build.build_seconds:.2f} s")
 
     dev = torch.device("cuda")
     src_np, dst_np, gt_np = SyntheticPairs(num_pairs=NUM_PAIRS, num_points=NUM_POINTS,
@@ -345,13 +373,31 @@ def main() -> int:
                       f"information only); launches {launches}")
 
     t0 = time.perf_counter()
-    p = PARITY_PAIRS
+    p, b = PARITY_PAIRS, NUM_PAIRS
     cpu_model = copy.deepcopy(model).cpu()
-    n_g, f_g, m_g = path_stages(model, src[:p], dst[:p])
-    t_g = register_batch(model, src[:p], dst[:p])
-    n_c, f_c, m_c = path_stages(cpu_model, src[:p].cpu(), dst[:p].cpu())
+    # Card side: the timed batch's shapes (16 pairs), sliced to the first p.
+    n_g, f_g, idx_g, m_g = path_stages(model, src, dst)
+    clouds = torch.cat([torch.arange(p), b + torch.arange(p)]).to(dev)
+    n_g, f_g, t_g = n_g[clouds].cpu(), f_g[clouds].cpu(), est[:p].cpu()
+    idx_g, m_g = idx_g[:p].cpu(), m_g[:p].cpu()
+    n_c, f_c, idx_c, m_c = path_stages(cpu_model, src[:p].cpu(), dst[:p].cpu())
     t_c = register_batch(cpu_model, src_np[:p], dst_np[:p], device="cpu")
-    f_g, t_g, m_g, n_g = f_g.cpu(), t_g.cpu(), m_g.cpu(), n_g.cpu()
+    # The solver alone on the CPU run's matches: on the card, and on the
+    # CPU with the matches nudged, to find the pairs the inputs determine.
+    src_c = src[:p].cpu()
+    matched_c = torch.gather(dst[:p].cpu(), 1, idx_c[..., None].expand(-1, -1, 3))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad(), f32_geometry():
+        t_solver = gnc_pose(src[:p], matched_c.to(dev), m_c.to(dev),
+                            noise_bound=NOISE_BOUND)[0].cpu()
+        _, w_c = gnc_pose(src_c, matched_c, m_c, noise_bound=NOISE_BOUND)
+        t_step = weighted_kabsch(src[:p], matched_c.to(dev), w_c.to(dev)).cpu()
+        spread = torch.zeros(p)
+        for _ in range(NUDGE_TRIES):
+            nudged = matched_c + NUDGE * torch.randn(matched_c.shape, generator=gen)
+            t_n = gnc_pose(src_c, nudged, m_c, noise_bound=NOISE_BOUND)[0]
+            spread = torch.maximum(spread, (t_n - t_c).abs().amax((-2, -1)))
+    determined = spread <= TRANSFORM_TOL
     normal_cos = float((n_g * n_c).sum(-1).abs().min())
     feat_abs, feat_rel = rel_err(f_g, f_c)
     point_err = (f_g - f_c).abs().amax(-1) / float(f_c.abs().max())
@@ -359,15 +405,33 @@ def main() -> int:
     agree = float((m_g == m_c).float().mean())
     same_mask = (m_g == m_c).all(-1)
     t_diff = (t_g - t_c).abs().amax((-2, -1))
+    solver_diff = (t_solver - t_c).abs().amax((-2, -1))
+    step_diff = (t_step - t_c).abs().amax((-2, -1))
+    shared = m_g & m_c & (idx_g == idx_c)
+    cost_c = tls_cost(t_c, src_c, matched_c, shared, NOISE_BOUND)
+    cost_g = tls_cost(t_g, src_c, matched_c, shared, NOISE_BOUND)
+    cost_solver_c = tls_cost(t_c, src_c, matched_c, m_c, NOISE_BOUND)
+    cost_solver_g = tls_cost(t_solver, src_c, matched_c, m_c, NOISE_BOUND)
+    worse = torch.maximum(cost_g - cost_c, cost_solver_g - cost_solver_c)
     msg = (f"{p} pairs: min |cos| between normals {normal_cos:.6f}; features max abs err "
            f"{feat_abs:.3e} (rel {feat_rel:.3e}), share of points off by > "
            f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}); mutual-NN "
-           f"agreement {agree:.4f} (tol {MASK_AGREE}); transform max abs diff "
-           f"{[round(float(x), 6) for x in t_diff]} (tol {TRANSFORM_TOL} where the masks "
-           f"agree: {same_mask.tolist()})")
+           f"agreement {agree:.4f} (tol {MASK_AGREE}); transform max abs diff, Kabsch "
+           f"at the CPU's GNC weights {short(step_diff)}, GNC-TLS on "
+           f"the same matches {short(solver_diff)}, end to end "
+           f"{short(t_diff)} (tol {TRANSFORM_TOL}; CPU pose spread "
+           f"under a {NUDGE:g} nudge {short(spread)}, determined "
+           f"{determined.tolist()}, masks agree {same_mask.tolist()}, CPU GNC inliers "
+           f"{(w_c > 0.5).sum(-1).tolist()} of {m_c.sum(-1).tolist()} matches); TLS "
+           f"cost over shared matches, card minus CPU, end to end "
+           f"{short(cost_g - cost_c)}, solver "
+           f"{short(cost_solver_g - cost_solver_c)} (tol {TLS_COST_SLACK})")
     if bad_share > FEAT_POINT_SHARE or agree < MASK_AGREE or not bool(torch.isfinite(t_c).all()):
         fail("parity: " + msg)
-    if bool((t_diff[same_mask] > TRANSFORM_TOL).any()):
+    if int(determined.sum()) * 2 < p or bool((worse > TLS_COST_SLACK).any()) \
+            or bool((step_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((t_diff[determined & same_mask] > TRANSFORM_TOL).any()):
         fail("parity: " + msg)
     phase("parity", t0, msg)
 

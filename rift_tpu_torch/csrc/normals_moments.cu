@@ -11,10 +11,11 @@
 // Output out[b, i, 13] in that order.
 //
 // Bound on this card: operations, not bytes. Per cloud the kernel reads
-// n·3 floats and writes n·13; per query it evaluates n distances (9 flops
-// each), 33 passes of n compares (32 bisection steps + the bracket min)
-// and up to n 13-term accumulations: about 55·n flops per query,
-// 55·n²·b in all — at b = 32, n = 1024 about 1.8 GFLOP, ~0.03 ms at the
+// n·3 floats and writes n·13. Per (query, point) it does 77 flops: d² 9,
+// 32 bisection steps of a compare and an add 64, the bracket min 3, the
+// radius mask 1; per neighbour found, 22 flops for the 13 moments. That
+// is 77·n²·b + 22·neighbours in all, the count chip_smoke.py reports the
+// bound from: at b = 32, n = 1024 about 2.6 GFLOP, ~0.039 ms at the
 // 67 TFLOP/s f32 (non-tensor) peak.
 //
 // Design: one warp per query. The cloud (12 KB at n = 1024) and its |p|²

@@ -22,14 +22,15 @@ from ..nn.shared_mlp import SharedMLP
 from ..ops.lrf import change_coords, lrf_basis
 from ..ops.neighbors import ball_query_group
 from ..ops.ppf import local_ppf
-from ..ops.precision import f32_geometry
 
 DEFAULT_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
 
 
 class PVCNNClassifier(nn.Module):
     """Field names mirror `rift_tpu.models.PVCNNClassifier`. Input
-    [b, n, 6] (xyz + normals) -> per-point features [b, n, last width]."""
+    [b, n, 6] (xyz + normals) -> per-point features [b, n, last width].
+    On the card, run it inside `ops/precision.py:f32_geometry` (as
+    `register_batch` does): cuDNN runs Conv3d in TF32 by default."""
 
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
                  dim_k: int = 512,
@@ -89,7 +90,6 @@ class PVCNNClassifier(nn.Module):
         self.layers = nn.ModuleDict(layers)
         self.out_channels = in_ch
 
-    @f32_geometry()
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         coords = inputs[..., :3]
         coords = coords - coords.mean(-2, keepdim=True)

@@ -34,21 +34,12 @@ _SIGNATURES = {
 }
 
 
-class KernelLibrary:
-    """The loaded library, with the path and seconds of the build that made
-    it (0 when an up-to-date library was found)."""
-
-    def __init__(self, lib: ctypes.CDLL, path: str, build_seconds: float):
-        self.lib = lib
-        self.path = path
-        self.build_seconds = build_seconds
-
-    def __getattr__(self, name):
-        return getattr(self.lib, name)
-
-
 _lock = threading.Lock()
-_loaded: KernelLibrary | None = None
+_loaded: ctypes.CDLL | None = None
+# Path of the loaded library and seconds its build took (0 when an
+# up-to-date library was found); set by load().
+lib_path: str | None = None
+build_seconds: float | None = None
 
 
 def _sources() -> list[str]:
@@ -90,34 +81,34 @@ def _read(path: str) -> str | None:
         return None
 
 
-def load() -> KernelLibrary:
+def load() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernel library."""
-    global _loaded
+    global _loaded, lib_path, build_seconds
     with _lock:
         if _loaded is not None:
             return _loaded
         os.makedirs(BUILD_DIR, exist_ok=True)
-        lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-        stamp = lib_path + ".sha256"
+        path = os.path.join(BUILD_DIR, LIB_NAME)
+        stamp = path + ".sha256"
         digest = _digest()
         seconds = 0.0
-        if not (os.path.isfile(lib_path) and _read(stamp) == digest):
-            tmp = lib_path + f".tmp{os.getpid()}"
+        if not (os.path.isfile(path) and _read(stamp) == digest):
+            tmp = path + f".tmp{os.getpid()}"
             t0 = time.perf_counter()
             proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            os.replace(tmp, path)
             with open(stamp, "w") as f:
                 f.write(digest + "\n")
-        lib = ctypes.CDLL(lib_path)
+        lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded = KernelLibrary(lib, lib_path, seconds)
+        _loaded, lib_path, build_seconds = lib, path, seconds
         return _loaded
 
 

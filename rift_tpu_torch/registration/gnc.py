@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.precision import f32_geometry
 from .kabsch import weighted_kabsch
 
 Tensor = torch.Tensor
@@ -36,12 +35,12 @@ def _tls_weights(transform, mu, src, dst, valid, c2):
     return w * valid
 
 
-@f32_geometry()
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
              gnc_factor: float = 1.4, max_iterations: int = 100
              ) -> tuple[Tensor, Tensor]:
     """src/dst [b, n, 3] putative matches, valid [b, n] bool ->
-    (transform [b, 4, 4], final weights [b, n])."""
+    (transform [b, 4, 4], final weights [b, n]). Strict f32 is the caller's
+    to set (`ops/precision.py:f32_geometry`, as `register_batch` does)."""
     c2 = noise_bound * noise_bound
     valid = valid.to(src.dtype)
     transform = weighted_kabsch(src, dst, valid)

@@ -1,9 +1,10 @@
 """Where the time of rift_tpu_torch's main path goes on one CUDA card.
 
-    python scripts/profile_torch_path.py [--pairs 16] [--points 1024]
+    python scripts/profile_torch_path.py
 
-Registers SyntheticPairs(mode="noise", seed=0) pairs at the flagship width
-with chip_smoke.py's seeded weights and prints, as JSON lines:
+Registers chip_smoke.py's main-path batch (NUM_PAIRS SyntheticPairs(
+mode="noise", seed=0) pairs of NUM_POINTS points) at the flagship width
+with its seeded weights and prints, as JSON lines:
   - "stages": median wall ms of normals, feature forward, mutual NN and
     GNC-TLS over 5 batches, each stage ended by torch.cuda.synchronize();
   - "profile": one batch under torch.profiler — the device time by kernel
@@ -13,7 +14,6 @@ Needs a CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import sys
@@ -23,7 +23,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import seeded_model  # noqa: E402
+from chip_smoke import NUM_PAIRS, NUM_POINTS, seeded_model  # noqa: E402
 from rift_tpu_torch.data import SyntheticPairs  # noqa: E402
 from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors  # noqa: E402
 from rift_tpu_torch.ops.normals import estimate_normals  # noqa: E402
@@ -58,15 +58,11 @@ def staged_batch(model, src, dst) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--pairs", type=int, default=16)
-    ap.add_argument("--points", type=int, default=1024)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    src, dst, _ = SyntheticPairs(num_pairs=args.pairs, num_points=args.points,
+    src, dst, _ = SyntheticPairs(num_pairs=NUM_PAIRS, num_points=NUM_POINTS,
                                  mode="noise", seed=0).arrays()
     src, dst = torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)
     model = seeded_model(0).to(dev)
@@ -75,8 +71,8 @@ def main() -> int:
 
     runs = [staged_batch(model, src, dst) for _ in range(5)]
     stages = {k: sorted(r[k] for r in runs)[2] * 1e3 for k in runs[0]}
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "pairs": args.pairs,
-                      "points": args.points, "stages_ms": stages,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "pairs": NUM_PAIRS,
+                      "points": NUM_POINTS, "stages_ms": stages,
                       "total_ms": sum(stages.values())}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
