@@ -1,6 +1,7 @@
 """Smoke run of rift_tpu_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, register 16 scan pairs of 1024 points at
-the flagship width, and compare with the CPU run of the same path.
+the flagship width, train the flagship classifier on batches of 16 clouds
+of 1024 points, and compare both paths with their CPU runs.
 
     python3 chip_smoke.py
 
@@ -8,14 +9,23 @@ Phases (each prints one line with its wall time):
   1. device  — nvidia-smi's name and power limit, torch's device name;
                exits non-zero when CUDA is not available.
   2. build   — nvcc builds rift_tpu_torch/csrc/*.cu for sm_90a.
-  3. kernels — K1, K2, K3 against their plain versions at the main path's
-               shapes, with times, bounds and the library yardsticks.
+  3. kernels — K1, K2, K3, K4 against their plain versions at the main
+               paths' shapes, with times, bounds and the library yardsticks;
+               K4 also against K3 by the adjoint identity.
   4. main    — register_batch on 16 SyntheticPairs(mode="noise", seed=0)
                pairs, flagship width (mn40_sph_pt_r4), seeded random weights;
                one warm-up and 3 timed batches; every launch counter must rise.
   5. parity  — the first 8 pairs of the timed batch against the same path
                with device="cpu"; GNC-TLS and Kabsch on the card against
                the CPU on the CPU run's matches.
+  6. train   — train() of the mn40_sph_pt_r4 preset on a small synthetic
+               ModelNet40 split (4 steps of 16 x 1024, one validation pass,
+               checkpoints), seeded weights; then 10 more steps on one
+               fixed batch: finite losses, K2, K3 and K4 each launched twice
+               per step, the last 3 losses below the first 3; ms/step,
+               clouds/s, and the forward/backward/optimizer split.
+  7. train parity — one step on 4 clouds from the same weights, dropout
+               off, on the card and on the CPU: loss, gradients, BN stats.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -26,8 +36,10 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and f32 outside the
@@ -48,7 +60,14 @@ TIMED_BATCHES = 3
 # order (index_add_ uses atomics on the card): <= 1e-5 of the largest
 # value. K3: same corner order and unfused multiply-add as the plain
 # version: <= 1e-6 of the largest value.
-TOL = {"normals_moments": 1e-5, "scatter_mean": 1e-5, "corner_gather": 1e-6}
+# K4: the kernel sums each voxel's products in (p, k) order, unfused, as the
+# plain version does on the CPU; on the card index_add_ adds them with
+# atomics in another order: <= 1e-5 of the largest value.
+TOL = {"normals_moments": 1e-5, "scatter_mean": 1e-5, "corner_gather": 1e-6,
+       "corner_scatter": 1e-5}
+# K4 against K3: <K4(dout), grid> and <dout, K3(grid)> (sums in f64 of the
+# f32 kernel outputs) within 1e-5 relative.
+ADJOINT_TOL = 1e-5
 # End-to-end parity, card vs CPU: share of points whose feature differs by
 # more than 1e-3 of the largest feature (a one-ulp change in a voxel
 # boundary or a ball-query radius test moves single points) <= 1%; share of
@@ -68,6 +87,30 @@ MASK_AGREE = 0.99
 TRANSFORM_TOL = 1e-3
 NUDGE, NUDGE_TRIES = 1e-6, 4
 TLS_COST_SLACK = 1.0
+
+# Training: the mn40_sph_pt_r4 preset on a small split. train() takes
+# TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds and one validation pass;
+# then TRAIN_STEPS steps on one fixed batch.
+TRAIN_BATCH = 16
+TRAIN_ITEMS = {"train": 64, "valid": 16, "test": 16}
+TRAIN_LOOP_STEPS = 4
+TRAIN_STEPS = 10
+# Kernel launches per training step (two PVConv blocks) and per eval batch.
+STEP_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2, "corner_scatter": 2}
+EVAL_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2}
+# Card vs CPU, one step on PARITY_CLOUDS clouds from the same weights:
+# loss within 1e-3 relative; BN running statistics within 1e-3 of each
+# buffer's largest value; per parameter, the gradients' cosine >= 0.999
+# where the gradient's norm is at least GRAD_NORM_FLOOR of the largest
+# parameter gradient's norm. Below that floor a gradient is cancellation
+# with no direction to compare: a bias in front of a train-mode BatchNorm
+# has an exact gradient of 0, and so, nearly, has a BN bias whose channel a
+# later BatchNorm centres (norms 1e-9..3e-6 of the largest at this width).
+# Those are held by |card - CPU| <= GRAD_DIFF_TOL of the largest norm
+# instead, and each is printed with its norm and cosine.
+PARITY_CLOUDS = 4
+LOSS_RTOL, STATS_RTOL = 1e-3, 1e-3
+GRAD_COS, GRAD_NORM_FLOOR, GRAD_DIFF_TOL = 0.999, 1e-4, 1e-5
 
 
 def tls_cost(transform, src, dst, mask, noise_bound: float):
@@ -267,6 +310,57 @@ def check_kernels(clouds, report: dict) -> None:
         shapes=f"grid [{b},{s},64] and [{b},{s},128], corners [{b},{n},8]",
         tol=TOL["corner_gather"], **k3)
 
+    # K4 at the training batch (the first TRAIN_BATCH clouds), c = 64 and
+    # c = 128, over the same corners; undefined points give idx = -1 rows.
+    bt = TRAIN_BATCH
+    idx4, w4 = idx[:bt], w[:bt]
+    idx4_32 = idx4.to(torch.int32)
+    valid4 = idx4 >= 0
+    rows4 = (torch.where(valid4, idx4, torch.full_like(idx4, bt * s))
+             + torch.where(valid4, torch.arange(bt, device=dev)[:, None, None] * s,
+                           torch.zeros_like(idx4))).reshape(-1)
+    w4_masked = torch.where(valid4, w4, torch.zeros_like(w4))
+    k4 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+              bytes=0, flops=0, adjoint_rel_err=0.0,
+              skipped_rows=int((~valid4).all(-1).sum()))
+    for c in (64, 128):
+        dout = torch.randn((bt, n, c), generator=gen, device=dev)
+        got = oh.corner_scatter(dout, idx4_32, w4, s)
+        want_out = oh.corner_scatter_plain(dout, idx4, w4, s)
+        torch.cuda.synchronize()
+        a, rel = rel_err(got, want_out)
+        k4["max_abs_err"] = max(k4["max_abs_err"], a)
+        k4["max_rel_err"] = max(k4["max_rel_err"], rel)
+        grid = torch.randn((bt, s, c), generator=gen, device=dev)
+        lhs = float((got.double() * grid.double()).sum())
+        rhs = float((dout.double() * oh.corner_gather(grid, idx4_32, w4).double()).sum())
+        k4["adjoint_rel_err"] = max(k4["adjoint_rel_err"], abs(lhs - rhs) / abs(rhs))
+        k4["ms"] += cuda_time_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
+        k4["plain_ms"] += cuda_time_ms(lambda: oh.corner_scatter_plain(dout, idx4, w4, s))
+
+        def library():  # w·dout rows, then index_add_ into a flat grid with a trash row
+            rows = (w4_masked[..., None] * dout[:, :, None, :]).reshape(-1, c)
+            return torch.zeros((bt * s + 1, c), device=dev).index_add_(0, rows4, rows)
+
+        if rel_err(library()[:bt * s].reshape(bt, s, c), want_out)[1] > TOL["corner_scatter"]:
+            fail("K4 library yardstick disagrees with the plain version")
+        k4["library_ms"] += cuda_time_ms(library)
+        # dout, corner indices and weights read once; the dense dgrid written once.
+        k4["bytes"] += bt * n * c * 4 + bt * n * 8 * 8 + bt * s * c * 4
+        k4["flops"] += int(valid4.sum()) * c * 2
+    # At one channel the dense pass is 1/64 of the c = 64 one: what is left
+    # is mostly the per-cloud sort (one block per cloud).
+    dout1 = torch.randn((bt, n, 1), generator=gen, device=dev)
+    k4["one_channel_ms"] = cuda_time_ms(lambda: oh.corner_scatter(dout1, idx4_32, w4, s))
+    if k4["adjoint_rel_err"] > ADJOINT_TOL:
+        fail(f"K4 is not K3's adjoint: relative difference {k4['adjoint_rel_err']:.3e}")
+    report["corner_scatter"] = dict(
+        source="rift_tpu_torch/csrc/voxel_ops.cu",
+        replaces="rift_tpu/ops/pallas/onehot_ops.py:155",
+        shapes=f"dout [{bt},{n},64] and [{bt},{n},128], corners [{bt},{n},8] -> [{bt},{s},c] "
+               f"({k4['skipped_rows']} rows of idx -1)",
+        tol=TOL["corner_scatter"], **k4)
+
     for name, rep in report.items():
         bound_bytes = rep["bytes"] / PEAK_BYTES_PER_S * 1e3
         bound_ops = rep["flops"] / PEAK_F32_FLOP_PER_S * 1e3
@@ -278,7 +372,10 @@ def check_kernels(clouds, report: dict) -> None:
               f"rel {rep['max_rel_err']:.3e} (tol {rep['tol']:.0e}); "
               f"kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
               f"library {rep['library_ms']} ms, bound {rep['bound_ms']:.4f} ms "
-              f"({rep['bound_by']})", flush=True)
+              f"({rep['bound_by']})"
+              + (f"; adjoint rel err {rep['adjoint_rel_err']:.3e} (tol {ADJOINT_TOL:g}), "
+                 f"{rep['one_channel_ms']:.4f} ms at one channel"
+                 if "adjoint_rel_err" in rep else ""), flush=True)
 
 
 def path_stages(model, src, dst):
@@ -297,6 +394,193 @@ def path_stages(model, src, dst):
         b = src.shape[0]
         _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
     return normals, feats, idx2, mask
+
+
+def train_config():
+    """The mn40_sph_pt_r4 preset cut to a small split: one epoch of
+    TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds."""
+    from rift_tpu_torch.train import get_config
+
+    cfg = get_config("mn40_sph_pt_r4")
+    cfg.dataset.synthetic_items = dict(TRAIN_ITEMS)
+    cfg.train.batch_size = TRAIN_BATCH
+    cfg.train.steps_per_epoch = TRAIN_LOOP_STEPS
+    cfg.optim.num_epochs = 1
+    return cfg
+
+
+def read_counts(wrappers: dict) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def train_phase(wrappers: dict) -> dict:
+    """train() on the card, then TRAIN_STEPS steps on one fixed batch."""
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.train import build_model, get_config, train
+    from rift_tpu_torch.train.steps import create_state, cross_entropy, train_step
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = train_config()
+        cfg.train.ckpt_dir = ckpt_dir
+        for fn in wrappers.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        out = train(cfg)  # device=None: the card
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+        launches = read_counts(wrappers)
+        eval_batches = -(-TRAIN_ITEMS["valid"] // cfg.train.eval_batch_size)
+        for name in wrappers:
+            want = (STEP_LAUNCHES.get(name, 0) * TRAIN_LOOP_STEPS
+                    + EVAL_LAUNCHES.get(name, 0) * eval_batches)
+            if launches[name] != want:
+                fail(f"train(): {name} launched {launches[name]} times, expected {want}")
+        if out["state"].step != TRAIN_LOOP_STEPS or not math.isfinite(out["loss"]) \
+                or "acc" not in out["best"] \
+                or not os.path.isfile(os.path.join(ckpt_dir, "common.pt")):
+            fail(f"train(): step {out['state'].step}, loss {out['loss']}, best {out['best']}, "
+                 f"files {sorted(os.listdir(ckpt_dir))}")
+
+    # The fixed-batch steps start from the seeded weights with the preset's
+    # own schedule (120 epochs of its 2048-item split), whose learning rate
+    # stays near 1e-3 over these steps; train() above decayed to 0 in its
+    # one epoch.
+    dev = torch.device("cuda")
+    full = get_config("mn40_sph_pt_r4")
+    steps_per_epoch = full.dataset.synthetic_items["train"] // full.train.batch_size
+    state = create_state(build_model(cfg), full, steps_per_epoch, dev, seed=cfg.seed)
+    clouds, labels = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
+    clouds = torch.as_tensor(clouds, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    gen = torch.Generator(device=dev)
+    losses, times, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        before = read_counts(wrappers)
+        gen.manual_seed(cfg.seed * 1_000_003 + state.step)
+        t1 = time.perf_counter()
+        metrics = train_step(state, clouds, labels, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(metrics["loss"])
+        after = read_counts(wrappers)
+        per_step.append({k: after[k] - before[k] for k in after})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name in wrappers:
+        fixed = [d[name] for d in per_step]
+        if any(d != STEP_LAUNCHES.get(name, 0) for d in fixed):
+            fail(f"fixed-batch steps: {name} launched {fixed} times per step, expected "
+                 f"{STEP_LAUNCHES.get(name, 0)}")
+        launches[name] += sum(fixed)
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        fail(f"training loss did not fall on a fixed batch: first 3 {first:.4f}, "
+             f"last 3 {last:.4f} ({short(losses)})")
+
+    # One more step, split by CUDA events into forward, backward and
+    # optimizer (the parts of train_step; the clip is off in this preset).
+    model = state.model
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with f32_geometry():
+        events[0].record()
+        loss = cross_entropy(model(clouds, generator=gen), labels)
+        events[1].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        events[2].record()
+        state.optimizer.step()
+        events[3].record()
+    torch.cuda.synchronize()
+    split = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    profile = profile_step(lambda: train_step(state, clouds, labels, gen))
+    ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    return dict(ms_per_step=ms, clouds_per_s=TRAIN_BATCH / ms * 1e3, loop_s=loop_s,
+                losses=losses, split_ms=split, peak_gb=peak_gb, launches=launches,
+                best=out["best"], profile=profile)
+
+
+def profile_step(step) -> dict:
+    """One call of step() under torch.profiler: wall ms, device ms (kernel
+    events only: an aten op also reports its kernels' time), the device's
+    busy share, and the 8 kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
+                   if "CUDA" in str(ev.device_type) and ev.self_device_time_total > 0),
+                  reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "top": [(k[:80], round(us / 1e3, 3), c) for us, k, c in rows[:8]]}
+
+
+def train_parity() -> str:
+    """One step on PARITY_CLOUDS clouds from the same weights, dropout off,
+    on the card and on the CPU. Prints a line per parameter below the
+    norm floor."""
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.train import build_model
+    from rift_tpu_torch.train.steps import TrainState, create_state, make_optimizer, train_step
+
+    cfg = train_config()
+    clouds, labels = next(ModelNet40(cfg.dataset, "valid").batches(PARITY_CLOUDS, seed=1))
+    cpu = create_state(build_model(cfg), cfg, TRAIN_LOOP_STEPS, torch.device("cpu"),
+                       seed=cfg.seed + 1)
+    cpu.model.dropout = 0.0
+    card_model = copy.deepcopy(cpu.model).cuda()
+    card = TrainState(card_model, *make_optimizer(card_model, cfg, TRAIN_LOOP_STEPS))
+    out_g = train_step(card, torch.as_tensor(clouds, device="cuda"),
+                       torch.as_tensor(labels, device="cuda"))
+    out_c = train_step(cpu, torch.as_tensor(clouds), torch.as_tensor(labels))
+    loss_g, loss_c = float(out_g["loss"]), float(out_c["loss"])
+    grads_c = {name: p.grad.double().flatten() for name, p in cpu.model.named_parameters()}
+    grads_g = {name: p.grad.double().cpu().flatten()
+               for name, p in card.model.named_parameters()}
+    top = max(float(g.norm()) for g in grads_c.values())
+    rows = []  # (cosine, |g| over the largest |g|, |g_card - g_cpu| over the largest |g|, name)
+    for name, want in grads_c.items():
+        g = grads_g[name]
+        cos = float(torch.dot(g, want) / (g.norm() * want.norm()).clamp(min=1e-300))
+        rows.append((cos, float(want.norm()) / top, float((g - want).norm()) / top, name))
+    directed = [r for r in rows if r[1] >= GRAD_NORM_FLOOR]
+    floor = [r for r in rows if r[1] < GRAD_NORM_FLOOR]
+    worst_cos = min(directed)
+    worst_floor = max(floor, key=lambda r: r[2], default=(1.0, 0.0, 0.0, "none"))
+    for cos, norm, diff, name in sorted(floor, key=lambda r: r[1]):
+        print(f"  below the floor: {name}: norm {norm:.3e}, cosine {cos:.6f}, "
+              f"|card - CPU| {diff:.3e}", flush=True)
+    bufs_c = dict(cpu.model.named_buffers())
+    worst_stat, worst_stat_name = 0.0, ""
+    for name, buf in card.model.named_buffers():
+        err = float((buf.cpu() - bufs_c[name]).abs().max()) / float(bufs_c[name].abs().max())
+        if err > worst_stat:
+            worst_stat, worst_stat_name = err, name
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    msg = (f"{PARITY_CLOUDS} clouds x {NUM_POINTS}: loss card {loss_g:.6f} CPU {loss_c:.6f} "
+           f"(rel {loss_rel:.3e}, tol {LOSS_RTOL:g}); gradients (norms relative to the "
+           f"largest parameter gradient's): min cosine {worst_cos[0]:.6f} at {worst_cos[3]} "
+           f"over the {len(directed)} with norm >= {GRAD_NORM_FLOOR:g} (tol {GRAD_COS}); "
+           f"below the floor ({len(floor)}), max |card - CPU| {worst_floor[2]:.3e} at "
+           f"{worst_floor[3]} (tol {GRAD_DIFF_TOL:g}); BN running stats max rel diff "
+           f"{worst_stat:.3e} at {worst_stat_name} (tol {STATS_RTOL:g})")
+    if loss_rel > LOSS_RTOL or worst_cos[0] < GRAD_COS or worst_floor[2] > GRAD_DIFF_TOL \
+            or worst_stat > STATS_RTOL:
+        fail("train parity: " + msg)
+    return msg
 
 
 def main() -> int:
@@ -355,9 +639,10 @@ def main() -> int:
         est = register_batch(model, src, dst)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts(wrappers)
     batches = TIMED_BATCHES + 1
-    per_batch = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2}
+    per_batch = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2,
+                 "corner_scatter": 0}
     for name, want in per_batch.items():
         if launches[name] != want * batches:
             fail(f"{name} launched {launches[name]} times in {batches} batches, "
@@ -435,16 +720,35 @@ def main() -> int:
         fail("parity: " + msg)
     phase("parity", t0, msg)
 
+    t0 = time.perf_counter()
+    tr = train_phase(wrappers)
+    print(f"train: {smi}: {tr['ms_per_step']:.2f} ms/step (median of steps 2-{TRAIN_STEPS} "
+          f"on a fixed batch), {tr['clouds_per_s']:.2f} clouds/s at {TRAIN_BATCH} x "
+          f"{NUM_POINTS}; forward {tr['split_ms'][0]:.2f} ms, backward "
+          f"{tr['split_ms'][1]:.2f} ms, optimizer {tr['split_ms'][2]:.2f} ms; peak "
+          f"{tr['peak_gb']:.2f} GB", flush=True)
+    print(f"train profile (one step): {json.dumps(tr['profile'])}", flush=True)
+    phase("train", t0, f"train() {TRAIN_LOOP_STEPS} steps + validation in "
+                       f"{tr['loop_s']:.2f} s (best {tr['best']}); fixed-batch losses "
+                       f"{short(tr['losses'])}; launches {tr['launches']}")
+
+    t0 = time.perf_counter()
+    phase("train parity", t0, train_parity())
+
+    paths = {"register": launches, "train": tr["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
             "name": name, "route": "cuda", "source": rep["source"],
-            "replaces": rep["replaces"], "launches": launches[name],
+            "replaces": rep["replaces"],
+            "launches": sum(counts[name] for counts in paths.values()),
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "max_abs_err": rep["max_abs_err"], "max_err": rep["max_abs_err"],
             "max_rel_err": rep["max_rel_err"], "tol": rep["tol"],
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            "shapes": rep["shapes"]})
+            "shapes": rep["shapes"],
+            **({"adjoint_rel_err": rep["adjoint_rel_err"]} if "adjoint_rel_err" in rep else {})})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,14 +1,18 @@
-"""PVCNN rotation-invariant feature extractor, twin of
-`rift_tpu/models/pvcnn.py:PVCNNClassifier` in eval with `is_classify=False`.
+"""PVCNN rotation-invariant classifier and feature extractor, twin of
+`rift_tpu/models/pvcnn.py:PVCNNClassifier`.
 
 Ported: centring; the 'change_coords' preprocess (`lrf_kind` 'pca' or
-'reference', no extra channels); the eval local-PPF branch (ball-query
-grouping, `local_ppf`, SharedMLP [32, 64], max over the valid slots); the
-backbone of spherical `pointnet_kernel` PVConv blocks and SharedMLP blocks.
-The other branches raise NotImplementedError until a later slice ports them.
+'reference', no extra channels); the local-PPF branch in both modes (eval:
+ball-query grouping with masked empty slots; train: `ball_query` with its
+duplicate padding, so BatchNorm sees the reference's rows); the backbone of
+spherical `pointnet_kernel` PVConv blocks and SharedMLP blocks; and, with
+`is_classify=True`, the head max-pool -> Dense 512 -> BN -> ReLU ->
+Dropout 0.2 -> Dense 256 -> BN -> ReLU -> Dense num_classes. The other
+branches raise NotImplementedError until a later slice ports them.
 
 Submodules carry the flax module names (`SharedMLP_0`, `PVConv_0`, ...) in
-`self.layers`, so `weights.from_flax` maps a flax tree by name alone.
+`self.layers` and (`Dense_0`, `BatchNorm_0`, ...) in `self.head`, so
+`weights.from_flax` maps a flax tree by name alone.
 """
 from __future__ import annotations
 
@@ -17,10 +21,11 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from ..nn.batch_norm import BatchNorm
 from ..nn.pvconv import PVConv
 from ..nn.shared_mlp import SharedMLP
 from ..ops.lrf import change_coords, lrf_basis
-from ..ops.neighbors import ball_query_group
+from ..ops.neighbors import ball_query, ball_query_group, grouping
 from ..ops.ppf import local_ppf
 
 DEFAULT_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
@@ -28,12 +33,16 @@ DEFAULT_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
 
 class PVCNNClassifier(nn.Module):
     """Field names mirror `rift_tpu.models.PVCNNClassifier`. Input
-    [b, n, 6] (xyz + normals) -> per-point features [b, n, last width].
-    On the card, run it inside `ops/precision.py:f32_geometry` (as
-    `register_batch` does): cuDNN runs Conv3d in TF32 by default."""
+    [b, n, 6] (xyz + normals) -> per-point features [b, n, last width], or
+    logits [b, num_classes] with `is_classify=True`. On the card, run it
+    inside `ops/precision.py:f32_geometry` (as `register_batch` and
+    `train.steps.train_step` do): cuDNN runs Conv3d in TF32 by default.
+    `dropout` is the head's rate (the reference's 0.2); in train mode its
+    mask is drawn from the `generator` given to `forward`."""
 
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
                  dim_k: int = 512,
+                 num_classes: int = 40,
                  point_kernel_formal: str = "pointnet_kernel",
                  voxel_shape: str = "spherical",
                  with_coeff: bool = True, with_se: bool = True,
@@ -45,10 +54,9 @@ class PVCNNClassifier(nn.Module):
                  lrf_kind: str = "pca",
                  with_local_feat: str | None = "ppf",
                  local_radius: float = 0.3, local_neighbors: int = 128,
-                 local_fuse_dim: int = 64):
+                 local_fuse_dim: int = 64,
+                 dropout: float = 0.2):
         super().__init__()
-        if is_classify:
-            raise NotImplementedError("the classifier head is not ported yet")
         if rot_invariant_preprocess != "change_coords" or extra_feature_channels != 0:
             raise NotImplementedError(
                 f"preprocess {rot_invariant_preprocess!r} with "
@@ -89,8 +97,17 @@ class PVCNNClassifier(nn.Module):
                 in_ch = out_ch
         self.layers = nn.ModuleDict(layers)
         self.out_channels = in_ch
+        self.head = None
+        if is_classify:
+            w1, w2 = int(512 * width_multiplier), int(256 * width_multiplier)
+            self.head = nn.ModuleDict({
+                "Dense_0": nn.Linear(in_ch, w1), "BatchNorm_0": BatchNorm(w1),
+                "Dense_1": nn.Linear(w1, w2), "BatchNorm_1": BatchNorm(w2),
+                "Dense_2": nn.Linear(w2, num_classes)})
+            self.dropout = dropout
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         coords = inputs[..., :3]
         coords = coords - coords.mean(-2, keepdim=True)
         features = change_coords(coords, lrf_basis(coords, self.lrf_kind))
@@ -98,14 +115,34 @@ class PVCNNClassifier(nn.Module):
             if inputs.shape[-1] < 6:
                 raise ValueError("local PPF features need normals: inputs [b, n, 6]")
             normals = inputs[..., 3:6]
-            nbr, slot_ok = ball_query_group(coords, coords, torch.cat([coords, normals], -1),
-                                            self.local_radius, self.local_neighbors)
-            feats = local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals)
-            fused = self.layers[self._local](feats)
-            fused = fused.masked_fill(~slot_ok[..., None], float("-inf"))
+            with_normals = torch.cat([coords, normals], -1)
+            if self.training:
+                # The reference's training composition: empty slots repeat
+                # the first neighbour, so BatchNorm sees the duplicated rows
+                # and the max runs over every slot.
+                idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
+                nbr, slot_ok = grouping(with_normals, idx), None
+            else:
+                nbr, slot_ok = ball_query_group(coords, coords, with_normals,
+                                                self.local_radius, self.local_neighbors)
+            fused = self.layers[self._local](
+                local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals))
+            if slot_ok is not None:
+                fused = fused.masked_fill(~slot_ok[..., None], float("-inf"))
             features = torch.cat([features, fused.amax(-2)], dim=-1)
         for name in self._backbone:
             layer = self.layers[name]
             features = (layer(features, coords) if isinstance(layer, PVConv)
                         else layer(features))
-        return features
+        if self.head is None:
+            return features
+        h = self.head
+        x = torch.relu(h["BatchNorm_0"](h["Dense_0"](features.amax(-2))))
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a torch.Generator")
+            keep = 1.0 - self.dropout
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
+        x = torch.relu(h["BatchNorm_1"](h["Dense_1"](x)))
+        return h["Dense_2"](x)

@@ -3,7 +3,9 @@ voxel grid and the `pointnet_kernel` point branch.
 
 Voxel branch: spherical scatter-mean (K2) -> 2 × [Conv3d k=3 padding 1 +
 BatchNorm (eps 1e-4) + LeakyReLU 0.1] -> SE3d -> spherical trilinear
-devoxelize (K3). Point branch: SharedMLP. Output coefficient·voxel + point.
+devoxelize (K3; its backward is K4). Point branch: SharedMLP. Output
+coefficient·voxel + point. BatchNorm has flax's semantics
+(`nn/batch_norm.py`).
 Features are channels-last [b, n, c] at the boundary; the grid is permuted
 to [b, c, r, r, r] around the convolutions, with axes (γ, α, β).
 """
@@ -14,6 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.spherical import spherical_avg_voxelize, spherical_trilinear_devoxelize
+from .batch_norm import BatchNorm
 from .shared_mlp import SharedMLP
 
 
@@ -48,7 +51,7 @@ class PVConv(nn.Module):
         self.convs = nn.ModuleList([
             nn.Conv3d(c_in, out_channels, kernel_size, padding=kernel_size // 2)
             for c_in in (in_channels, out_channels)])
-        self.bns = nn.ModuleList([nn.BatchNorm3d(out_channels, eps=1e-4) for _ in range(2)])
+        self.bns = nn.ModuleList([BatchNorm(out_channels, eps=1e-4) for _ in range(2)])
         self.se = SE3d(out_channels) if with_se else None
         self.point = SharedMLP(in_channels, [out_channels])
         self.coefficient = nn.Parameter(torch.ones(())) if with_coeff else None

@@ -1,11 +1,14 @@
 """SharedMLP, twin of `rift_tpu/nn/shared_mlp.py`: per width, Linear +
-BatchNorm (eps 1e-5) + ReLU over the last axis of [..., c]."""
+BatchNorm (eps 1e-5, flax's semantics) + ReLU over the last axis of
+[..., c]. In train mode BN takes its statistics over every leading axis."""
 from __future__ import annotations
 
 from collections.abc import Sequence
 
 import torch
 from torch import nn
+
+from .batch_norm import BatchNorm
 
 
 class SharedMLP(nn.Module):
@@ -15,7 +18,7 @@ class SharedMLP(nn.Module):
         for width in widths:
             layers.append(nn.ModuleDict({
                 "dense": nn.Linear(in_channels, width),
-                "bn": nn.BatchNorm1d(width, eps=bn_eps),
+                "bn": BatchNorm(width, eps=bn_eps),
             }))
             in_channels = width
         self.layers = nn.ModuleList(layers)

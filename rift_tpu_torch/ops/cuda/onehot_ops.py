@@ -1,11 +1,12 @@
-"""K2 voxel scatter-mean and K3 8-corner gather (CUDA kernels and plain
-versions).
+"""K2 voxel scatter-mean, K3 8-corner gather and K4 8-corner scatter (CUDA
+kernels and plain versions).
 
-Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2)
-and `corner_gather_pallas` (K3). The TPU kernels build one-hot selectors
-for the MXU; on the card the same functions are a sort-then-segment-sum
-and a direct 8-row gather (`csrc/voxel_ops.cu`). Each wrapper launches its
-kernel for a CUDA tensor and takes its plain version only for a CPU tensor.
+Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2),
+`corner_gather_pallas` (K3) and its transpose `corner_scatter_pallas` (K4).
+The TPU kernels build one-hot selectors for the MXU; on the card the same
+functions are a sort-then-segment-sum (K2, K4) and a direct 8-row gather
+(K3), in `csrc/voxel_ops.cu`. Each wrapper launches its kernel for a CUDA
+tensor and takes its plain version only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from . import build
 Tensor = torch.Tensor
 
 MAX_SORT_POINTS = 4096  # K2 sorts one cloud's keys in shared memory
+MAX_SCATTER_POINTS = 1024  # K4 sorts one cloud's 8·n corner keys in shared memory
+MAX_SCATTER_SEGMENTS = 1 << 19  # K4 keys hold the voxel in 19 bits
 
 
 def scatter_mean_plain(features: Tensor, inds: Tensor, num_segments: int
@@ -123,3 +126,64 @@ def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
 
 
 corner_gather.launches = 0
+
+
+def corner_scatter_plain(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
+                         num_segments: int) -> Tensor:
+    """Plain PyTorch version of K4, the transpose of K3: dout [b, n, c],
+    corner_idx [b, n, 8] (negative = skipped), corner_w [b, n, 8] ->
+    dgrid [b, s, c] with dgrid[v] = Σ_{p,k: idx = v} w[p, k]·dout[p]. The
+    products are summed in (p, k) order (`index_add_` on the CPU)."""
+    b, n, c = dout.shape
+    s = num_segments
+    valid = corner_idx >= 0
+    # Skipped corners go to a trash row past each cloud's segments.
+    row = torch.where(valid, corner_idx.long(), torch.full_like(corner_idx.long(), s))
+    flat = (row + torch.arange(b, device=dout.device)[:, None, None] * (s + 1)).reshape(-1)
+    rows = (corner_w.to(dout.dtype)[..., None] * dout[:, :, None, :]).reshape(b * n * 8, c)
+    out = torch.zeros((b * (s + 1), c), dtype=dout.dtype, device=dout.device)
+    out.index_add_(0, flat, rows)
+    return out.reshape(b, s + 1, c)[:, :s]
+
+
+def corner_scatter(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
+                   num_segments: int) -> Tensor:
+    """K4. dgrid[b, v, c] = Σ_{p,k: idx[b,p,k] = v} w[b,p,k]·dout[b,p,c],
+    skipping idx < 0; every voxel written. CPU tensor: the plain version;
+    CUDA tensor: the kernel."""
+    if dout.device.type == "cpu":
+        return corner_scatter_plain(dout, corner_idx, corner_w, num_segments)
+    if dout.device.type != "cuda" or corner_idx.device != dout.device \
+            or corner_w.device != dout.device:
+        raise ValueError("dout, corner_idx and corner_w must share one CUDA device")
+    if dout.dtype != torch.float32 or dout.dim() != 3:
+        raise ValueError(f"dout must be f32 [b, n, c], got {dout.dtype} {tuple(dout.shape)}")
+    b, n, c = dout.shape
+    if tuple(corner_idx.shape) != (b, n, 8) or corner_w.shape != corner_idx.shape:
+        raise ValueError(f"corner_idx/corner_w must be [{b}, {n}, 8], got "
+                         f"{tuple(corner_idx.shape)} / {tuple(corner_w.shape)}")
+    if n > MAX_SCATTER_POINTS:
+        raise ValueError(f"the corner-scatter kernel takes n <= {MAX_SCATTER_POINTS}, got {n}")
+    s = int(num_segments)
+    if s >= MAX_SCATTER_SEGMENTS:
+        raise ValueError(f"the corner-scatter kernel takes fewer than "
+                         f"{MAX_SCATTER_SEGMENTS} segments, got {s}")
+    lib = build.load()
+    d = dout.contiguous()
+    idx = corner_idx.to(torch.int32).contiguous()
+    w = corner_w.to(torch.float32).contiguous()
+    dev = dout.device
+    order = torch.empty((b, 8 * n), dtype=torch.int32, device=dev)
+    vstart = torch.empty((b, s), dtype=torch.int32, device=dev)
+    vlen = torch.empty((b, s), dtype=torch.int32, device=dev)
+    dgrid = torch.empty((b, s, c), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.rift_corner_scatter(d.data_ptr(), idx.data_ptr(), w.data_ptr(), b, n, c, s,
+                                        order.data_ptr(), vstart.data_ptr(), vlen.data_ptr(),
+                                        dgrid.data_ptr(), stream),
+                "rift_corner_scatter")
+    corner_scatter.launches += 1
+    return dgrid
+
+
+corner_scatter.launches = 0

@@ -8,6 +8,14 @@ scale); β = acos(z/γ); α = atan(y/x) + π(1 − sign x)/2 with the x == 0
 cases, shifted by π/r and wrapped into [0, 2π). Grid axes are (γ, α, β),
 flat index gγ·r² + gα·r + gβ. The scatter-mean is K2 and the 8-corner
 gather K3 (`ops/cuda/onehot_ops.py`).
+
+Gradients, twins of the custom VJPs of
+`rift_tpu/ops/pallas/spherical_fast.py`: the scatter-mean's backward is the
+row gather dfeat[p] = g[ind[p]] / cnt[ind[p]] (0 for dropped points), plain
+PyTorch; the corner gather's backward for the grid is K4, its transpose.
+Coordinates, and so the voxel indices and corner weights, get no gradient.
+On CPU tensors the wrappers take their plain versions, forward and
+backward alike.
 """
 from __future__ import annotations
 
@@ -15,9 +23,48 @@ import math
 
 import torch
 
-from .cuda.onehot_ops import corner_gather, scatter_mean
+from .cuda.onehot_ops import corner_gather, corner_scatter, scatter_mean
 
 Tensor = torch.Tensor
+
+
+class ScatterMean(torch.autograd.Function):
+    """(features [b, n, c], inds [b, n], s) -> (out [b, s, c], cnt [b, s]);
+    forward K2, backward a row gather. `cnt` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, inds, num_segments):
+        out, cnt = scatter_mean(features, inds, num_segments)
+        ctx.save_for_backward(inds, cnt)
+        ctx.mark_non_differentiable(cnt)
+        return out, cnt
+
+    @staticmethod
+    def backward(ctx, g, _):
+        inds, cnt = ctx.saved_tensors
+        valid = inds >= 0
+        safe = torch.where(valid, inds.long(), torch.zeros_like(inds.long()))
+        g_rows = torch.gather(g, 1, safe[..., None].expand(-1, -1, g.shape[-1]))
+        inv = 1.0 / torch.clamp(torch.gather(cnt, 1, safe), min=1.0)
+        inv = torch.where(valid, inv, torch.zeros_like(inv))
+        return g_rows * inv[..., None], None, None
+
+
+class CornerGather(torch.autograd.Function):
+    """(grid [b, s, c], corner_idx [b, n, 8], corner_w [b, n, 8]) ->
+    [b, n, c]; forward K3, backward for the grid K4. The corners and their
+    weights take no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, corner_idx, corner_w):
+        ctx.save_for_backward(corner_idx, corner_w)
+        ctx.num_segments = grid.shape[1]
+        return corner_gather(grid, corner_idx, corner_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        corner_idx, corner_w = ctx.saved_tensors
+        return corner_scatter(g.contiguous(), corner_idx, corner_w, ctx.num_segments), None, None
 
 
 def normalize_coords_sphere(coords: Tensor) -> Tensor:
@@ -65,9 +112,9 @@ def spherical_avg_voxelize(features: Tensor, coords: Tensor, resolution: int
     """features [b, n, c], raw coords [b, n, 3] -> (grid [b, r, r, r, c] with
     axes (γ, α, β), indices [b, n] (−1 = undefined), normalized coords)."""
     r = resolution
-    norm_coords = normalize_coords_sphere(coords)
+    norm_coords = normalize_coords_sphere(coords.detach())
     inds, _ = spherical_voxel_indices(norm_coords, r)
-    flat, _ = scatter_mean(features, inds, r * r * r)
+    flat, _ = ScatterMean.apply(features, inds, r * r * r)
     grid = flat.reshape(flat.shape[:-2] + (r, r, r, flat.shape[-1]))
     return grid, inds, norm_coords
 
@@ -113,5 +160,5 @@ def spherical_trilinear_devoxelize(voxel_grid: Tensor, norm_coords: Tensor,
     r = resolution
     c = voxel_grid.shape[-1]
     flat = voxel_grid.reshape(voxel_grid.shape[:-4] + (r * r * r, c))
-    idx, w = spherical_corner_weights(norm_coords, point_inds, r)
-    return corner_gather(flat, idx, w)
+    idx, w = spherical_corner_weights(norm_coords.detach(), point_inds, r)
+    return CornerGather.apply(flat, idx, w)

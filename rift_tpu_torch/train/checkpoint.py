@@ -1,0 +1,66 @@
+"""Checkpoints in torch's own format, twin of
+`rift_tpu/train/checkpoint.py:CheckpointManager` (which uses orbax): a
+rolling `common` checkpoint and per-metric `best_<metric>` copies under
+`ckpt_dir`. Each is `<name>.pt` (`torch.save` of the model's state_dict,
+the optimizer's, the update count and the best metrics) beside the
+`<name>.meta.json` the reference writes ({"best": ..., "config": ...}).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+from .steps import TrainState
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.ckpt_dir, name)
+
+    def _save(self, name: str, state: TrainState, best: dict, config) -> None:
+        path = self._path(name)
+        tmp = path + f".pt.tmp{os.getpid()}"
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": state.step,
+                    "best": {k: float(v) for k, v in best.items()}}, tmp)
+        os.replace(tmp, path + ".pt")
+        meta = {"best": {k: float(v) for k, v in best.items()},
+                "config": dataclasses.asdict(config) if dataclasses.is_dataclass(config)
+                else dict(config or {})}
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f, indent=2)
+
+    def save_common(self, state: TrainState, best: dict, config) -> None:
+        self._save("common", state, best, config)
+
+    def save_best(self, metric_name: str, state: TrainState, best: dict, config) -> None:
+        self._save(f"best_{metric_name}", state, best, config)
+
+    def load_meta(self, name: str = "common") -> dict | None:
+        """The JSON side file: {'best': {...}, 'config': <snapshot dict>}."""
+        path = self._path(name) + ".meta.json"
+        if not os.path.isfile(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def restore(self, state: TrainState, name: str = "common") -> dict | None:
+        """Load `name` into `state` in place (model, optimizer, step) and
+        return its best metrics; None when there is no such checkpoint."""
+        path = self._path(name) + ".pt"
+        if not os.path.isfile(path):
+            return None
+        device = next(state.model.parameters()).device
+        saved = torch.load(path, map_location=device, weights_only=True)
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        return dict(saved["best"])

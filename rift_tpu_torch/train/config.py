@@ -1,0 +1,103 @@
+"""Training configuration: the dataclasses `train()` reads, copied from
+`rift_tpu/train/config.py` (`ModelConfig`, `OptimConfig`, `TrainConfig`;
+`ModelNet40Config` is in `data/modelnet40.py`), and two presets:
+
+- `mn40_sph_pt_r4`: the flagship, the values of
+  `checkpoints/mn40_sph_pt_r4/best_acc.meta.json` (kept in code: the chip
+  tool's copy of the repo leaves `checkpoints/` out), except `ckpt_dir`,
+  which points beside the reference's checkpoint, never into it;
+- `tiny_smoke`: the reference's CPU smoke widths, with the flagship's
+  `pointnet_kernel` and `lrf_kind='pca'` (the reference's preset keeps
+  the `dgcnn_kernel` default, which waits for its slice).
+
+Only the fields the port reads are here; the dataclasses have slots, so
+setting any other raises. The reference's other training fields change
+nothing on one card with the probe off (`log_every`, `data_parallel`,
+`reg_probe_pairs`, `cache_npy`), and its registration and sequence
+sections wait for their slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..data.modelnet40 import ModelNet40Config
+
+
+@dataclass(slots=True)
+class ModelConfig:
+    blocks: tuple = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
+    dim_k: int = 512
+    num_classes: int = 40
+    point_kernel_formal: str = "dgcnn_kernel"
+    voxel_shape: str = "spherical"
+    with_coeff: bool = True
+    with_se: bool = True
+    extra_feature_channels: int = 0
+    width_multiplier: float = 1.0
+    voxel_resolution_multiplier: float = 1.0
+    is_classify: bool = True
+    rot_invariant_preprocess: str | None = "change_coords"
+    lrf_kind: str = "reference"
+    with_local_feat: str | None = "ppf"
+    with_transform_fine_tune: bool = False
+    use_new_coords_for_voxel: bool = False
+    local_neighbors: int = 128
+    dtype: str | None = None
+
+
+@dataclass(slots=True)
+class OptimConfig:
+    lr: float = 1e-3
+    weight_decay: float = 1e-6
+    num_epochs: int = 250
+    schedule: str = "cosine"
+    grad_clip: float | None = None
+
+
+@dataclass(slots=True)
+class TrainConfig:
+    batch_size: int = 16
+    eval_batch_size: int = 32
+    valid_interval: int = 1
+    steps_per_epoch: int | None = None  # cap (useful for smoke runs)
+    ckpt_dir: str = "checkpoints"
+    half_precision: bool = False   # not ported yet: train() raises when set
+    reg_probe_interval: int = 0    # 0 = off; the registration probe is not ported yet
+
+
+@dataclass(slots=True)
+class ExperimentConfig:
+    name: str = "mn40_sph_dg"
+    seed: int = 0
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    dataset: ModelNet40Config = field(default_factory=ModelNet40Config)
+
+
+def presets() -> dict[str, ExperimentConfig]:
+    flagship = ExperimentConfig(name="mn40_sph_pt")
+    flagship.model.point_kernel_formal = "pointnet_kernel"
+    flagship.model.lrf_kind = "pca"
+    flagship.optim.num_epochs = 120
+    flagship.train.ckpt_dir = "checkpoints/mn40_sph_pt_r4_torch"
+    flagship.dataset.synthetic_items = {"train": 2048, "valid": 512, "test": 512}
+
+    tiny = ExperimentConfig(name="tiny_smoke")
+    tiny.model.point_kernel_formal = "pointnet_kernel"
+    tiny.model.lrf_kind = "pca"
+    tiny.model.blocks = ((16, 1, 8), (32, 1, None))
+    tiny.model.dim_k = 32
+    tiny.model.local_neighbors = 16
+    tiny.dataset.num_points = 64
+    tiny.dataset.synthetic_items = {"train": 32, "valid": 16, "test": 16}
+    tiny.train.batch_size = 4
+    tiny.optim.num_epochs = 2
+    return {"mn40_sph_pt_r4": flagship, "tiny_smoke": tiny}
+
+
+def get_config(name: str) -> ExperimentConfig:
+    table = presets()
+    if name not in table:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(table)}")
+    return table[name]

@@ -6,6 +6,7 @@ wherever JAX lives and hand over the arrays); nothing here imports JAX.
 Flax's automatic names map explicitly:
 
   top level  SharedMLP_i / PVConv_i      -> layers.<same name>
+             Dense_i / BatchNorm_i       -> head.<same name> (the classifier head)
   SharedMLP  Dense_i, BatchNorm_i        -> layers.i.dense, layers.i.bn
   PVConv     Conv_i, BatchNorm_i         -> convs.i, bns.i
              SE3d_0/Dense_0, /Dense_1    -> se.fc1, se.fc2
@@ -16,7 +17,8 @@ Flax's automatic names map explicitly:
   BatchNorm scale, bias + mean, var      -> weight, bias, running_mean, running_var
 
 Any key that no rule consumes raises, so a tree from another configuration
-(a classifier head, a dgcnn block) fails loudly instead of loading partly.
+(a dgcnn block, a fine-tune transform) fails loudly instead of loading
+partly.
 """
 from __future__ import annotations
 
@@ -81,7 +83,6 @@ def _bn(out: dict, prefix: str, params: _Tree, stats: _Tree, path: tuple):
     out[prefix + "bias"] = _t(params.get(*path, "bias"))
     out[prefix + "running_mean"] = _t(stats.get(*path, "mean"))
     out[prefix + "running_var"] = _t(stats.get(*path, "var"))
-    out[prefix + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
 
 
 def _shared_mlp(out, prefix, params, stats, path):
@@ -117,6 +118,10 @@ def from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
             _shared_mlp(out, f"layers.{name}.", p, s, (name,))
         elif re.fullmatch(r"PVConv_\d+", name):
             _pvconv(out, f"layers.{name}.", p, s, (name,))
+        elif re.fullmatch(r"Dense_\d+", name):
+            _dense(out, f"head.{name}.", p, (name,))
+        elif re.fullmatch(r"BatchNorm_\d+", name):
+            _bn(out, f"head.{name}.", p, s, (name,))
     p.check_all_used()
     s.check_all_used()
     return out

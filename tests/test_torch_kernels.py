@@ -1,8 +1,9 @@
 """The plain PyTorch versions of the port's kernels (K1 normals moments, K2
-voxel scatter-mean, K3 corner gather) against the Pallas kernels they
-replace, run in interpret mode on the CPU as tests/test_pallas_ops.py runs
-them. On a CPU tensor each wrapper takes the plain version, so these also
-cover the wrappers' CPU route."""
+voxel scatter-mean, K3 corner gather, K4 corner scatter) against the Pallas
+kernels they replace, run in interpret mode on the CPU as
+tests/test_pallas_ops.py runs them, and the autograd Functions built on K2,
+K3 and K4. On a CPU tensor each wrapper takes the plain version, so these
+also cover the wrappers' CPU route."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,9 +11,13 @@ import torch
 
 from rift_tpu.ops.pallas import corner_gather_pallas, scatter_mean_pallas
 from rift_tpu.ops.pallas.normals_kernel import neighborhood_moments_pallas
-from rift_tpu_torch.ops.cuda import corner_gather, neighborhood_moments, scatter_mean
+from rift_tpu.ops.pallas.onehot_ops import corner_scatter_pallas
+from rift_tpu_torch.ops.cuda import (corner_gather, corner_scatter, neighborhood_moments,
+                                     scatter_mean)
 from rift_tpu_torch.ops.cuda.normals_kernel import neighborhood_moments_plain, point_sqdist
-from rift_tpu_torch.ops.cuda.onehot_ops import corner_gather_plain, scatter_mean_plain
+from rift_tpu_torch.ops.cuda.onehot_ops import (corner_gather_plain, corner_scatter_plain,
+                                                scatter_mean_plain)
+from rift_tpu_torch.ops.spherical import CornerGather, ScatterMean
 
 
 def _cloud(rng, b, n, duplicates):
@@ -91,9 +96,56 @@ def test_corner_gather_plain_matches_pallas(rng):
     assert np.all(got[0, 3] == 0)
 
 
+def _corners(rng, b, n, s):
+    idx = rng.randint(0, s, (b, n, 8)).astype(np.int32)
+    idx[0, 3] = -1  # an undefined point
+    idx[1, 5, :4] = -1  # skipped corners with nonzero weight
+    idx[0, 7:12] = idx[0, 6]  # points sharing all their corners
+    w = rng.rand(b, n, 8).astype(np.float32)
+    return idx, w
+
+
+def test_corner_scatter_plain_matches_pallas_and_is_the_adjoint(rng):
+    b, n, c, s = 2, 64, 8, 128
+    idx, w = _corners(rng, b, n, s)
+    dout = rng.randn(b, n, c).astype(np.float32)
+    want = np.asarray(corner_scatter_pallas(jnp.asarray(dout), jnp.asarray(idx),
+                                            jnp.asarray(w), s, tile=32))
+    got = corner_scatter(torch.from_numpy(dout), torch.from_numpy(idx),
+                         torch.from_numpy(w), s)
+    # The Pallas kernel contracts a one-hot weight matrix with dout tile by
+    # tile; the plain version sums the same products in (p, k) order.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert got.shape == (b, s, c)
+    untouched = np.ones((b, s), bool)
+    for bi in range(b):
+        untouched[bi, idx[bi][idx[bi] >= 0]] = False
+    assert untouched.any() and np.all(got.numpy()[untouched] == 0)
+    # <K4(dout), grid> == <dout, K3(grid)>, with the port's K3.
+    grid = torch.from_numpy(rng.randn(b, s, c).astype(np.float32)).double()
+    lhs = float((got.double() * grid).sum())
+    rhs = float((torch.from_numpy(dout).double()
+                 * corner_gather_plain(grid, torch.from_numpy(idx),
+                                       torch.from_numpy(w).double())).sum())
+    np.testing.assert_allclose(lhs, rhs, rtol=1e-6)
+
+
+def test_autograd_functions_pass_gradcheck(rng):
+    b, n, c, s = 2, 12, 3, 10
+    feat = torch.from_numpy(rng.randn(b, n, c)).requires_grad_()
+    inds = torch.from_numpy(rng.randint(-1, s, (b, n)))
+    assert torch.autograd.gradcheck(lambda f: ScatterMean.apply(f, inds, s)[0], (feat,))
+    grid = torch.from_numpy(rng.randn(b, s, c)).requires_grad_()
+    idx, w = _corners(rng, b, n, s)
+    assert torch.autograd.gradcheck(
+        lambda g: CornerGather.apply(g, torch.from_numpy(idx), torch.from_numpy(w).double()),
+        (grid,))
+
+
 def test_wrappers_take_plain_version_on_cpu_and_count_no_launch(rng):
     pts = torch.from_numpy(_cloud(rng, 1, 64, False))
-    before = (neighborhood_moments.launches, scatter_mean.launches, corner_gather.launches)
+    before = (neighborhood_moments.launches, scatter_mean.launches, corner_gather.launches,
+              corner_scatter.launches)
     for a, b in zip(neighborhood_moments(pts, 8, 0.01), neighborhood_moments_plain(pts, 8, 0.01)):
         assert torch.equal(a, b)
     feat = torch.randn(1, 64, 4)
@@ -104,5 +156,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch(rng):
     idx = torch.randint(-1, 16, (1, 64, 8))
     w = torch.rand(1, 64, 8)
     assert torch.equal(corner_gather(grid, idx, w), corner_gather_plain(grid, idx, w))
+    dout = torch.randn(1, 64, 4)
+    assert torch.equal(corner_scatter(dout, idx, w, 16), corner_scatter_plain(dout, idx, w, 16))
     assert before == (neighborhood_moments.launches, scatter_mean.launches,
-                      corner_gather.launches)
+                      corner_gather.launches, corner_scatter.launches)

@@ -1,6 +1,7 @@
-"""rift_tpu_torch's PVCNN feature extractor against rift_tpu's on the same
-weights: a narrow model with JAX-initialised parameters, and the shipped
-flagship checkpoint (mn40_sph_pt_r4), each converted by `weights.from_flax`."""
+"""rift_tpu_torch's PVCNN against rift_tpu's on the same weights: a narrow
+feature extractor with JAX-initialised parameters, and the shipped flagship
+checkpoint (mn40_sph_pt_r4) as feature extractor and as classifier, each
+converted by `weights.from_flax`."""
 import json
 import os
 
@@ -78,19 +79,30 @@ def test_from_flax_rejects_unmapped_keys(rng):
     params = _to_numpy(variables["params"])
     stats = _to_numpy(variables["batch_stats"])
     assert set(from_flax(params, stats)) == set(PVCNNClassifier(**cfg).state_dict())
-    params["Dense_0"] = {"kernel": np.zeros((8, 40), np.float32)}  # a classifier head
-    with pytest.raises(ValueError, match="Dense_0"):
-        from_flax(params, stats)
+    # A top-level module the port does not know, and a leftover conv inside
+    # a block: neither may be dropped silently.
+    unknown = dict(params, LayerNorm_0={"scale": np.ones(8, np.float32)})
+    with pytest.raises(ValueError, match="LayerNorm_0"):
+        from_flax(unknown, stats)
+    extra_conv = dict(params, PVConv_0=dict(params["PVConv_0"], Conv_2=params["PVConv_0"]["Conv_0"]))
+    with pytest.raises(ValueError, match="Conv_2"):
+        from_flax(extra_conv, stats)
 
 
-def test_flagship_checkpoint_matches_reference(rng):
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship checkpoint's model config and its restored arrays."""
     from rift_tpu.train.checkpoint import CheckpointManager
 
     with open(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json")) as f:
         meta = json.load(f)["config"]["model"]
     cfg = {k: meta[k] for k in PORTED}
     cfg["blocks"] = tuple(tuple(b) for b in cfg["blocks"])
-    raw = CheckpointManager(FLAGSHIP_DIR).restore_raw("best_acc")
+    return cfg, CheckpointManager(FLAGSHIP_DIR).restore_raw("best_acc")
+
+
+def test_flagship_checkpoint_matches_reference(rng, flagship):
+    cfg, raw = flagship
     # The checkpoint was trained as a classifier; registration uses the
     # trunk only, so the head's keys are dropped before conversion.
     trunk = ("PVConv_", "SharedMLP_")
@@ -105,3 +117,21 @@ def test_flagship_checkpoint_matches_reference(rng):
         got = model.eval()(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (1, 256, 512)
     _compare(got, want)
+
+
+def test_flagship_classifier_logits_match_reference(rng, flagship):
+    cfg, raw = flagship
+    x = _inputs(rng, 2, 256)
+    want = np.asarray(JaxPVCNN(**cfg, is_classify=True).apply(
+        {"params": raw["params"], "batch_stats": raw["batch_stats"]}, jnp.asarray(x),
+        train=False))
+    model = PVCNNClassifier(**cfg, is_classify=True)
+    model.load_state_dict(from_flax(_to_numpy(raw["params"]), _to_numpy(raw["batch_stats"])))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 40)
+    # The max-pool over points takes the trunk's features, equal up to f32
+    # rounding but for the rare boundary point (see _compare), then three
+    # Dense layers: logits within 1e-4 of the largest.
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    assert np.array_equal(got.argmax(-1), want.argmax(-1))

@@ -80,10 +80,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     pts = np.zeros((1, 32, 3), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         register_batch(model, pts, pts)
+    from rift_tpu_torch.train import get_config, train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(get_config("tiny_smoke"))
 
 
 def test_kernel_wrappers_never_fall_back_on_other_devices():
-    from rift_tpu_torch.ops.cuda import corner_gather, neighborhood_moments, scatter_mean
+    from rift_tpu_torch.ops.cuda import (corner_gather, corner_scatter, neighborhood_moments,
+                                         scatter_mean)
 
     meta = torch.zeros((1, 8, 3), device="meta")
     with pytest.raises(ValueError):
@@ -93,6 +98,9 @@ def test_kernel_wrappers_never_fall_back_on_other_devices():
     with pytest.raises(ValueError):
         corner_gather(meta, torch.zeros((1, 8, 8), dtype=torch.long, device="meta"),
                       torch.zeros((1, 8, 8), device="meta"))
+    with pytest.raises(ValueError):
+        corner_scatter(meta, torch.zeros((1, 8, 8), dtype=torch.long, device="meta"),
+                       torch.zeros((1, 8, 8), device="meta"), 4)
 
 
 def test_importing_chip_smoke_runs_nothing():

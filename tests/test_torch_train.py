@@ -1,0 +1,360 @@
+"""rift_tpu_torch's training path against rift_tpu's on the CPU: the
+voxelize/devoxelize gradients, BatchNorm's running statistics, the head's
+dropout, the synthetic ModelNet40 split, the flagship preset, full train
+steps against `make_train_step` from the same weights, and `train()` with
+its checkpoints. Widths are the `tiny_smoke` preset's."""
+import json
+import os
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from rift_tpu.data.modelnet40 import ModelNet40 as JaxModelNet40
+from rift_tpu.data.modelnet40 import ModelNet40Config as JaxModelNet40Config
+from rift_tpu.nn.shared_mlp import SharedMLP as JaxSharedMLP
+from rift_tpu.ops import spherical as j_sph
+from rift_tpu.train.config import get_config as jax_config
+from rift_tpu.train.loop import build_model as jax_build_model
+from rift_tpu.train.steps import create_state as jax_create_state
+from rift_tpu.train.steps import cross_entropy as jax_cross_entropy
+from rift_tpu.train.steps import make_train_step
+from rift_tpu_torch.data.modelnet40 import ModelNet40, ModelNet40Config
+from rift_tpu_torch.models import PVCNNClassifier
+from rift_tpu_torch.nn.shared_mlp import SharedMLP
+from rift_tpu_torch.ops import spherical
+from rift_tpu_torch.train import build_model, evaluate_classification, get_config, train
+from rift_tpu_torch.train.checkpoint import CheckpointManager
+from rift_tpu_torch.train.steps import (TrainState, clip_by_global_norm, make_optimizer,
+                                        train_step)
+from rift_tpu_torch.weights import from_flax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP_META = os.path.join(ROOT, "checkpoints", "mn40_sph_pt_r4", "best_acc.meta.json")
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _tiny_configs():
+    """The port's tiny_smoke preset and the reference's with the same model
+    (the reference preset keeps the dgcnn_kernel and reference-LRF defaults)."""
+    cfg = get_config("tiny_smoke")
+    jcfg = jax_config("tiny_smoke")
+    jcfg.model.point_kernel_formal = cfg.model.point_kernel_formal
+    jcfg.model.lrf_kind = cfg.model.lrf_kind
+    return cfg, jcfg
+
+
+def _no_dropout(next_fun, args, kwargs, context):
+    """flax interceptor: nn.Dropout becomes the identity."""
+    if isinstance(context.module, fnn.Dropout):
+        return args[0]
+    return next_fun(*args, **kwargs)
+
+
+@pytest.mark.parametrize("with_dropped", [False, True])
+def test_voxelize_devoxelize_gradients_match_jax_vjp(rng, with_dropped):
+    b, n, c, r = 2, 96, 5, 4
+    coords = rng.randn(b, n, 3).astype(np.float32)
+    if with_dropped:
+        coords[:, 1] = coords[:, 0]  # two points at one place
+    feat = rng.randn(b, n, c).astype(np.float32)
+    g_grid = rng.randn(b, r, r, r, c).astype(np.float32)
+    g_pts = rng.randn(b, n, c).astype(np.float32)
+
+    def jax_fn(f, grid):
+        vox, inds, nc = j_sph.spherical_avg_voxelize(f, jnp.asarray(coords), r)
+        return vox, j_sph.spherical_trilinear_devoxelize(grid, nc, inds, r)
+
+    grid0 = rng.randn(b, r, r, r, c).astype(np.float32)
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(feat), jnp.asarray(grid0))
+    want_feat, want_grid = (np.asarray(a) for a in vjp((jnp.asarray(g_grid), jnp.asarray(g_pts))))
+
+    f = torch.from_numpy(feat).requires_grad_()
+    grid = torch.from_numpy(grid0).requires_grad_()
+    vox, inds, nc = spherical.spherical_avg_voxelize(f, torch.from_numpy(coords), r)
+    out = spherical.spherical_trilinear_devoxelize(grid, nc, inds, r)
+    torch.autograd.backward([vox, out], [torch.from_numpy(g_grid), torch.from_numpy(g_pts)])
+    # The same sums in another order (a segment mean's row gather; the
+    # corner scatter's products summed by index_add_ against XLA's scatter).
+    np.testing.assert_allclose(f.grad.numpy(), want_feat, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(grid.grad.numpy(), want_grid, rtol=1e-5, atol=1e-5)
+    assert np.all(f.grad.numpy()[inds.numpy() < 0] == 0)  # undefined points
+
+
+def test_shared_mlp_train_mode_updates_running_stats_like_flax(rng):
+    # Rows 4 × 4 × 16 with a large offset: torch's BatchNorm (momentum 0.1,
+    # unbiased running variance) misses flax's statistics by 10x in the
+    # momentum and 16/15 in the variance of a 16-row batch.
+    x = (3.0 + rng.randn(4, 4, 3)).astype(np.float32)
+    jm = JaxSharedMLP([16])
+    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = _np(variables["params"])
+    stats = {"SharedMLP_0": _np(variables["batch_stats"])}
+    _, mutated = jm.apply({"params": params, "batch_stats": stats["SharedMLP_0"]},
+                          jnp.asarray(x), train=True, mutable=["batch_stats"])
+    want = from_flax({"SharedMLP_0": params}, {"SharedMLP_0": _np(mutated["batch_stats"])})
+    mlp = SharedMLP(3, [16])
+    mlp.load_state_dict({k[len("layers.SharedMLP_0."):]: v for k, v in
+                         from_flax({"SharedMLP_0": params}, stats).items()})
+    y = mlp.train()(torch.from_numpy(x))
+    for key in ("running_mean", "running_var"):
+        got = mlp.state_dict()[f"layers.0.bn.{key}"].numpy()
+        np.testing.assert_allclose(got, want[f"layers.SharedMLP_0.layers.0.bn.{key}"].numpy(),
+                                   rtol=1e-5, atol=1e-7)
+    # Train mode normalizes with the batch's biased statistics.
+    h = mlp.layers[0]["dense"](torch.from_numpy(x)).detach().reshape(-1, 16)
+    norm = (h - h.mean(0)) / torch.sqrt(h.var(0, unbiased=False) + 1e-5)
+    np.testing.assert_allclose(y.detach().reshape(-1, 16).numpy(),
+                               torch.relu(norm).numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_head_dropout_is_reproducible_and_drops_a_fifth():
+    torch.manual_seed(0)
+    model = PVCNNClassifier(blocks=((8, 1, None),), local_neighbors=8, is_classify=True,
+                            num_classes=4).train()
+    x = torch.randn(256, 32, 6)
+    seen = {}
+    model.head["BatchNorm_0"].register_forward_hook(
+        lambda m, args, out: seen.__setitem__("pre", torch.relu(out)))
+    model.head["Dense_1"].register_forward_hook(
+        lambda m, args, out: seen.__setitem__("post", args[0]))
+    gen = torch.Generator()
+    runs = []
+    for _ in range(2):
+        gen.manual_seed(7)
+        model(x, generator=gen)
+        runs.append((seen["pre"].detach(), seen["post"].detach()))
+    assert torch.equal(runs[0][1], runs[1][1])  # the same generator state, the same mask
+    pre, post = runs[0]
+    live = pre > 0  # a zero activation shows no mask
+    kept = post != 0
+    # 256 clouds x 512 units, about half of them live: the kept share is
+    # 0.8 within 0.01, and a kept unit is scaled by 1/0.8.
+    share = float(kept[live].float().mean())
+    assert abs(share - 0.8) < 0.01, share
+    np.testing.assert_allclose(post[kept].numpy(), (pre[kept] / 0.8).numpy(), rtol=1e-6)
+    with pytest.raises(ValueError, match="Generator"):
+        model(x)
+
+
+def test_synthetic_modelnet40_matches_reference():
+    kwargs = dict(num_points=128, num_workers=2, prefetch_batches=2,
+                  synthetic_items={"train": 12, "valid": 6, "test": 6})
+    for split in ("train", "valid"):
+        ours = ModelNet40(ModelNet40Config(**kwargs), split)
+        ref = JaxModelNet40(JaxModelNet40Config(**kwargs), split)
+        assert len(ours) == len(ref)
+        for seed in (0, 3):
+            got = list(ours.batches(4, seed=seed, shuffle=seed > 0, drop_last=False))
+            want = list(ref.batches(4, seed=seed, shuffle=seed > 0, drop_last=False))
+            assert len(got) == len(want) == -(-len(ref) // 4)
+            for (c1, l1), (c2, l2) in zip(got, want):
+                np.testing.assert_array_equal(c1, c2)
+                np.testing.assert_array_equal(l1, l2)
+    hard = dict(kwargs, noise_sigma=0.01, occlusion=0.3)
+    for i in range(3):
+        a = ModelNet40(ModelNet40Config(**hard), "test").get(i, seed=5)
+        b = JaxModelNet40(JaxModelNet40Config(**hard), "test").get(i, seed=5)
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+
+
+# Fields of the flagship's meta JSON the port does not have, each with the
+# value that makes it change nothing in a one-card run with the probe off.
+UNREAD_FIELDS = {
+    "train": {"log_every": 10,          # logging cadence only
+              "data_parallel": True,    # one card: the one step
+              "reg_probe_pairs": 16},   # read only with reg_probe_interval > 0
+    "dataset": {"cache_npy": True},     # read only by the file loader (root set)
+}
+
+
+def test_flagship_preset_equals_the_checkpoint_config():
+    import dataclasses
+
+    with open(FLAGSHIP_META) as f:
+        meta = json.load(f)["config"]
+    ours = json.loads(json.dumps(dataclasses.asdict(get_config("mn40_sph_pt_r4"))))
+    # The port writes its own checkpoints beside the reference's, never into it.
+    assert ours["train"].pop("ckpt_dir") != meta["train"].pop("ckpt_dir")
+    assert meta["train"]["reg_probe_interval"] == 0 and meta["dataset"]["root"] is None
+    for section, fields in UNREAD_FIELDS.items():
+        assert {k: meta[section].pop(k) for k in fields} == fields
+    assert ours == {k: meta[k] for k in ours}
+    # The registration and sequence sections wait for their slices.
+    assert set(meta) - set(ours) == {"evaluate", "sequence"}
+    with pytest.raises(AttributeError):
+        get_config("mn40_sph_pt_r4").train.log_every = 1
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 50.0])
+def test_schedule_and_clip_match_optax(rng, max_norm):
+    cfg = get_config("tiny_smoke")
+    steps_per_epoch = 3
+    total = cfg.optim.num_epochs * steps_per_epoch
+    _, schedule = make_optimizer(torch.nn.Linear(2, 2), cfg, steps_per_epoch)
+    want = optax.cosine_decay_schedule(cfg.optim.lr, total)
+    for t in range(total + 3):  # past the end the rate stays at 0
+        np.testing.assert_allclose(schedule(t), float(want(t)), rtol=1e-6, atol=1e-12)
+    grads = [rng.randn(4, 3).astype(np.float32), rng.randn(5).astype(np.float32)]
+    params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = torch.from_numpy(g.copy())
+    clip_by_global_norm(params, max_norm)
+    clipped, _ = optax.clip_by_global_norm(max_norm).update([jnp.asarray(g) for g in grads],
+                                                            optax.EmptyState())
+    for p, g in zip(params, clipped):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=1e-6)
+
+
+def _sync(state: TrainState, jstate) -> None:
+    """Load rift_tpu's TrainState (params, batch_stats, Adam moments, step)
+    into the port's."""
+    stats = _np(jstate.batch_stats)
+    state.model.load_state_dict(from_flax(_np(jstate.params), stats))
+    adam = jstate.opt_state[1][0]
+    mu, nu = from_flax(_np(adam.mu), stats), from_flax(_np(adam.nu), stats)
+    state.optimizer.state.clear()
+    count = int(adam.count)
+    for name, p in state.model.named_parameters():
+        if count:
+            state.optimizer.state[p] = {"step": torch.tensor(float(count)),
+                                        "exp_avg": mu[name].clone(),
+                                        "exp_avg_sq": nu[name].clone()}
+    state.step = int(jstate.step)
+
+
+# Gradients, per parameter. Both frameworks compute in f32, and these
+# inputs are ill-conditioned: the local-PPF angles are arccos of near-1
+# cosines (near-parallel normals), and BatchNorm over a 4-cloud head batch
+# divides by small spreads. A parameter whose rift_tpu gradient has a norm
+# of at least GRAD_FLOOR of the step's largest is held to that gradient
+# within GRAD_RTOL of its own norm (measured up to 3.8e-3, the PVConv
+# coefficient; every other parameter up to 1.9e-3; norms 2.4e-3 and up).
+# Below the floor sit the gradients that are zero to rounding: biases in
+# front of a train-mode BatchNorm (exactly 0) and a BN bias whose channel a
+# later BatchNorm centres (norms 2e-9..1.5e-6 of the largest). Their
+# directions are rounding, so the port's must be zero to rounding too:
+# within GRAD_ZERO_TOL of the largest norm (measured up to 1.3e-6).
+GRAD_FLOOR, GRAD_RTOL, GRAD_ZERO_TOL = 1e-4, 1e-2, 1e-5
+LOSS_RTOL = 1e-4  # measured up to 3.6e-5, from the same activations
+STATS_TOL = 1e-5  # of the largest running statistic; measured up to 4.2e-6
+PARAM_TOL = 1e-6  # Adam on the same gradients and moments
+# Updated parameters against make_train_step's. Where the two gradients of
+# an element agree within SETTLED of the reference's magnitude, within
+# SETTLED_PARAM_TOL (measured up to 4.9e-6). Elsewhere the element's sign
+# is rounding (every element of a below-floor gradient, a few of the
+# others): Adam's first step moves each element by lr times its sign, so
+# it may land up to 2·lr away.
+SETTLED, SETTLED_PARAM_TOL = 1e-2, 2e-5
+
+
+def test_train_steps_match_make_train_step():
+    cfg, jcfg = _tiny_configs()
+    batches = list(ModelNet40(cfg.dataset, "train").batches(cfg.train.batch_size, seed=0))[:3]
+    jmodel = jax_build_model(jcfg)
+    steps_per_epoch = 8
+    jstate, tx = jax_create_state(jmodel, jcfg, jnp.asarray(batches[0][0]), steps_per_epoch)
+    jstep = make_train_step(jmodel, tx)
+    model = build_model(cfg)
+    model.dropout = 0.0
+    state = TrainState(model, *make_optimizer(model, cfg, steps_per_epoch))
+    rng = jax.random.PRNGKey(0)
+
+    @jax.jit
+    def jax_grads(params, stats, x, y):
+        def loss_fn(p):
+            out, _ = jmodel.apply({"params": p, "batch_stats": stats}, x, train=True,
+                                  mutable=["batch_stats"])
+            return jax_cross_entropy(out, y)
+        return jax.grad(loss_fn)(params)
+
+    with fnn.intercept_methods(_no_dropout):
+        for clouds, labels in batches:
+            x, y = jnp.asarray(clouds), jnp.asarray(labels)
+            jg = jax_grads(jstate.params, jstate.batch_stats, x, y)
+            jgrads = from_flax(_np(jg), _np(jstate.batch_stats))
+            before = jstate
+            jstate, metrics = jstep(jstate, x, y, rng)
+            want = from_flax(_np(jstate.params), _np(jstate.batch_stats))
+
+            _sync(state, before)
+            out = train_step(state, torch.from_numpy(clouds), torch.from_numpy(labels))
+            assert state.step == int(jstate.step)
+            np.testing.assert_allclose(float(out["loss"]), float(metrics["loss"]),
+                                       rtol=LOSS_RTOL)
+            assert float(out["acc"]) == float(metrics["acc"])
+            grads = dict(model.named_parameters())
+            top = max(float(g.norm()) for g in jgrads.values())
+            for name, p in grads.items():
+                want_g = jgrads[name]
+                err = float((p.grad - want_g).norm())
+                if float(want_g.norm()) >= GRAD_FLOOR * top:
+                    assert err <= GRAD_RTOL * float(want_g.norm()), \
+                        (name, err / float(want_g.norm()))
+                else:
+                    assert err <= GRAD_ZERO_TOL * top, (name, err / top)
+            got = model.state_dict()
+            stat_scale = max(float(want[k].abs().max()) for k in got if "running" in k)
+            for name in got:
+                if "running" in name:
+                    err = float((got[name] - want[name]).abs().max())
+                    assert err <= STATS_TOL * stat_scale, (name, err)
+            lr = state.schedule(state.step - 1)
+            for name, p in grads.items():
+                off = (p.detach() - want[name]).abs()
+                settled = (p.grad - jgrads[name]).abs() <= SETTLED * jgrads[name].abs()
+                assert float(torch.where(settled, off, 0.0).max()) <= SETTLED_PARAM_TOL, name
+                assert float(off.max()) <= 2.1 * lr, (name, float(off.max()) / lr)
+            # The optimizer alone against optax's update on the same
+            # gradients from the same state: schedule, decay, bias
+            # correction and eps.
+            updates, _ = tx.update(jg, before.opt_state, before.params)
+            want_opt = from_flax(_np(optax.apply_updates(before.params, updates)),
+                                 _np(before.batch_stats))
+            _sync(state, before)
+            for name, p in grads.items():
+                p.grad = jgrads[name].clone()
+            for group in state.optimizer.param_groups:
+                group["lr"] = state.schedule(state.step)
+            state.optimizer.step()
+            for name, p in grads.items():
+                err = float((p.detach() - want_opt[name]).abs().max())
+                assert err <= PARAM_TOL, (name, err)
+
+
+def test_train_runs_checkpoints_and_resumes(tmp_path):
+    cfg = get_config("tiny_smoke")
+    cfg.train.ckpt_dir = str(tmp_path)
+    cfg.train.steps_per_epoch = 2
+    cfg.dataset.synthetic_items = {"train": 8, "valid": 4, "test": 4}
+    out = train(cfg, device="cpu")
+    assert out["state"].step == 4 and np.isfinite(out["loss"])
+    assert 0.0 <= out["best"]["acc"] <= 1.0
+    ckpt = CheckpointManager(str(tmp_path))
+    meta = ckpt.load_meta()
+    assert meta["best"] == out["best"] and meta["config"]["name"] == "tiny_smoke"
+    assert os.path.isfile(tmp_path / "common.pt") and os.path.isfile(tmp_path / "best_acc.pt")
+    # Resume: the finished run restores step 4 and trains no further; one
+    # more epoch continues from it.
+    again = train(cfg, device="cpu")
+    assert again["state"].step == 4 and np.isnan(again["loss"])
+    for (k, a), b in zip(out["state"].model.state_dict().items(),
+                         again["state"].model.state_dict().values()):
+        assert torch.equal(a, b), k
+    cfg.optim.num_epochs = 3
+    more = train(cfg, device="cpu")
+    assert more["state"].step == 6 and np.isfinite(more["loss"])
+    with open(tmp_path / "tiny_smoke.metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in lines if r["split"] == "train"] == [0, 1, 2]
+    # The final state's validation accuracy, as the last epoch logged it.
+    acc = evaluate_classification(more["state"], ModelNet40(cfg.dataset, "valid"), cfg)
+    assert acc == [r["acc"] for r in lines if r["split"] == "valid"][-1]
