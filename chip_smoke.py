@@ -1,7 +1,8 @@
 """Smoke run of rift_tpu_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, register 16 scan pairs of 1024 points at
-the flagship width, train the flagship classifier on batches of 16 clouds
-of 1024 points, and compare both paths with their CPU runs.
+the flagship width and with bench.py's headline model in bf16, train the
+flagship classifier on batches of 16 clouds of 1024 points, and compare
+every path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -9,22 +10,33 @@ Phases (each prints one line with its wall time):
   1. device  — nvidia-smi's name and power limit, torch's device name;
                exits non-zero when CUDA is not available.
   2. build   — nvcc builds rift_tpu_torch/csrc/*.cu for sm_90a.
-  3. kernels — K1, K2, K3, K4 against their plain versions at the main
-               paths' shapes, with times, bounds and the library yardsticks;
-               K4 also against K3 by the adjoint identity.
+  3. kernels — K1-K5 against their plain versions at the main paths'
+               shapes, with times, bounds and the library yardsticks: K2 on
+               f32 and bf16 features, K3 on f32 and bf16 grids, K2-K4 also
+               on indices s and s + 1 (dropped, as -1 is), K4 against K3 by
+               the adjoint identity, and K5 (the bf16 3x3x3 Conv3d) at the
+               bench model's four shapes, every element within one bf16
+               step of its plain version, beside cuDNN's bf16 Conv3d.
   4. main    — register_batch on 16 SyntheticPairs(mode="noise", seed=0)
                pairs, flagship width (mn40_sph_pt_r4), seeded random weights;
                one warm-up and 3 timed batches; every launch counter must rise.
   5. parity  — the first 8 pairs of the timed batch against the same path
                with device="cpu"; GNC-TLS and Kabsch on the card against
                the CPU on the CPU run's matches.
-  6. train   — train() of the mn40_sph_pt_r4 preset on a small synthetic
+  6. bench   — the same 16 pairs through bench.py's headline model
+               (models.bench_model: sph_dg, global PPF, reference LRF,
+               bf16) with seeded weights: ms/batch and pairs/s, K5 launched
+               4 times a batch, then its parity phase against the CPU under
+               the bf16 tolerances below.
+  7. stages  — one staged batch of each model (normals, features, mutual
+               NN, GNC-TLS, each ended by a synchronize).
+  8. train   — train() of the mn40_sph_pt_r4 preset on a small synthetic
                ModelNet40 split (4 steps of 16 x 1024, one validation pass,
                checkpoints), seeded weights; then 10 more steps on one
                fixed batch: finite losses, K2, K3 and K4 each launched twice
                per step, the last 3 losses below the first 3; ms/step,
                clouds/s, and the forward/backward/optimizer split.
-  7. train parity — one step on 4 clouds from the same weights, dropout
+  9. train parity — one step on 4 clouds from the same weights, dropout
                off, on the card and on the CPU: loss, gradients, BN stats.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
@@ -46,6 +58,7 @@ import time
 # tensor cores. Bounds below are stated against these at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 NUM_PAIRS = 16
 NUM_POINTS = 1024
@@ -63,8 +76,17 @@ TIMED_BATCHES = 3
 # K4: the kernel sums each voxel's products in (p, k) order, unfused, as the
 # plain version does on the CPU; on the card index_add_ adds them with
 # atomics in another order: <= 1e-5 of the largest value.
+# K2 and K3 on bf16 inputs sum the exact bf16 values in f32: the same
+# tolerances. K5 (conv3d_same) is held in bf16 steps: both round an f32 sum
+# of the same exact bf16 products once to bf16, in another order, so each
+# output is equal or one bf16 step (2^-8 relative) away; near 0, where the
+# f32 rounding of a cancelling sum can exceed a step of the tiny result,
+# the step is taken at K5_FLOOR of the largest output.
 TOL = {"normals_moments": 1e-5, "scatter_mean": 1e-5, "corner_gather": 1e-6,
-       "corner_scatter": 1e-5}
+       "corner_scatter": 1e-5, "conv3d_same": 1.0}
+K5_FLOOR = 2.0 ** -8
+# The bench model's convolutions at b = 2·16 clouds, r = 32: (cin, cout).
+K5_SHAPES = ((71, 64), (64, 64), (64, 128), (128, 128))
 # K4 against K3: <K4(dout), grid> and <dout, K3(grid)> (sums in f64 of the
 # f32 kernel outputs) within 1e-5 relative.
 ADJOINT_TOL = 1e-5
@@ -84,6 +106,16 @@ ADJOINT_TOL = 1e-5
 # worth): both must be equally good TLS solutions.
 FEAT_POINT_TOL, FEAT_POINT_SHARE = 1e-3, 0.01
 MASK_AGREE = 0.99
+# The bf16 bench model, card vs CPU (the same code; the sums of K2, K5 and
+# the bf16 GEMMs run in another order, and a one-step bf16 difference at
+# any layer travels on): share of points whose feature differs by more than
+# 2e-2 of the largest feature <= 1%, and mutual-NN agreement >= 0.95. On
+# the CPU the port and the reference, both bf16, differ by at most 9.2e-3
+# of the largest feature at small widths, and bf16 rounding alone moves
+# about 4% of the mutual-NN decisions of a random-weight model (the
+# reference's bf16 run against its f32 run). Poses: the f32 rules above.
+FEAT_POINT_TOL_BF16, FEAT_POINT_SHARE_BF16 = 2e-2, 0.01
+MASK_AGREE_BF16 = 0.95
 TRANSFORM_TOL = 1e-3
 NUDGE, NUDGE_TRIES = 1e-6, 4
 TLS_COST_SLACK = 1.0
@@ -95,9 +127,14 @@ TRAIN_BATCH = 16
 TRAIN_ITEMS = {"train": 64, "valid": 16, "test": 16}
 TRAIN_LOOP_STEPS = 4
 TRAIN_STEPS = 10
-# Kernel launches per training step (two PVConv blocks) and per eval batch.
+# Kernel launches per training step (two PVConv blocks) and per eval batch,
+# and per registration batch of the f32 flagship and the bf16 bench model
+# (two PVConv blocks of two convolutions each).
 STEP_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2, "corner_scatter": 2}
 EVAL_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2}
+REGISTER_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2}
+BENCH_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2,
+                  "conv3d_same": 4}
 # Card vs CPU, one step on PARITY_CLOUDS clouds from the same weights:
 # loss within 1e-3 relative; BN running statistics within 1e-3 of each
 # buffer's largest value; per parameter, the gradients' cosine >= 0.999
@@ -159,16 +196,24 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
-def seeded_model(seed: int):
-    """The flagship model (PVCNNClassifier's defaults are the configuration
-    of checkpoints/mn40_sph_pt_r4) with weights and BN statistics drawn
-    from a seeded torch.Generator (BN means around 0, variances in
-    [0.5, 1.5])."""
+def bf16_step(t):
+    """The spacing of bf16 numbers (8 significant bits) at |t|, f64."""
+    import torch
+
+    _, e = torch.frexp(t.abs().double())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float64), e - 8)
+
+
+def seeded_model(seed: int, model=None):
+    """`model`, by default the flagship model (PVCNNClassifier's defaults
+    are the configuration of checkpoints/mn40_sph_pt_r4), with weights and
+    BN statistics drawn from a seeded torch.Generator (BN means around 0,
+    variances in [0.5, 1.5])."""
     import torch
 
     from rift_tpu_torch.models import PVCNNClassifier
 
-    model = PVCNNClassifier()
+    model = PVCNNClassifier() if model is None else model
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -264,10 +309,35 @@ def check_kernels(clouds, report: dict) -> None:
         k2["library_ms"] += cuda_time_ms(library)
         k2["bytes"] += b * n * c * 4 + b * n * 4 + b * s * c * 4 + b * s * 4
         k2["flops"] += int(valid.sum()) * c + b * s * c
+    # The bf16 model's inputs (c = 71 and 64), and indices s and s + 1 in
+    # cloud 0, which must drop out as -1 does.
+    k2["bf16"] = dict(max_rel_err=0.0, ms=0.0, plain_ms=0.0)
+    for c in (71, 64):
+        feat = torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
+        out, cnt = oh.scatter_mean(feat, inds32, s)
+        want_out, want_cnt = oh.scatter_mean_plain(feat, inds, s)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or not torch.equal(cnt, want_cnt):
+            fail(f"K2 on bf16 features: type {out.dtype}, counts equal "
+                 f"{torch.equal(cnt, want_cnt)} at c={c}")
+        k2["bf16"]["max_rel_err"] = max(k2["bf16"]["max_rel_err"], rel_err(out, want_out)[1])
+        k2["bf16"]["ms"] += cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s))
+        k2["bf16"]["plain_ms"] += cuda_time_ms(lambda: oh.scatter_mean_plain(feat, inds, s))
+    k2["max_rel_err"] = max(k2["max_rel_err"], k2["bf16"]["max_rel_err"])
+    far = inds32.clone()
+    far[0, :2] = torch.tensor([s, s + 1], device=dev)
+    out, cnt = oh.scatter_mean(feat, far, s)
+    want_out, want_cnt = oh.scatter_mean_plain(feat, far, s)
+    torch.cuda.synchronize()
+    k2["far_rel_err"] = rel_err(out, want_out)[1]
+    if not torch.equal(cnt, want_cnt) or k2["far_rel_err"] > TOL["scatter_mean"]:
+        fail(f"K2 on indices s, s + 1: counts equal {torch.equal(cnt, want_cnt)}, "
+             f"rel err {k2['far_rel_err']:.3e}")
     report["scatter_mean"] = dict(
         source="rift_tpu_torch/csrc/voxel_ops.cu",
         replaces="rift_tpu/ops/pallas/onehot_ops.py:44",
-        shapes=f"features [{b},{n},67] and [{b},{n},64] -> [{b},{s},c]",
+        shapes=f"features [{b},{n},67] and [{b},{n},64] -> [{b},{s},c] (f32; bf16 "
+               f"[{b},{n},71] and [{b},{n},64] in 'bf16')",
         tol=TOL["scatter_mean"], **k2)
 
     # K3 at c = 64 and c = 128 with the clouds' corner indices and weights.
@@ -304,10 +374,33 @@ def check_kernels(clouds, report: dict) -> None:
         # and the output once.
         k3["bytes"] += touched * c * 4 + b * n * 8 * 8 + b * n * c * 4
         k3["flops"] += int((idx >= 0).sum()) * c * 2
+    k3["bf16"] = dict(max_rel_err=0.0, ms=0.0, plain_ms=0.0)
+    for c in (64, 128):
+        grid = torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+        out = oh.corner_gather(grid, idx32, w)
+        want_out = oh.corner_gather_plain(grid, idx, w)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32:
+            fail(f"K3 on a bf16 grid wrote {out.dtype}")
+        k3["bf16"]["max_rel_err"] = max(k3["bf16"]["max_rel_err"], rel_err(out, want_out)[1])
+        k3["bf16"]["ms"] += cuda_time_ms(lambda: oh.corner_gather(grid, idx32, w))
+        k3["bf16"]["plain_ms"] += cuda_time_ms(lambda: oh.corner_gather_plain(grid, idx, w))
+    k3["max_rel_err"] = max(k3["max_rel_err"], k3["bf16"]["max_rel_err"])
+    far = idx32.clone()
+    far[0, 0, :2] = torch.tensor([s, s + 1], device=dev)
+    far[0, 1, :] = s + 1
+    out = oh.corner_gather(grid, far, w)
+    want_out = oh.corner_gather_plain(grid, far, w)
+    torch.cuda.synchronize()
+    k3["far_rel_err"] = rel_err(out, want_out)[1]
+    if k3["far_rel_err"] > TOL["corner_gather"] or bool(out[0, 1].any()):
+        fail(f"K3 on indices s, s + 1: rel err {k3['far_rel_err']:.3e}, "
+             f"all-out-of-range row zero {not bool(out[0, 1].any())}")
     report["corner_gather"] = dict(
         source="rift_tpu_torch/csrc/voxel_ops.cu",
         replaces="rift_tpu/ops/pallas/onehot_ops.py:101",
-        shapes=f"grid [{b},{s},64] and [{b},{s},128], corners [{b},{n},8]",
+        shapes=f"grid [{b},{s},64] and [{b},{s},128], corners [{b},{n},8] (f32; the same "
+               f"shapes bf16 in 'bf16')",
         tol=TOL["corner_gather"], **k3)
 
     # K4 at the training batch (the first TRAIN_BATCH clouds), c = 64 and
@@ -354,6 +447,15 @@ def check_kernels(clouds, report: dict) -> None:
     k4["one_channel_ms"] = cuda_time_ms(lambda: oh.corner_scatter(dout1, idx4_32, w4, s))
     if k4["adjoint_rel_err"] > ADJOINT_TOL:
         fail(f"K4 is not K3's adjoint: relative difference {k4['adjoint_rel_err']:.3e}")
+    far = idx4_32.clone()
+    far[0, 0, :2] = torch.tensor([s, s + 1], device=dev)
+    far[0, 1, :] = s + 1
+    got = oh.corner_scatter(dout, far, w4, s)
+    want_out = oh.corner_scatter_plain(dout, far, w4, s)
+    torch.cuda.synchronize()
+    k4["far_rel_err"] = rel_err(got, want_out)[1]
+    if k4["far_rel_err"] > TOL["corner_scatter"]:
+        fail(f"K4 on indices s, s + 1: rel err {k4['far_rel_err']:.3e}")
     report["corner_scatter"] = dict(
         source="rift_tpu_torch/csrc/voxel_ops.cu",
         replaces="rift_tpu/ops/pallas/onehot_ops.py:155",
@@ -361,21 +463,101 @@ def check_kernels(clouds, report: dict) -> None:
                f"({k4['skipped_rows']} rows of idx -1)",
         tol=TOL["corner_scatter"], **k4)
 
+    check_conv3d(report)
+
     for name, rep in report.items():
         bound_bytes = rep["bytes"] / PEAK_BYTES_PER_S * 1e3
-        bound_ops = rep["flops"] / PEAK_F32_FLOP_PER_S * 1e3
+        bound_ops = rep["flops"] / rep.get("peak_flops", PEAK_F32_FLOP_PER_S) * 1e3
         rep["bound_ms"] = max(bound_bytes, bound_ops)
         rep["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
-        if rep["max_rel_err"] > rep["tol"]:
-            fail(f"{name}: relative error {rep['max_rel_err']:.3e} > {rep['tol']:.0e}")
+        held = rep.get("max_steps", rep["max_rel_err"])
+        if held > rep["tol"]:
+            fail(f"{name}: error {held:.3e} > {rep['tol']:.0e}")
+        extra = ""
+        if "adjoint_rel_err" in rep:
+            extra += (f"; adjoint rel err {rep['adjoint_rel_err']:.3e} (tol {ADJOINT_TOL:g}), "
+                      f"{rep['one_channel_ms']:.4f} ms at one channel")
+        if "bf16" in rep:
+            extra += (f"; bf16 input: rel err {rep['bf16']['max_rel_err']:.3e}, kernel "
+                      f"{rep['bf16']['ms']:.4f} ms, plain {rep['bf16']['plain_ms']:.4f} ms")
+        if "far_rel_err" in rep:
+            extra += f"; indices s, s + 1: rel err {rep['far_rel_err']:.3e}"
+        if "max_steps" in rep:
+            extra += (f"; max {rep['max_steps']:.3f} bf16 steps (tol {rep['tol']:g}), "
+                      f"bit-equal share {rep['equal_share']:.6f}, library max "
+                      f"{rep['library_steps']:.3f} steps")
+        tol = "" if "max_steps" in rep else f" (tol {rep['tol']:g})"
         print(f"  {name}: {rep['shapes']}: max abs err {rep['max_abs_err']:.3e}, "
-              f"rel {rep['max_rel_err']:.3e} (tol {rep['tol']:.0e}); "
-              f"kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
-              f"library {rep['library_ms']} ms, bound {rep['bound_ms']:.4f} ms "
-              f"({rep['bound_by']})"
-              + (f"; adjoint rel err {rep['adjoint_rel_err']:.3e} (tol {ADJOINT_TOL:g}), "
-                 f"{rep['one_channel_ms']:.4f} ms at one channel"
-                 if "adjoint_rel_err" in rep else ""), flush=True)
+              f"rel {rep['max_rel_err']:.3e}{tol}; kernel {rep['ms']:.4f} ms, plain "
+              f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']} ms, bound "
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}){extra}", flush=True)
+
+
+def check_conv3d(report: dict) -> None:
+    """K5 against its plain version at the bench model's four shapes, with
+    cuDNN's bf16 Conv3d on channels_last_3d tensors as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from rift_tpu_torch.ops.cuda import conv3d as k5
+
+    dev = torch.device("cuda")
+    b, r = 2 * NUM_PAIRS, 32
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rep = dict(source="rift_tpu_torch/csrc/conv3d.cu",
+               replaces="scripts/conv3d_kernel_experiment.py:61",
+               shapes=f"x [{b},{r},{r},{r},cin] bf16, (cin, cout) in {list(K5_SHAPES)}",
+               tol=TOL["conv3d_same"], peak_flops=PEAK_BF16_FLOP_PER_S,
+               max_abs_err=0.0, max_rel_err=0.0, max_steps=0.0, equal_share=1.0,
+               library_steps=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0,
+               per_shape=[])
+    for cin, cout in K5_SHAPES:
+        x = torch.randn((b, r, r, r, cin), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+             * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
+        got = k5.conv3d_same(x, w)
+        want = k5.conv3d_same_plain(x, w)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or got.shape != want.shape:
+            fail(f"K5 gave {got.dtype} {tuple(got.shape)}, expected bf16 {tuple(want.shape)}")
+        want_f = want.float()
+        step = bf16_step(torch.clamp(want_f.abs(), min=K5_FLOOR * float(want_f.abs().max())))
+        steps = float(((got.float() - want_f).abs().double() / step).max())
+        equal = float((got == want).double().mean())
+        a, rel = rel_err(got.float(), want_f)
+        xc = x.permute(0, 4, 1, 2, 3)  # a channels_last_3d view of x
+        wc = w.contiguous(memory_format=torch.channels_last_3d)
+
+        def library():  # one PyTorch call: cuDNN's bf16 Conv3d, no bias
+            return F.conv3d(xc, wc, padding=1)
+
+        lib_steps = float(((library().permute(0, 2, 3, 4, 1).float() - want_f).abs().double()
+                           / step).max())
+        if lib_steps > 4:
+            fail(f"K5 library yardstick is {lib_steps:.1f} bf16 steps from the plain version")
+        del want, want_f, step
+        shape = dict(cin=cin, cout=cout, max_steps=steps, equal_share=equal, max_abs_err=a,
+                     max_rel_err=rel,
+                     ms=cuda_time_ms(lambda: k5.conv3d_same(x, w)),
+                     plain_ms=cuda_time_ms(lambda: k5.conv3d_same_plain(x, w)),
+                     library_ms=cuda_time_ms(library),
+                     flops=2 * 27 * r ** 3 * cin * cout * b,
+                     bytes=b * r ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2)
+        shape["bound_ms"] = max(shape["flops"] / PEAK_BF16_FLOP_PER_S,
+                                shape["bytes"] / PEAK_BYTES_PER_S) * 1e3
+        print(f"    K5 {cin}->{cout}: max {steps:.3f} bf16 steps, bit-equal {equal:.6f}, max abs "
+              f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms, plain "
+              f"{shape['plain_ms']:.4f} ms, cuDNN bf16 {shape['library_ms']:.4f} ms "
+              f"({lib_steps:.3f} steps), bound {shape['bound_ms']:.4f} ms", flush=True)
+        rep["per_shape"].append(shape)
+        rep["max_steps"] = max(rep["max_steps"], steps)
+        rep["equal_share"] = min(rep["equal_share"], equal)
+        rep["library_steps"] = max(rep["library_steps"], lib_steps)
+        rep["max_abs_err"] = max(rep["max_abs_err"], a)
+        rep["max_rel_err"] = max(rep["max_rel_err"], rel)
+        for key in ("ms", "plain_ms", "library_ms", "flops", "bytes"):
+            rep[key] += shape[key]
+    report["conv3d_same"] = rep
 
 
 def path_stages(model, src, dst):
@@ -394,6 +576,144 @@ def path_stages(model, src, dst):
         b = src.shape[0]
         _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
     return normals, feats, idx2, mask
+
+
+def register_phase(model, src, dst, wrappers: dict, per_batch: dict):
+    """register_batch on the card: one warm-up and TIMED_BATCHES timed
+    batches with every launch count set to 0 just before and read just
+    after; each kernel must have launched per_batch[name] times a batch.
+    Returns (transforms, median ms per batch, launch counts)."""
+    import torch
+
+    from rift_tpu_torch.registration import register_batch
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    est = register_batch(model, src, dst)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_BATCHES):
+        t1 = time.perf_counter()
+        est = register_batch(model, src, dst)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = read_counts(wrappers)
+    batches = TIMED_BATCHES + 1
+    for name in wrappers:
+        want = per_batch.get(name, 0) * batches
+        if launches[name] != want:
+            fail(f"{name} launched {launches[name]} times in {batches} batches, expected {want}")
+    if not bool(torch.isfinite(est).all()) or tuple(est.shape) != (NUM_PAIRS, 4, 4):
+        fail(f"register_batch gave non-finite or misshapen transforms {tuple(est.shape)}")
+    return est, sorted(times)[len(times) // 2] * 1e3, launches
+
+
+def parity(model, src, dst, est, feat_tol: float, feat_share: float, mask_agree: float) -> str:
+    """The first PARITY_PAIRS pairs of the timed batch against the same path
+    with device="cpu", and GNC-TLS and Kabsch on the card against the CPU
+    on the CPU run's matches (the tolerances are set out at the top)."""
+    import torch
+
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import gnc_pose, register_batch, weighted_kabsch
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+
+    dev = src.device
+    p, b = PARITY_PAIRS, src.shape[0]
+    cpu_model = copy.deepcopy(model).cpu()
+    # Card side: the timed batch's shapes (16 pairs), sliced to the first p.
+    n_g, f_g, idx_g, m_g = path_stages(model, src, dst)
+    clouds = torch.cat([torch.arange(p), b + torch.arange(p)]).to(dev)
+    n_g, f_g, t_g = n_g[clouds].cpu(), f_g[clouds].cpu(), est[:p].cpu()
+    idx_g, m_g = idx_g[:p].cpu(), m_g[:p].cpu()
+    src_c, dst_c = src[:p].cpu(), dst[:p].cpu()
+    n_c, f_c, idx_c, m_c = path_stages(cpu_model, src_c, dst_c)
+    t_c = register_batch(cpu_model, src_c, dst_c, device="cpu")
+    # The solver alone on the CPU run's matches: on the card, and on the
+    # CPU with the matches nudged, to find the pairs the inputs determine.
+    matched_c = torch.gather(dst_c, 1, idx_c[..., None].expand(-1, -1, 3))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad(), f32_geometry():
+        t_solver = gnc_pose(src[:p], matched_c.to(dev), m_c.to(dev),
+                            noise_bound=NOISE_BOUND)[0].cpu()
+        _, w_c = gnc_pose(src_c, matched_c, m_c, noise_bound=NOISE_BOUND)
+        t_step = weighted_kabsch(src[:p], matched_c.to(dev), w_c.to(dev)).cpu()
+        spread = torch.zeros(p)
+        for _ in range(NUDGE_TRIES):
+            nudged = matched_c + NUDGE * torch.randn(matched_c.shape, generator=gen)
+            t_n = gnc_pose(src_c, nudged, m_c, noise_bound=NOISE_BOUND)[0]
+            spread = torch.maximum(spread, (t_n - t_c).abs().amax((-2, -1)))
+    determined = spread <= TRANSFORM_TOL
+    normal_cos = float((n_g * n_c).sum(-1).abs().min())
+    feat_abs, feat_rel = rel_err(f_g, f_c)
+    point_err = (f_g - f_c).abs().amax(-1) / float(f_c.abs().max())
+    bad_share = float((point_err > feat_tol).float().mean())
+    agree = float((m_g == m_c).float().mean())
+    same_mask = (m_g == m_c).all(-1)
+    t_diff = (t_g - t_c).abs().amax((-2, -1))
+    solver_diff = (t_solver - t_c).abs().amax((-2, -1))
+    step_diff = (t_step - t_c).abs().amax((-2, -1))
+    shared = m_g & m_c & (idx_g == idx_c)
+    cost_c = tls_cost(t_c, src_c, matched_c, shared, NOISE_BOUND)
+    cost_g = tls_cost(t_g, src_c, matched_c, shared, NOISE_BOUND)
+    cost_solver_c = tls_cost(t_c, src_c, matched_c, m_c, NOISE_BOUND)
+    cost_solver_g = tls_cost(t_solver, src_c, matched_c, m_c, NOISE_BOUND)
+    worse = torch.maximum(cost_g - cost_c, cost_solver_g - cost_solver_c)
+    msg = (f"{p} pairs: min |cos| between normals {normal_cos:.6f}; features max abs err "
+           f"{feat_abs:.3e} (rel {feat_rel:.3e}), median point err {float(point_err.median()):.3e}"
+           f", share of points off by > {feat_tol:g} {bad_share:.4f} (tol {feat_share}); "
+           f"mutual-NN agreement {agree:.4f} (tol {mask_agree}); transform max abs diff, Kabsch "
+           f"at the CPU's GNC weights {short(step_diff)}, GNC-TLS on "
+           f"the same matches {short(solver_diff)}, end to end "
+           f"{short(t_diff)} (tol {TRANSFORM_TOL}; CPU pose spread "
+           f"under a {NUDGE:g} nudge {short(spread)}, determined "
+           f"{determined.tolist()}, masks agree {same_mask.tolist()}, CPU GNC inliers "
+           f"{(w_c > 0.5).sum(-1).tolist()} of {m_c.sum(-1).tolist()} matches); TLS "
+           f"cost over shared matches, card minus CPU, end to end "
+           f"{short(cost_g - cost_c)}, solver "
+           f"{short(cost_solver_g - cost_solver_c)} (tol {TLS_COST_SLACK})")
+    if bad_share > feat_share or agree < mask_agree or not bool(torch.isfinite(t_c).all()):
+        fail("parity: " + msg)
+    if int(determined.sum()) * 2 < p or bool((worse > TLS_COST_SLACK).any()) \
+            or bool((step_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((t_diff[determined & same_mask] > TRANSFORM_TOL).any()):
+        fail("parity: " + msg)
+    return msg
+
+
+def stage_split(model, src, dst) -> dict:
+    """One batch of register_batch's stages, each ended by a synchronize:
+    wall ms of normals, features, mutual NN and GNC-TLS."""
+    import torch
+
+    from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import gnc_pose
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t1) * 1e3
+        return result
+
+    b = src.shape[0]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        normals = timed("normals", lambda: estimate_normals(clouds))
+        feats = timed("features", lambda: model(torch.cat([clouds, normals], -1)))
+        _, idx2, mask = timed("mutual NN",
+                              lambda: mutual_nearest_neighbors(feats[:b], feats[b:]))
+        matched = torch.gather(dst, 1, idx2[..., None].expand(-1, -1, 3))
+        timed("GNC-TLS", lambda: gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND))
+    out["total"] = sum(out.values())
+    return out
 
 
 def train_config():
@@ -605,11 +925,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     from rift_tpu_torch.data import SyntheticPairs
+    from rift_tpu_torch.models import bench_model
     from rift_tpu_torch.ops.cuda import build, kernel_wrappers
-    from rift_tpu_torch.ops.precision import f32_geometry
-    from rift_tpu_torch.registration import (gnc_pose, pair_errors, register_batch,
-                                             weighted_kabsch)
-    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+    from rift_tpu_torch.registration import pair_errors
 
     build.load()
     phase("build", t0, f"{build.lib_path} built in {build.build_seconds:.2f} s")
@@ -629,28 +947,8 @@ def main() -> int:
     t0 = time.perf_counter()
     model = seeded_model(0).to(dev)
     wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    est = register_batch(model, src, dst)  # warm-up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMED_BATCHES):
-        t1 = time.perf_counter()
-        est = register_batch(model, src, dst)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-    launches = read_counts(wrappers)
-    batches = TIMED_BATCHES + 1
-    per_batch = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2,
-                 "corner_scatter": 0}
-    for name, want in per_batch.items():
-        if launches[name] != want * batches:
-            fail(f"{name} launched {launches[name]} times in {batches} batches, "
-                 f"expected {want * batches}")
-    if not bool(torch.isfinite(est).all()) or tuple(est.shape) != (NUM_PAIRS, 4, 4):
-        fail(f"main path gave non-finite or misshapen transforms {tuple(est.shape)}")
+    est, ms, launches = register_phase(model, src, dst, wrappers, REGISTER_LAUNCHES)
     errs = pair_errors(src, gt, est)
-    ms = sorted(times)[len(times) // 2] * 1e3
     phase("main", t0, f"{NUM_PAIRS} pairs x {NUM_POINTS} points: {ms:.2f} ms/batch "
                       f"(median of {TIMED_BATCHES}), {NUM_PAIRS / ms * 1e3:.2f} pairs/s; "
                       f"median RRE {float(errs['rre'].median()):.3f} deg, "
@@ -658,67 +956,31 @@ def main() -> int:
                       f"information only); launches {launches}")
 
     t0 = time.perf_counter()
-    p, b = PARITY_PAIRS, NUM_PAIRS
-    cpu_model = copy.deepcopy(model).cpu()
-    # Card side: the timed batch's shapes (16 pairs), sliced to the first p.
-    n_g, f_g, idx_g, m_g = path_stages(model, src, dst)
-    clouds = torch.cat([torch.arange(p), b + torch.arange(p)]).to(dev)
-    n_g, f_g, t_g = n_g[clouds].cpu(), f_g[clouds].cpu(), est[:p].cpu()
-    idx_g, m_g = idx_g[:p].cpu(), m_g[:p].cpu()
-    n_c, f_c, idx_c, m_c = path_stages(cpu_model, src[:p].cpu(), dst[:p].cpu())
-    t_c = register_batch(cpu_model, src_np[:p], dst_np[:p], device="cpu")
-    # The solver alone on the CPU run's matches: on the card, and on the
-    # CPU with the matches nudged, to find the pairs the inputs determine.
-    src_c = src[:p].cpu()
-    matched_c = torch.gather(dst[:p].cpu(), 1, idx_c[..., None].expand(-1, -1, 3))
-    gen = torch.Generator().manual_seed(2)
-    with torch.no_grad(), f32_geometry():
-        t_solver = gnc_pose(src[:p], matched_c.to(dev), m_c.to(dev),
-                            noise_bound=NOISE_BOUND)[0].cpu()
-        _, w_c = gnc_pose(src_c, matched_c, m_c, noise_bound=NOISE_BOUND)
-        t_step = weighted_kabsch(src[:p], matched_c.to(dev), w_c.to(dev)).cpu()
-        spread = torch.zeros(p)
-        for _ in range(NUDGE_TRIES):
-            nudged = matched_c + NUDGE * torch.randn(matched_c.shape, generator=gen)
-            t_n = gnc_pose(src_c, nudged, m_c, noise_bound=NOISE_BOUND)[0]
-            spread = torch.maximum(spread, (t_n - t_c).abs().amax((-2, -1)))
-    determined = spread <= TRANSFORM_TOL
-    normal_cos = float((n_g * n_c).sum(-1).abs().min())
-    feat_abs, feat_rel = rel_err(f_g, f_c)
-    point_err = (f_g - f_c).abs().amax(-1) / float(f_c.abs().max())
-    bad_share = float((point_err > FEAT_POINT_TOL).float().mean())
-    agree = float((m_g == m_c).float().mean())
-    same_mask = (m_g == m_c).all(-1)
-    t_diff = (t_g - t_c).abs().amax((-2, -1))
-    solver_diff = (t_solver - t_c).abs().amax((-2, -1))
-    step_diff = (t_step - t_c).abs().amax((-2, -1))
-    shared = m_g & m_c & (idx_g == idx_c)
-    cost_c = tls_cost(t_c, src_c, matched_c, shared, NOISE_BOUND)
-    cost_g = tls_cost(t_g, src_c, matched_c, shared, NOISE_BOUND)
-    cost_solver_c = tls_cost(t_c, src_c, matched_c, m_c, NOISE_BOUND)
-    cost_solver_g = tls_cost(t_solver, src_c, matched_c, m_c, NOISE_BOUND)
-    worse = torch.maximum(cost_g - cost_c, cost_solver_g - cost_solver_c)
-    msg = (f"{p} pairs: min |cos| between normals {normal_cos:.6f}; features max abs err "
-           f"{feat_abs:.3e} (rel {feat_rel:.3e}), share of points off by > "
-           f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}); mutual-NN "
-           f"agreement {agree:.4f} (tol {MASK_AGREE}); transform max abs diff, Kabsch "
-           f"at the CPU's GNC weights {short(step_diff)}, GNC-TLS on "
-           f"the same matches {short(solver_diff)}, end to end "
-           f"{short(t_diff)} (tol {TRANSFORM_TOL}; CPU pose spread "
-           f"under a {NUDGE:g} nudge {short(spread)}, determined "
-           f"{determined.tolist()}, masks agree {same_mask.tolist()}, CPU GNC inliers "
-           f"{(w_c > 0.5).sum(-1).tolist()} of {m_c.sum(-1).tolist()} matches); TLS "
-           f"cost over shared matches, card minus CPU, end to end "
-           f"{short(cost_g - cost_c)}, solver "
-           f"{short(cost_solver_g - cost_solver_c)} (tol {TLS_COST_SLACK})")
-    if bad_share > FEAT_POINT_SHARE or agree < MASK_AGREE or not bool(torch.isfinite(t_c).all()):
-        fail("parity: " + msg)
-    if int(determined.sum()) * 2 < p or bool((worse > TLS_COST_SLACK).any()) \
-            or bool((step_diff[determined] > TRANSFORM_TOL).any()) \
-            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
-            or bool((t_diff[determined & same_mask] > TRANSFORM_TOL).any()):
-        fail("parity: " + msg)
-    phase("parity", t0, msg)
+    phase("parity", t0, parity(model, src, dst, est, FEAT_POINT_TOL, FEAT_POINT_SHARE,
+                               MASK_AGREE))
+
+    t0 = time.perf_counter()
+    bench = seeded_model(0, bench_model("dgcnn")).to(dev)
+    est_b, ms_b, launches_b = register_phase(bench, src, dst, wrappers, BENCH_LAUNCHES)
+    errs = pair_errors(src, gt, est_b)
+    print(f"bench: {smi}: bench.py's model (sph_dg, bf16): {ms_b:.2f} ms/batch, "
+          f"{NUM_PAIRS / ms_b * 1e3:.2f} pairs/s at {NUM_PAIRS} pairs x {NUM_POINTS} points "
+          f"(median of {TIMED_BATCHES}); f32 flagship (sph_pt): {ms:.2f} ms/batch, "
+          f"{NUM_PAIRS / ms * 1e3:.2f} pairs/s", flush=True)
+    phase("bench", t0, f"median RRE {float(errs['rre'].median()):.3f} deg, RTE "
+                       f"{float(errs['rte'].median()):.4f} (random weights: information "
+                       f"only); launches {launches_b}")
+    t0 = time.perf_counter()
+    phase("bench parity", t0, parity(bench, src, dst, est_b, FEAT_POINT_TOL_BF16,
+                                     FEAT_POINT_SHARE_BF16, MASK_AGREE_BF16))
+
+    t0 = time.perf_counter()
+    for label, m in (("f32 flagship", model), ("bf16 bench", bench)):
+        split = stage_split(m, src, dst)
+        print(f"stages: {label}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()),
+              flush=True)
+    phase("stages", t0, "one staged batch of each model")
+    del bench
 
     t0 = time.perf_counter()
     tr = train_phase(wrappers)
@@ -735,7 +997,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("train parity", t0, train_parity())
 
-    paths = {"register": launches, "train": tr["launches"]}
+    paths = {"register": launches, "register_bf16": launches_b, "train": tr["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -748,7 +1010,8 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shapes": rep["shapes"],
-            **({"adjoint_rel_err": rep["adjoint_rel_err"]} if "adjoint_rel_err" in rep else {})})
+            **{k: rep[k] for k in ("adjoint_rel_err", "far_rel_err", "bf16", "max_steps",
+                                   "equal_share", "library_steps", "per_shape") if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,10 @@
 // (launched by `scatter_mean_pallas`; the TPU's default route computes the
 // same function as `scatter_mean_factored`).
 //   out[b, v, c] = mean of features[b, p, c] over the points p with
-//   inds[b, p] == v; cnt[b, v] = that number (f32); negative indices are
-//   dropped; empty voxels hold 0.
+//   inds[b, p] == v; cnt[b, v] = that number (f32); indices outside [0, s)
+//   are dropped; empty voxels hold 0. Features are f32 or bf16 (the bf16
+//   model's blocks); sums and outputs are f32 either way, as the Pallas
+//   kernel's f32 accumulation gives.
 // Bound on this card: bytes. The dense grid is written in full
 // (b·s·c floats: 281 MB at b = 32, s = 32768, c = 67) against b·n·c
 // floats read; the arithmetic is one add per point and channel.
@@ -20,7 +22,8 @@
 // K3 replaces: onehot_ops.py, `_gather_kernel` (launched by
 // `corner_gather_pallas`; factored twin `corner_gather_factored`).
 //   out[b, p, c] = Σ_k w[b, p, k] · grid[b, idx[b, p, k], c] over the 8
-//   corners, skipping idx < 0.
+//   corners, skipping idx outside [0, s). The grid is f32 or bf16; the
+//   products and sums are f32 and so is the output.
 // Bound on this card: bytes — each output element needs 8 grid loads and
 // 1 store; the grid rows a cloud touches are few (≤ 8·n rows) and stay in
 // L2, so the least traffic is the b·n·c output plus the b·n·8 corner
@@ -33,7 +36,7 @@
 // `corner_scatter_pallas`), the transpose of K3 and the backward of the
 // spherical devoxelization:
 //   dgrid[b, v, c] = Σ_{p,k : idx[b, p, k] = v} w[b, p, k] · dout[b, p, c],
-//   skipping idx < 0; every voxel is written, zeros included.
+//   skipping idx outside [0, s); every voxel is written, zeros included.
 // Bound on this card: bytes — the dense dgrid write (b·s·c floats: 403 MB
 // per training step at b = 16, s = 32768, c = 64 + 128) against b·n·c
 // floats of dout and the b·n·8 corners read; two flops per corner entry
@@ -45,6 +48,7 @@
 // voxel's run start (-1 when empty) and length. Pass 2 runs one thread per
 // (voxel, channel) and sums w·dout over its run in (p, k) order, unfused,
 // as the plain version does.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,7 +115,11 @@ __global__ void voxel_runs_kernel(const int* __restrict__ inds, int n, int s,
   }
 }
 
-__global__ void voxel_mean_kernel(const float* __restrict__ feat, const int* __restrict__ order,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__global__ void voxel_mean_kernel(const T* __restrict__ feat, const int* __restrict__ order,
                                   const int* __restrict__ vstart, const float* __restrict__ cnt,
                                   float* __restrict__ out, int n, int s, int c, long long total) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -124,15 +132,16 @@ __global__ void voxel_mean_kernel(const float* __restrict__ feat, const int* __r
   if (start >= 0) {
     const int len = (int)cnt[bv];
     const int* ord = order + (size_t)b * n + start;
-    const float* f = feat + (size_t)b * n * c + ch;
+    const T* f = feat + (size_t)b * n * c + ch;
     float sum = 0.0f;
-    for (int t = 0; t < len; ++t) sum = __fadd_rn(sum, f[(size_t)ord[t] * c]);
+    for (int t = 0; t < len; ++t) sum = __fadd_rn(sum, to_f32(f[(size_t)ord[t] * c]));
     v = __fmul_rn(sum, __frcp_rn((float)len));
   }
   out[e] = v;
 }
 
-__global__ void corner_gather_kernel(const float* __restrict__ grid, const int* __restrict__ idx,
+template <typename T>
+__global__ void corner_gather_kernel(const T* __restrict__ grid, const int* __restrict__ idx,
                                      const float* __restrict__ w, float* __restrict__ out,
                                      int n, int s, int c, long long total) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -142,12 +151,12 @@ __global__ void corner_gather_kernel(const float* __restrict__ grid, const int* 
   const int b = (int)(bp / n);
   const int* ix = idx + bp * 8;
   const float* wt = w + bp * 8;
-  const float* g = grid + (size_t)b * s * c + ch;
+  const T* g = grid + (size_t)b * s * c + ch;
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int v = ix[k];
-    if (v >= 0) acc = __fadd_rn(acc, __fmul_rn(wt[k], g[(size_t)v * c]));
+    if (v >= 0 && v < s) acc = __fadd_rn(acc, __fmul_rn(wt[k], to_f32(g[(size_t)v * c])));
   }
   out[e] = acc;
 }
@@ -217,11 +226,12 @@ __global__ void corner_scatter_kernel(const float* __restrict__ dout, const floa
 
 }  // namespace
 
-// features [b, n, c] f32, inds [b, n] int32 (negative = dropped; n <= 4096);
-// scratch order [b, n] int32 and vstart [b, s] int32; outputs out [b, s, c]
-// and cnt [b, s] f32. Returns cudaGetLastError() after the two launches.
-extern "C" int rift_scatter_mean(const float* features, const int* inds, int b, int n, int c,
-                                 int s, int* order, int* vstart, float* out, float* cnt,
+// features [b, n, c], f32 (dtype 0) or bf16 (dtype 1); inds [b, n] int32
+// (outside [0, s) = dropped; n <= 4096); scratch order [b, n] int32 and
+// vstart [b, s] int32; outputs out [b, s, c] and cnt [b, s] f32. Returns
+// cudaGetLastError() after the two launches.
+extern "C" int rift_scatter_mean(const void* features, int dtype, const int* inds, int b, int n,
+                                 int c, int s, int* order, int* vstart, float* out, float* cnt,
                                  void* stream) {
   if (b <= 0 || s <= 0 || c <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -230,24 +240,36 @@ extern "C" int rift_scatter_mean(const float* features, const int* inds, int b, 
   if (err != 0) return err;
   const long long total = (long long)b * s * c;
   const int threads = 256;
-  voxel_mean_kernel<<<(unsigned int)((total + threads - 1) / threads), threads, 0, st>>>(
-      features, order, vstart, cnt, out, n, s, c, total);
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  if (dtype == 1)
+    voxel_mean_kernel<<<blocks, threads, 0, st>>>(
+        (const __nv_bfloat16*)features, order, vstart, cnt, out, n, s, c, total);
+  else
+    voxel_mean_kernel<<<blocks, threads, 0, st>>>(
+        (const float*)features, order, vstart, cnt, out, n, s, c, total);
   return (int)cudaGetLastError();
 }
 
-// grid [b, s, c] f32, idx [b, n, 8] int32 (negative = skipped), w [b, n, 8]
-// f32 -> out [b, n, c]. Returns cudaGetLastError() after the launch.
-extern "C" int rift_corner_gather(const float* grid, const int* idx, const float* w, int b,
-                                  int n, int c, int s, float* out, void* stream) {
+// grid [b, s, c], f32 (dtype 0) or bf16 (dtype 1); idx [b, n, 8] int32
+// (outside [0, s) = skipped), w [b, n, 8] f32 -> out [b, n, c] f32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int rift_corner_gather(const void* grid, int dtype, const int* idx, const float* w,
+                                  int b, int n, int c, int s, float* out, void* stream) {
   const long long total = (long long)b * n * c;
   if (total <= 0) return 0;
   const int threads = 256;
-  corner_gather_kernel<<<(unsigned int)((total + threads - 1) / threads), threads, 0,
-                         (cudaStream_t)stream>>>(grid, idx, w, out, n, s, c, total);
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    corner_gather_kernel<<<blocks, threads, 0, st>>>((const __nv_bfloat16*)grid, idx, w, out, n,
+                                                     s, c, total);
+  else
+    corner_gather_kernel<<<blocks, threads, 0, st>>>((const float*)grid, idx, w, out, n, s, c,
+                                                     total);
   return (int)cudaGetLastError();
 }
 
-// dout [b, n, c] f32, idx [b, n, 8] int32 (negative = skipped; n <= 1024,
+// dout [b, n, c] f32, idx [b, n, 8] int32 (outside [0, s) = skipped; n <= 1024,
 // s < 2^19), w [b, n, 8] f32; scratch order [b, 8n], vstart [b, s] and
 // vlen [b, s] int32; output dgrid [b, s, c] f32, every voxel written.
 // Returns cudaGetLastError() after the two launches.

@@ -2,13 +2,23 @@
 `rift_tpu/models/pvcnn.py:PVCNNClassifier`.
 
 Ported: centring; the 'change_coords' preprocess (`lrf_kind` 'pca' or
-'reference', no extra channels); the local-PPF branch in both modes (eval:
-ball-query grouping with masked empty slots; train: `ball_query` with its
-duplicate padding, so BatchNorm sees the reference's rows); the backbone of
-spherical `pointnet_kernel` PVConv blocks and SharedMLP blocks; and, with
+'reference'), with `extra_feature_channels=4` appending the global PPF of
+each point (features [new_coords, global_ppf], 7 channels); the local-PPF
+branch in both modes (eval: ball-query grouping with masked empty slots;
+train: `ball_query` with its duplicate padding, so BatchNorm sees the
+reference's rows); the backbone of spherical PVConv blocks (`pointnet_kernel`
+or `dgcnn_kernel` point branch) and SharedMLP blocks; and, with
 `is_classify=True`, the head max-pool -> Dense 512 -> BN -> ReLU ->
 Dropout 0.2 -> Dense 256 -> BN -> ReLU -> Dense num_classes. The other
 branches raise NotImplementedError until a later slice ports them.
+
+`dtype="bfloat16"` is the reference's bf16 mode (bench.py's model): every
+SharedMLP and PVConv computes in bf16 with f32 parameters, while the
+geometry (LRF, PPF, voxel binning) stays f32. The local-PPF features are
+computed in f32 and rounded to bf16 by the fuser's first Dense, which is
+the function of the reference's bf16 eval path
+(`ops/ppf.py:local_ppf_grouped_fast`) up to one f32 reassociation; the
+masked max fills with the bf16 minimum. Features leave the trunk as f32.
 
 Submodules carry the flax module names (`SharedMLP_0`, `PVConv_0`, ...) in
 `self.layers` and (`Dense_0`, `BatchNorm_0`, ...) in `self.head`, so
@@ -26,9 +36,10 @@ from ..nn.pvconv import PVConv
 from ..nn.shared_mlp import SharedMLP
 from ..ops.lrf import change_coords, lrf_basis
 from ..ops.neighbors import ball_query, ball_query_group, grouping
-from ..ops.ppf import local_ppf
+from ..ops.ppf import global_ppf, local_ppf
 
 DEFAULT_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
+DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 class PVCNNClassifier(nn.Module):
@@ -38,7 +49,8 @@ class PVCNNClassifier(nn.Module):
     inside `ops/precision.py:f32_geometry` (as `register_batch` and
     `train.steps.train_step` do): cuDNN runs Conv3d in TF32 by default.
     `dropout` is the head's rate (the reference's 0.2); in train mode its
-    mask is drawn from the `generator` given to `forward`."""
+    mask is drawn from the `generator` given to `forward`. `dtype` is None
+    (f32) or "bfloat16", as the reference's field."""
 
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
                  dim_k: int = 512,
@@ -55,25 +67,30 @@ class PVCNNClassifier(nn.Module):
                  with_local_feat: str | None = "ppf",
                  local_radius: float = 0.3, local_neighbors: int = 128,
                  local_fuse_dim: int = 64,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2,
+                 dtype: str | None = None):
         super().__init__()
-        if rot_invariant_preprocess != "change_coords" or extra_feature_channels != 0:
+        if rot_invariant_preprocess != "change_coords" or extra_feature_channels not in (0, 4):
             raise NotImplementedError(
                 f"preprocess {rot_invariant_preprocess!r} with "
                 f"{extra_feature_channels} extra channels is not ported yet")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be None or 'bfloat16', got {dtype!r}")
         if with_local_feat not in ("ppf", None):
             raise NotImplementedError(f"local feature {with_local_feat!r} is not ported yet")
         del dim_k  # the last block's width is the feature width, as in the reference
         self.lrf_kind = lrf_kind
+        self.global_ppf = extra_feature_channels == 4
         self.local_radius = local_radius
         self.local_neighbors = local_neighbors
+        self.dtype = DTYPES[dtype]
         layers = {}
-        in_ch = 3
+        in_ch = 3 + extra_feature_channels
         n_mlp = 0
         self._local = None
         if with_local_feat == "ppf":
             self._local = f"SharedMLP_{n_mlp}"
-            layers[self._local] = SharedMLP(4, [32, local_fuse_dim])
+            layers[self._local] = SharedMLP(4, [32, local_fuse_dim], dtype=self.dtype)
             n_mlp += 1
             in_ch += local_fuse_dim
         self._backbone: list[str] = []
@@ -83,7 +100,7 @@ class PVCNNClassifier(nn.Module):
             for _ in range(num_blocks):
                 if resolution is None:
                     name = f"SharedMLP_{n_mlp}"
-                    layers[name] = SharedMLP(in_ch, [out_ch])
+                    layers[name] = SharedMLP(in_ch, [out_ch], dtype=self.dtype)
                     n_mlp += 1
                 else:
                     name = f"PVConv_{n_pv}"
@@ -91,7 +108,7 @@ class PVCNNClassifier(nn.Module):
                         in_ch, out_ch, point_kernel_formal=point_kernel_formal,
                         voxel_shape=voxel_shape,
                         resolution=int(resolution * voxel_resolution_multiplier),
-                        with_coeff=with_coeff, with_se=with_se)
+                        with_coeff=with_coeff, with_se=with_se, dtype=self.dtype)
                     n_pv += 1
                 self._backbone.append(name)
                 in_ch = out_ch
@@ -111,10 +128,12 @@ class PVCNNClassifier(nn.Module):
         coords = inputs[..., :3]
         coords = coords - coords.mean(-2, keepdim=True)
         features = change_coords(coords, lrf_basis(coords, self.lrf_kind))
+        if (self._local is not None or self.global_ppf) and inputs.shape[-1] < 6:
+            raise ValueError("PPF features need normals: inputs [b, n, 6]")
+        normals = inputs[..., 3:6]
+        if self.global_ppf:
+            features = torch.cat([features, global_ppf(coords, normals)], dim=-1)
         if self._local is not None:
-            if inputs.shape[-1] < 6:
-                raise ValueError("local PPF features need normals: inputs [b, n, 6]")
-            normals = inputs[..., 3:6]
             with_normals = torch.cat([coords, normals], -1)
             if self.training:
                 # The reference's training composition: empty slots repeat
@@ -128,16 +147,18 @@ class PVCNNClassifier(nn.Module):
             fused = self.layers[self._local](
                 local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals))
             if slot_ok is not None:
-                fused = fused.masked_fill(~slot_ok[..., None], float("-inf"))
+                fill = (float("-inf") if fused.dtype == torch.float32
+                        else torch.finfo(fused.dtype).min)
+                fused = fused.masked_fill(~slot_ok[..., None], fill)
             features = torch.cat([features, fused.amax(-2)], dim=-1)
         for name in self._backbone:
             layer = self.layers[name]
             features = (layer(features, coords) if isinstance(layer, PVConv)
                         else layer(features))
         if self.head is None:
-            return features
+            return features.float()
         h = self.head
-        x = torch.relu(h["BatchNorm_0"](h["Dense_0"](features.amax(-2))))
+        x = torch.relu(h["BatchNorm_0"](h["Dense_0"](features.amax(-2).float())))
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("train-mode dropout needs a torch.Generator")

@@ -9,7 +9,9 @@ E[x²] − E[x]²). Train mode here normalizes with the batch mean and biased
 variance and updates running = 0.99·running + 0.01·batch; eval mode reads
 the running statistics. The channel axis is 1 ([N, C] or [b, C, ...]).
 The `state_dict` names are torch's: weight, bias, running_mean,
-running_var.
+running_var. A bf16 input is normalized in f32, with the f32 statistics and
+parameters, and the result is written in bf16, as flax's
+`BatchNorm(dtype=bfloat16)` does.
 """
 from __future__ import annotations
 
@@ -29,6 +31,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._normalize(x.float()).to(x.dtype)
+        return self._normalize(x)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)

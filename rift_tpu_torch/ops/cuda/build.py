@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at their first launch.
 
-All sources under `rift_tpu_torch/csrc/*.cu` are compiled by one `nvcc`
-call for `sm_90a` into `rift_tpu_torch/_build/librift_kernels.so`, a
-shared library with a plain C interface, and loaded with `ctypes`. No
-source includes PyTorch's headers, so the build takes seconds. The library
-is rebuilt only when the hash of the sources changes. Nothing here runs at
-import time: `import rift_tpu_torch` needs no compiler.
+Each source under `rift_tpu_torch/csrc/*.cu` is compiled for `sm_90a` by
+its own `nvcc` process, all started together; one more `nvcc` links the
+objects into `rift_tpu_torch/_build/librift_kernels.so`, a shared library
+with a plain C interface, loaded with `ctypes`. No source includes
+PyTorch's headers, so the build takes seconds. The library is rebuilt only
+when the hash of the sources changes. Nothing here runs at import time:
+`import rift_tpu_torch` needs no compiler.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -29,9 +31,10 @@ _I = ctypes.c_int
 # 64-bit address.
 _SIGNATURES = {
     "rift_normals_moments": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "rift_scatter_mean": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "rift_corner_gather": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "rift_scatter_mean": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rift_corner_gather": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "rift_corner_scatter": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rift_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -60,9 +63,36 @@ def _nvcc() -> str:
     return found
 
 
-def nvcc_command(out_path: str) -> list[str]:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out_path] + _sources()
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def nvcc_commands(out_path: str, obj_dir: str) -> tuple[list[list[str]], list[str]]:
+    """One compile command per source (run in parallel) and the link."""
+    nvcc = _nvcc()
+    objs, compiles = [], []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        compiles.append([nvcc, *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", src,
+                         "-o", obj])
+        objs.append(obj)
+    return compiles, [nvcc, *_ARCH, "-shared", "-o", out_path, *objs]
+
+
+def _run_build(out_path: str) -> None:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+        compiles, link = nvcc_commands(out_path, obj_dir)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(cmd[-3])} (exit {proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{proc.stderr}")
 
 
 def _digest() -> str:
@@ -96,11 +126,8 @@ def load() -> ctypes.CDLL:
         if not (os.path.isfile(path) and _read(stamp) == digest):
             tmp = path + f".tmp{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+            _run_build(tmp)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, path)
             with open(stamp, "w") as f:
                 f.write(digest + "\n")

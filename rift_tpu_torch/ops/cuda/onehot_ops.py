@@ -6,7 +6,8 @@ Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2),
 The TPU kernels build one-hot selectors for the MXU; on the card the same
 functions are a sort-then-segment-sum (K2, K4) and a direct 8-row gather
 (K3), in `csrc/voxel_ops.cu`. Each wrapper launches its kernel for a CUDA
-tensor and takes its plain version only for a CPU tensor.
+tensor and takes its plain version only for a CPU tensor. An index outside
+[0, s) matches no voxel and drops out, as in the one-hot kernels.
 """
 from __future__ import annotations
 
@@ -19,23 +20,28 @@ Tensor = torch.Tensor
 MAX_SORT_POINTS = 4096  # K2 sorts one cloud's keys in shared memory
 MAX_SCATTER_POINTS = 1024  # K4 sorts one cloud's 8·n corner keys in shared memory
 MAX_SCATTER_SEGMENTS = 1 << 19  # K4 keys hold the voxel in 19 bits
+# Input types of the K2 and K3 kernels, with the type code their C entry
+# points take (0: f32, 1: bf16); they sum and write f32 either way.
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def scatter_mean_plain(features: Tensor, inds: Tensor, num_segments: int
                        ) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of K2: features [b, n, c], inds [b, n]
-    (negative = dropped) -> (out [b, s, c], cnt [b, s] f32); empty voxels
-    hold 0. Sums in point order, then scales by 1/count."""
+    """Plain PyTorch version of K2: features [b, n, c] (f32, f64 or bf16),
+    inds [b, n] (outside [0, s) = dropped) -> (out [b, s, c], cnt [b, s]),
+    both f32 for bf16 features; empty voxels hold 0. Sums in point order,
+    then scales by 1/count."""
     b, n, c = features.shape
     s = num_segments
-    valid = inds >= 0
+    acc = torch.promote_types(features.dtype, torch.float32)
+    valid = (inds >= 0) & (inds < s)
     # Dropped points go to a trash row past each cloud's segments.
     row = torch.where(valid, inds.long(), torch.full_like(inds.long(), s))
     flat = (row + torch.arange(b, device=inds.device)[:, None] * (s + 1)).reshape(-1)
-    sums = torch.zeros((b * (s + 1), c), dtype=features.dtype, device=features.device)
-    sums.index_add_(0, flat, features.reshape(b * n, c))
-    cnt = torch.zeros(b * (s + 1), dtype=features.dtype, device=features.device)
-    cnt.index_add_(0, flat, valid.reshape(-1).to(features.dtype))
+    sums = torch.zeros((b * (s + 1), c), dtype=acc, device=features.device)
+    sums.index_add_(0, flat, features.reshape(b * n, c).to(acc))
+    cnt = torch.zeros(b * (s + 1), dtype=acc, device=features.device)
+    cnt.index_add_(0, flat, valid.reshape(-1).to(acc))
     sums = sums.reshape(b, s + 1, c)[:, :s]
     cnt = cnt.reshape(b, s + 1)[:, :s]
     inv = torch.where(cnt > 0, 1.0 / torch.clamp(cnt, min=1.0), torch.zeros_like(cnt))
@@ -44,15 +50,16 @@ def scatter_mean_plain(features: Tensor, inds: Tensor, num_segments: int
 
 def scatter_mean(features: Tensor, inds: Tensor, num_segments: int
                  ) -> tuple[Tensor, Tensor]:
-    """K2. features [b, n, c] f32, inds [b, n] int (negative = dropped) ->
-    (out [b, s, c], cnt [b, s] f32). CPU tensor: the plain version; CUDA
-    tensor: the kernel."""
+    """K2. features [b, n, c] f32 or bf16, inds [b, n] int (outside [0, s) =
+    dropped) -> (out [b, s, c] f32, cnt [b, s] f32): bf16 features are
+    summed in f32, as the Pallas kernel sums them. CPU tensor: the plain
+    version; CUDA tensor: the kernel."""
     if features.device.type == "cpu":
         return scatter_mean_plain(features, inds, num_segments)
     if features.device.type != "cuda" or inds.device != features.device:
         raise ValueError(f"unsupported devices {features.device}, {inds.device}")
-    if features.dtype != torch.float32 or features.dim() != 3:
-        raise ValueError(f"features must be f32 [b, n, c], got {features.dtype} "
+    if features.dtype not in _KERNEL_DTYPES or features.dim() != 3:
+        raise ValueError(f"features must be f32 or bf16 [b, n, c], got {features.dtype} "
                          f"{tuple(features.shape)}")
     b, n, c = features.shape
     if tuple(inds.shape) != (b, n):
@@ -69,7 +76,8 @@ def scatter_mean(features: Tensor, inds: Tensor, num_segments: int
     out = torch.empty((b, s, c), dtype=torch.float32, device=dev)
     cnt = torch.empty((b, s), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.rift_scatter_mean(feat.data_ptr(), ind.data_ptr(), b, n, c, s,
+    build.check(lib.rift_scatter_mean(feat.data_ptr(), _KERNEL_DTYPES[feat.dtype],
+                                      ind.data_ptr(), b, n, c, s,
                                       order.data_ptr(), vstart.data_ptr(),
                                       out.data_ptr(), cnt.data_ptr(), stream),
                 "rift_scatter_mean")
@@ -82,30 +90,36 @@ scatter_mean.launches = 0
 
 def corner_gather_plain(grid: Tensor, corner_idx: Tensor, corner_w: Tensor
                         ) -> Tensor:
-    """Plain PyTorch version of K3: grid [b, s, c], corner_idx [b, n, 8]
-    (negative = skipped), corner_w [b, n, 8] -> out [b, n, c], the corners
-    summed in k order."""
+    """Plain PyTorch version of K3: grid [b, s, c] (f32, f64 or bf16),
+    corner_idx [b, n, 8] (outside [0, s) = skipped), corner_w [b, n, 8] ->
+    out [b, n, c], f32 for a bf16 grid, the corners summed in k order."""
     b, n, _ = corner_idx.shape
-    c = grid.shape[-1]
-    out = torch.zeros((b, n, c), dtype=grid.dtype, device=grid.device)
+    s, c = grid.shape[1:]
+    acc = torch.promote_types(grid.dtype, torch.float32)
+    out = torch.zeros((b, n, c), dtype=acc, device=grid.device)
     for k in range(8):
         idx = corner_idx[..., k]
-        rows = torch.gather(grid, 1, torch.clamp(idx, min=0).long()[..., None].expand(b, n, c))
-        w = torch.where(idx >= 0, corner_w[..., k], torch.zeros_like(corner_w[..., k]))
+        valid = (idx >= 0) & (idx < s)
+        safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+        rows = torch.gather(grid, 1, safe[..., None].expand(b, n, c)).to(acc)
+        w = torch.where(valid, corner_w[..., k], torch.zeros_like(corner_w[..., k]))
         out = out + w[..., None] * rows
     return out
 
 
 def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
     """K3. out[b, p, c] = Σ_k w[b, p, k]·grid[b, idx[b, p, k], c], skipping
-    idx < 0. CPU tensor: the plain version; CUDA tensor: the kernel."""
+    idx outside [0, s); grid f32 or bf16, out f32 (a bf16 grid is read as
+    it is and summed in f32, as the Pallas kernel does). CPU tensor: the
+    plain version; CUDA tensor: the kernel."""
     if grid.device.type == "cpu":
         return corner_gather_plain(grid, corner_idx, corner_w)
     if grid.device.type != "cuda" or corner_idx.device != grid.device \
             or corner_w.device != grid.device:
         raise ValueError("grid, corner_idx and corner_w must share one CUDA device")
-    if grid.dtype != torch.float32 or grid.dim() != 3:
-        raise ValueError(f"grid must be f32 [b, s, c], got {grid.dtype} {tuple(grid.shape)}")
+    if grid.dtype not in _KERNEL_DTYPES or grid.dim() != 3:
+        raise ValueError(f"grid must be f32 or bf16 [b, s, c], got {grid.dtype} "
+                         f"{tuple(grid.shape)}")
     b, s, c = grid.shape
     if corner_idx.dim() != 3 or corner_idx.shape[0] != b or corner_idx.shape[-1] != 8 \
             or corner_w.shape != corner_idx.shape:
@@ -118,8 +132,8 @@ def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
     w = corner_w.to(torch.float32).contiguous()
     out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
     stream = torch.cuda.current_stream(grid.device).cuda_stream
-    build.check(lib.rift_corner_gather(g.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                                       b, n, c, s, out.data_ptr(), stream),
+    build.check(lib.rift_corner_gather(g.data_ptr(), _KERNEL_DTYPES[g.dtype], idx.data_ptr(),
+                                       w.data_ptr(), b, n, c, s, out.data_ptr(), stream),
                 "rift_corner_gather")
     corner_gather.launches += 1
     return out
@@ -131,12 +145,12 @@ corner_gather.launches = 0
 def corner_scatter_plain(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
                          num_segments: int) -> Tensor:
     """Plain PyTorch version of K4, the transpose of K3: dout [b, n, c],
-    corner_idx [b, n, 8] (negative = skipped), corner_w [b, n, 8] ->
+    corner_idx [b, n, 8] (outside [0, s) = skipped), corner_w [b, n, 8] ->
     dgrid [b, s, c] with dgrid[v] = Σ_{p,k: idx = v} w[p, k]·dout[p]. The
     products are summed in (p, k) order (`index_add_` on the CPU)."""
     b, n, c = dout.shape
     s = num_segments
-    valid = corner_idx >= 0
+    valid = (corner_idx >= 0) & (corner_idx < s)
     # Skipped corners go to a trash row past each cloud's segments.
     row = torch.where(valid, corner_idx.long(), torch.full_like(corner_idx.long(), s))
     flat = (row + torch.arange(b, device=dout.device)[:, None, None] * (s + 1)).reshape(-1)
@@ -149,8 +163,8 @@ def corner_scatter_plain(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
 def corner_scatter(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
                    num_segments: int) -> Tensor:
     """K4. dgrid[b, v, c] = Σ_{p,k: idx[b,p,k] = v} w[b,p,k]·dout[b,p,c],
-    skipping idx < 0; every voxel written. CPU tensor: the plain version;
-    CUDA tensor: the kernel."""
+    skipping idx outside [0, s); every voxel written. CPU tensor: the plain
+    version; CUDA tensor: the kernel."""
     if dout.device.type == "cpu":
         return corner_scatter_plain(dout, corner_idx, corner_w, num_segments)
     if dout.device.type != "cuda" or corner_idx.device != dout.device \

@@ -1,4 +1,5 @@
-"""Point-pair features, twin of `rift_tpu/ops/ppf.py` (`ppf`, `local_ppf`).
+"""Point-pair features, twin of `rift_tpu/ops/ppf.py` (`ppf`, `global_ppf`,
+`local_ppf`).
 
 Channels-last; points [..., n, 3].
 """
@@ -35,6 +36,16 @@ def ppf(coords: Tensor, centers: Tensor, normals: Tensor,
                         d_norm], dim=-1)
     defined = (n1_norm > _NORMAL_EPS) & (n2_norm > _NORMAL_EPS)
     return torch.where(defined[..., None], feat, torch.zeros_like(feat))
+
+
+def global_ppf(coords: Tensor, normals: Tensor) -> Tensor:
+    """PPF of every point against the cloud's centroid and its mean normal,
+    [..., n, 4]; the normals are unit-normalized first (norm floor 1e-12)."""
+    normals = normals / torch.clamp(torch.linalg.vector_norm(normals, dim=-1, keepdim=True),
+                                    min=1e-12)
+    centers = coords.mean(-2, keepdim=True).expand(coords.shape)
+    center_normals = normals.mean(-2, keepdim=True).expand(normals.shape)
+    return ppf(coords, centers, normals, center_normals)
 
 
 def local_ppf(neighbor_coords: Tensor, neighbor_normals: Tensor,

@@ -42,7 +42,7 @@ class ScatterMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         inds, cnt = ctx.saved_tensors
-        valid = inds >= 0
+        valid = (inds >= 0) & (inds < g.shape[1])
         safe = torch.where(valid, inds.long(), torch.zeros_like(inds.long()))
         g_rows = torch.gather(g, 1, safe[..., None].expand(-1, -1, g.shape[-1]))
         inv = 1.0 / torch.clamp(torch.gather(cnt, 1, safe), min=1.0)
@@ -110,7 +110,9 @@ def spherical_voxel_indices(norm_coords: Tensor, resolution: int
 def spherical_avg_voxelize(features: Tensor, coords: Tensor, resolution: int
                            ) -> tuple[Tensor, Tensor, Tensor]:
     """features [b, n, c], raw coords [b, n, 3] -> (grid [b, r, r, r, c] with
-    axes (γ, α, β), indices [b, n] (−1 = undefined), normalized coords)."""
+    axes (γ, α, β), indices [b, n] (−1 = undefined), normalized coords).
+    bf16 features are summed in f32 and the grid is f32, as the Pallas K2
+    writes it."""
     r = resolution
     norm_coords = normalize_coords_sphere(coords.detach())
     inds, _ = spherical_voxel_indices(norm_coords, r)
@@ -156,7 +158,8 @@ def spherical_corner_weights(norm_coords: Tensor, point_inds: Tensor,
 def spherical_trilinear_devoxelize(voxel_grid: Tensor, norm_coords: Tensor,
                                    point_inds: Tensor, resolution: int) -> Tensor:
     """Trilinear interpolation of grid [b, r, r, r, c] at each point, in
-    (γ, α, β) grid units -> [b, n, c]; undefined points give 0."""
+    (γ, α, β) grid units -> [b, n, c]; undefined points give 0. A bf16 grid
+    is read as it is and the result is f32."""
     r = resolution
     c = voxel_grid.shape[-1]
     flat = voxel_grid.reshape(voxel_grid.shape[:-4] + (r * r * r, c))

@@ -20,10 +20,12 @@ def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:
     """Estimated transforms [b, 4, 4] (src -> dst) for b pairs of clouds.
 
     src, dst: [b, n, 3] arrays or tensors. `model` is an eval-mode
-    `PVCNNClassifier` already on `device`. `device=None` means the CUDA card
-    and raises when there is none; `device="cpu"` runs the plain PyTorch
-    versions of the kernels. The run is strict f32: TF32 is turned off for
-    matmuls and cuDNN convolutions (`ops/precision.py:f32_geometry`).
+    `PVCNNClassifier` already on `device`, f32 (the flagship) or bf16
+    (`models.bench_model`, bench.py's model); either returns f32 features.
+    `device=None` means the CUDA card and raises when there is none;
+    `device="cpu"` runs the plain PyTorch versions of the kernels. The
+    geometry is strict f32: TF32 is turned off for matmuls and cuDNN
+    convolutions (`ops/precision.py:f32_geometry`).
     """
     device = resolve_device(device)
     if model.training:

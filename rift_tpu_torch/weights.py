@@ -10,15 +10,19 @@ Flax's automatic names map explicitly:
   SharedMLP  Dense_i, BatchNorm_i        -> layers.i.dense, layers.i.bn
   PVConv     Conv_i, BatchNorm_i         -> convs.i, bns.i
              SE3d_0/Dense_0, /Dense_1    -> se.fc1, se.fc2
-             SharedMLP_0                 -> point
+             SharedMLP_0                 -> point (its Dense_0 kernel is
+                                            [2·c_in, out] in a dgcnn_kernel
+                                            block, [c_in, out] in a
+                                            pointnet_kernel one)
              coefficient                 -> coefficient (a scalar)
   Dense kernel [in, out]                 -> Linear weight [out, in]
   Conv kernel [kd, kh, kw, in, out]      -> Conv3d weight [out, in, kd, kh, kw]
   BatchNorm scale, bias + mean, var      -> weight, bias, running_mean, running_var
 
 Any key that no rule consumes raises, so a tree from another configuration
-(a dgcnn block, a fine-tune transform) fails loudly instead of loading
-partly.
+(a fine-tune transform, a third conv in a block) fails loudly instead of
+loading partly; a width that differs from the torch model's fails in
+`load_state_dict`.
 """
 from __future__ import annotations
 

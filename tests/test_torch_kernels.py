@@ -1,9 +1,12 @@
 """The plain PyTorch versions of the port's kernels (K1 normals moments, K2
-voxel scatter-mean, K3 corner gather, K4 corner scatter) against the Pallas
-kernels they replace, run in interpret mode on the CPU as
+voxel scatter-mean, K3 corner gather, K4 corner scatter, K5 bf16 Conv3d)
+against the Pallas kernels they replace, run in interpret mode on the CPU as
 tests/test_pallas_ops.py runs them, and the autograd Functions built on K2,
 K3 and K4. On a CPU tensor each wrapper takes the plain version, so these
 also cover the wrappers' CPU route."""
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,12 +15,31 @@ import torch
 from rift_tpu.ops.pallas import corner_gather_pallas, scatter_mean_pallas
 from rift_tpu.ops.pallas.normals_kernel import neighborhood_moments_pallas
 from rift_tpu.ops.pallas.onehot_ops import corner_scatter_pallas
-from rift_tpu_torch.ops.cuda import (corner_gather, corner_scatter, neighborhood_moments,
-                                     scatter_mean)
+from rift_tpu_torch.ops.cuda import (conv3d_same, corner_gather, corner_scatter,
+                                     neighborhood_moments, scatter_mean)
+from rift_tpu_torch.ops.cuda.conv3d import conv3d_same_plain
 from rift_tpu_torch.ops.cuda.normals_kernel import neighborhood_moments_plain, point_sqdist
 from rift_tpu_torch.ops.cuda.onehot_ops import (corner_gather_plain, corner_scatter_plain,
                                                 scatter_mean_plain)
 from rift_tpu_torch.ops.spherical import CornerGather, ScatterMean
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _conv3d_experiment():
+    """scripts/conv3d_kernel_experiment.py, the module of K5's Pallas kernel
+    (scripts/ is not a package)."""
+    path = os.path.join(ROOT, "scripts", "conv3d_kernel_experiment.py")
+    spec = importlib.util.spec_from_file_location("conv3d_kernel_experiment", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bf16_ulp(a):
+    """The spacing of bf16 numbers (8 significant bits) at |a|, as f64."""
+    _, e = np.frexp(np.abs(np.asarray(a, np.float64)))
+    return np.ldexp(1.0, e - 8)
 
 
 def _cloud(rng, b, n, duplicates):
@@ -160,3 +182,118 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch(rng):
     assert torch.equal(corner_scatter(dout, idx, w, 16), corner_scatter_plain(dout, idx, w, 16))
     assert before == (neighborhood_moments.launches, scatter_mean.launches,
                       corner_gather.launches, corner_scatter.launches)
+
+
+@pytest.mark.parametrize("kernel", ["scatter_mean", "corner_gather", "corner_scatter"])
+def test_indices_at_or_past_s_are_dropped_as_by_pallas(rng, kernel):
+    """An index >= s matches no voxel in the one-hot kernels, as -1 does:
+    it must not reach the next cloud's voxels (b = 2, s = 8; indices s and
+    s + 1 in cloud 0)."""
+    b, n, c, s = 2, 16, 4, 8
+    feat = rng.randn(b, n, c).astype(np.float32)
+    if kernel == "scatter_mean":
+        inds = rng.randint(1, s, (b, n)).astype(np.int32)
+        inds[0, :2] = [s, s + 1]
+        want, want_cnt = (np.asarray(a) for a in scatter_mean_pallas(
+            jnp.asarray(feat), jnp.asarray(inds), s, tile=8))
+        got, cnt = (a.numpy() for a in scatter_mean(torch.from_numpy(feat),
+                                                    torch.from_numpy(inds), s))
+        np.testing.assert_array_equal(cnt, want_cnt)
+        assert cnt[1, 0] == 0 and cnt.sum() == b * n - 2
+        # Sums of the same points in another order.
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        return
+    idx = rng.randint(1, s, (b, n, 8)).astype(np.int32)
+    idx[0, 0, :2] = [s, s + 1]
+    idx[0, 1, :] = s + 1
+    w = rng.rand(b, n, 8).astype(np.float32)
+    if kernel == "corner_gather":
+        grid = rng.randn(b, s, c).astype(np.float32)
+        want = np.asarray(corner_gather_pallas(jnp.asarray(grid), jnp.asarray(idx),
+                                               jnp.asarray(w), tile=8))
+        got = corner_gather(*map(torch.from_numpy, (grid, idx, w))).numpy()
+        assert np.all(got[0, 1] == 0)  # every corner out of range: an output of 0
+    else:
+        want = np.asarray(corner_scatter_pallas(jnp.asarray(feat), jnp.asarray(idx),
+                                                jnp.asarray(w), s, tile=8))
+        got = corner_scatter(*map(torch.from_numpy, (feat, idx, w)), s).numpy()
+        assert np.all(got[1, 0] == 0)  # cloud 1 never names voxel 0
+    # Eight weighted rows summed in another order.
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_scatter_mean_sums_in_f32_as_pallas(rng):
+    b, n, c, s = 2, 128, 16, 64
+    feat = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(torch.bfloat16)
+    inds = rng.randint(-1, s, (b, n)).astype(np.int32)
+    inds[:, :10] = 5  # a crowded voxel
+    want, want_cnt = scatter_mean_pallas(jnp.asarray(feat.float().numpy(), jnp.bfloat16),
+                                         jnp.asarray(inds), s, tile=32)
+    out, cnt = scatter_mean(feat, torch.from_numpy(inds), s)
+    assert out.dtype == cnt.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    # Both sum the exact bf16 values in f32, in another order, then scale.
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+
+
+def test_bf16_corner_gather_sums_in_f32_as_pallas(rng):
+    b, n, c, s = 2, 64, 8, 128
+    grid = torch.from_numpy(rng.randn(b, s, c).astype(np.float32)).to(torch.bfloat16)
+    idx, w = _corners(rng, b, n, s)
+    want = np.asarray(corner_gather_pallas(jnp.asarray(grid.float().numpy(), jnp.bfloat16),
+                                           jnp.asarray(idx), jnp.asarray(w), tile=32))
+    got = corner_gather(grid, torch.from_numpy(idx), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    # f32 products of the exact bf16 grid values, summed in another order.
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(71, 64), (71, 128), (64, 64), (64, 128)])
+def test_conv3d_plain_matches_pallas(rng, cin, cout):
+    """K5's plain version against `conv3d_same_pallas` in interpret mode at
+    r = 8 (one chunk of r³ rows), bf16 inputs."""
+    b, r = 2, 8
+    x = rng.randn(b, r, r, r, cin).astype(np.float32)
+    x[:, :, :2] = 0.0  # empty voxels, as a sparse grid has
+    kernel = (rng.randn(3, 3, 3, cin, cout) / np.sqrt(27 * cin)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    kb = jnp.asarray(kernel, jnp.bfloat16)
+    want = np.asarray(_conv3d_experiment().conv3d_same_pallas(
+        xb, kb, r, chunk=r ** 3, interpret=True).astype(jnp.float32))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+    wt = torch.from_numpy(np.array(kb.astype(jnp.float32))).permute(4, 3, 0, 1, 2)
+    got = conv3d_same(xt, wt.to(torch.bfloat16).contiguous())
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, r, r, r, cout)
+    got = got.float().numpy()
+    # Both round an f32 sum of the same exact products once to bf16; the
+    # sums differ in order, by f32 rounding, so the outputs are equal or one
+    # bf16 step apart. Near 0 that step is the one at 2^-8 of the largest
+    # output, where f32 cancellation is far below it.
+    tol = bf16_ulp(np.maximum(np.abs(want), 2.0 ** -8 * np.abs(want).max()))
+    assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+    assert (got == want).mean() > 0.9
+    # SAME zero padding on every axis: no wrap of α (axis 2) as the
+    # devoxelization has.
+    x_alpha = np.zeros_like(x)
+    x_alpha[:, :, r - 1] = x[:, :, r - 1]
+    y = conv3d_same_plain(torch.from_numpy(x_alpha).to(torch.bfloat16),
+                          wt.to(torch.bfloat16).contiguous()).float().numpy()
+    assert np.all(y[:, :, 0] == 0) and np.abs(y[:, :, r - 2]).max() > 0
+
+
+def test_conv3d_wrapper_takes_plain_version_on_cpu_and_checks_inputs(rng):
+    x = torch.randn(1, 4, 4, 4, 8).to(torch.bfloat16)
+    w = torch.randn(16, 8, 3, 3, 3).to(torch.bfloat16)
+    before = conv3d_same.launches
+    assert torch.equal(conv3d_same(x, w), conv3d_same_plain(x, w))
+    assert conv3d_same.launches == before
+    with pytest.raises(ValueError, match="bf16"):
+        conv3d_same(x.float(), w)
+    with pytest.raises(ValueError, match="bf16"):
+        conv3d_same(x, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3d_same(x.permute(0, 3, 2, 1, 4), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3d_same(x, w.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="w must be"):
+        conv3d_same(x, w[:, :4].contiguous())

@@ -1,7 +1,8 @@
 """rift_tpu_torch's PVCNN against rift_tpu's on the same weights: a narrow
-feature extractor with JAX-initialised parameters, and the shipped flagship
-checkpoint (mn40_sph_pt_r4) as feature extractor and as classifier, each
-converted by `weights.from_flax`."""
+feature extractor with JAX-initialised parameters, the shipped flagship
+checkpoint (mn40_sph_pt_r4) as feature extractor and as classifier, the
+dgcnn_kernel block and the sph_dg checkpoint (mn40_sph_dg_r3), and
+bench.py's headline model in bf16, each converted by `weights.from_flax`."""
 import json
 import os
 
@@ -11,13 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from bench import _make_model
 from rift_tpu.models import PVCNNClassifier as JaxPVCNN
+from rift_tpu.nn.pvconv import PVConv as JaxPVConv
 from rift_tpu.ops.normals import estimate_normals
-from rift_tpu_torch.models import PVCNNClassifier
+from rift_tpu_torch.models import PVCNNClassifier, bench_model
+from rift_tpu_torch.nn import PVConv
 from rift_tpu_torch.weights import from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_DIR = os.path.join(ROOT, "checkpoints", "mn40_sph_pt_r4")
+SPH_DG_DIR = os.path.join(ROOT, "checkpoints", "mn40_sph_dg_r3")
 PORTED = ("blocks", "dim_k", "point_kernel_formal", "voxel_shape", "with_coeff", "with_se",
           "extra_feature_channels", "width_multiplier", "voxel_resolution_multiplier",
           "rot_invariant_preprocess", "lrf_kind", "with_local_feat", "local_neighbors")
@@ -41,6 +46,16 @@ def _to_numpy(tree):
 def _perturb(tree, rng, lo, hi):
     return jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + rng.uniform(lo, hi, np.shape(a))).astype(np.float32), tree)
+
+
+def _perturb_stats(tree, rng):
+    """BN statistics moved off their initial values: means by ±0.05 (kept
+    near 0, so deep ReLU stacks stay alive), variances up by 0.1..0.5."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: (np.asarray(a) + (rng.uniform(0.1, 0.5, np.shape(a))
+                                          if path[-1].key == "var"
+                                          else rng.uniform(-0.05, 0.05, np.shape(a)))
+                         ).astype(np.float32), tree)
 
 
 def _compare(got, want):
@@ -135,3 +150,129 @@ def test_flagship_classifier_logits_match_reference(rng, flagship):
     # Dense layers: logits within 1e-4 of the largest.
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
     assert np.array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def _load_config(directory):
+    with open(os.path.join(directory, "best_acc.meta.json")) as f:
+        meta = json.load(f)["config"]["model"]
+    cfg = {k: meta[k] for k in PORTED}
+    cfg["blocks"] = tuple(tuple(b) for b in cfg["blocks"])
+    return cfg
+
+
+@pytest.mark.parametrize("with_coeff", [True, False])
+def test_dgcnn_pvconv_matches_reference(rng, with_coeff):
+    b, n, c, out, r = 2, 160, 7, 16, 8
+    feats = rng.randn(b, n, c).astype(np.float32)
+    coords = rng.randn(b, n, 3).astype(np.float32)
+    jax_block = JaxPVConv(out_channels=out, point_kernel_formal="dgcnn_kernel",
+                          voxel_shape="spherical", resolution=r, with_coeff=with_coeff,
+                          with_se=True, impl="xla")
+    variables = jax_block.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(coords))
+    params = {"PVConv_0": _perturb(variables["params"], rng, -0.05, 0.05)}
+    stats = {"PVConv_0": _perturb_stats(variables["batch_stats"], rng)}
+    want = np.asarray(jax_block.apply({"params": params["PVConv_0"],
+                                       "batch_stats": stats["PVConv_0"]},
+                                      jnp.asarray(feats), jnp.asarray(coords)))
+    block = PVConv(c, out, point_kernel_formal="dgcnn_kernel", resolution=r,
+                   with_coeff=with_coeff)
+    prefix = "layers.PVConv_0."
+    block.load_state_dict({k[len(prefix):]: v for k, v in from_flax(params, stats).items()})
+    assert block.point.layers[0]["dense"].in_features == 2 * c
+    with torch.no_grad():
+        got = block.eval()(torch.from_numpy(feats), torch.from_numpy(coords)).numpy()
+    # One block: f32 rounding only, with the farthest (undefined) point's
+    # edge of 0 included.
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("lrf_kind", ["pca", "reference"])
+def test_dgcnn_model_with_global_ppf_matches_reference_in_f32(rng, lrf_kind):
+    cfg = dict(blocks=((16, 1, 8), (32, 1, 8), (32, 1, None)), dim_k=32, is_classify=False,
+               point_kernel_formal="dgcnn_kernel", voxel_shape="spherical", lrf_kind=lrf_kind,
+               extra_feature_channels=4, local_neighbors=32, with_coeff=True, with_se=True)
+    x = _inputs(rng, 2, 128)
+    jax_model = JaxPVCNN(**cfg)
+    variables = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    params = _perturb(variables["params"], rng, -0.05, 0.05)
+    stats = _perturb_stats(variables["batch_stats"], rng)
+    want = np.asarray(jax_model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                                      train=False))
+    model = PVCNNClassifier(**cfg)
+    assert model.layers["PVConv_0"].convs[0].in_channels == 3 + 4 + 64
+    model.load_state_dict(from_flax(params, stats))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 128, 32) and np.abs(want).max() > 0
+    _compare(got, want)
+
+
+def test_sph_dg_checkpoint_matches_reference(rng):
+    """The dgcnn_kernel checkpoint's trunk: from_flax maps every leaf of it
+    (it raises on any it leaves unused) and the features agree."""
+    from rift_tpu.train.checkpoint import CheckpointManager
+
+    cfg = _load_config(SPH_DG_DIR)
+    assert cfg["point_kernel_formal"] == "dgcnn_kernel"
+    raw = CheckpointManager(SPH_DG_DIR).restore_raw("best_acc")
+    trunk = ("PVConv_", "SharedMLP_")
+    params = {k: v for k, v in raw["params"].items() if k.startswith(trunk)}
+    stats = {k: v for k, v in raw["batch_stats"].items() if k.startswith(trunk)}
+    assert np.shape(params["PVConv_0"]["SharedMLP_0"]["Dense_0"]["kernel"]) == (2 * 67, 64)
+    x = _inputs(rng, 1, 256)
+    want = np.asarray(JaxPVCNN(**cfg, is_classify=False).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x), train=False))
+    model = PVCNNClassifier(**cfg, is_classify=False)
+    model.load_state_dict(from_flax(_to_numpy(params), _to_numpy(stats)))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, 256, 512)
+    _compare(got, want)
+
+
+def test_bench_model_is_bench_py_model():
+    """bench_model() has exactly the parameters of bench.py's
+    _make_model("dgcnn"), mapped by from_flax, and computes in bf16."""
+    jax_model = _make_model("dgcnn")
+    shapes = jax.eval_shape(lambda x: jax_model.init(jax.random.PRNGKey(0), x, train=False),
+                            jax.ShapeDtypeStruct((1, 64, 6), jnp.float32))
+    variables = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), shapes)
+    state = from_flax(variables["params"], variables["batch_stats"])
+    model = bench_model("dgcnn")
+    model.load_state_dict(state)  # strict: same names and shapes
+    assert model.dtype == torch.bfloat16 and jax_model.dtype == "bfloat16"
+    assert model.layers["PVConv_0"].convs[0].in_channels == 71
+    assert model.layers["PVConv_0"].point.layers[0]["dense"].in_features == 142
+
+
+def test_bench_model_in_bf16_matches_reference(rng):
+    """bench.py's model in bf16 at small widths, n = 128 and k = 32, so
+    that n²·k <= 2^24 and the reference's CPU run takes its bf16 eval
+    local-PPF path (local_ppf_grouped_fast), the TPU path's function."""
+    cfg = dict(blocks=((16, 1, 8), (32, 1, 8), (32, 1, None)), dim_k=32, is_classify=False,
+               point_kernel_formal="dgcnn_kernel", voxel_shape="spherical",
+               lrf_kind="reference", extra_feature_channels=4, local_neighbors=32,
+               with_coeff=True, with_se=True, dtype="bfloat16")
+    x = _inputs(rng, 2, 128)
+    jax_model = JaxPVCNN(**cfg)
+    variables = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    params = _perturb(variables["params"], rng, -0.05, 0.05)
+    stats = _perturb_stats(variables["batch_stats"], rng)
+    want = np.asarray(jax_model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                                      train=False))
+    model = PVCNNClassifier(**cfg)
+    model.load_state_dict(from_flax(params, stats))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x)).numpy()
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (2, 128, 32)
+    # bf16 keeps 8 significant bits and both sides round at every layer,
+    # the reference's CPU run more often: it sums the voxel means in bf16
+    # (ops/voxelize.py, where the Pallas kernel and the port sum in f32) and
+    # its fused local-PPF channels differ by one f32 reassociation. The
+    # outputs leave the last layer in bf16, so a one-step difference there
+    # is 2^-8 of the value. Every point's largest difference within 4 bf16
+    # steps of the largest feature, the median within 2.
+    ulp = 2.0 ** -8 * np.abs(want).max()
+    err = np.abs(got - want).max(-1)
+    assert err.max() <= 4 * ulp, err.max() / ulp
+    assert np.median(err) <= 2 * ulp, np.median(err) / ulp

@@ -98,6 +98,20 @@ def test_ppf_and_local_ppf_match_reference(rng):
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
+def test_global_ppf_matches_reference(rng):
+    c = (rng.randn(2, 200, 3) * [1.0, 0.6, 0.3]).astype(np.float32)
+    n = rng.randn(2, 200, 3).astype(np.float32) * 3.0  # not unit: normalized first
+    n[0, :3] = 0.0  # zero normals: undefined, a zero feature
+    got = ppf.global_ppf(_t(c), _t(n)).numpy()
+    want = np.asarray(j_ppf.global_ppf(jnp.asarray(c), jnp.asarray(n)))
+    assert got.shape == (2, 200, 4)
+    # The same closed form; the centroid and mean normal are sums of 200
+    # terms in another order, and arccos near ±1 turns an ulp into ~3e-4 rad.
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    np.testing.assert_allclose(got[..., 3], want[..., 3], rtol=1e-5, atol=1e-6)
+    assert np.all(got[0, :3] == 0)
+
+
 def _ball_cloud(rng):
     pts = rng.uniform(-1, 1, (2, 128, 3)).astype(np.float32)
     pts[:, 0] = 10.0  # isolated: nearest-point fallback, which is the

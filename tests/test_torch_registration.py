@@ -109,10 +109,58 @@ def test_synthetic_pairs_copy_gives_the_same_arrays(mode):
     assert src.shape == dst.shape == (3, 128, 3) and t.shape == (3, 4, 4)
 
 
+BENCH_SMALL = dict(blocks=((16, 1, 8), (32, 1, 8), (32, 1, None)), dim_k=32, is_classify=False,
+                   point_kernel_formal="dgcnn_kernel", voxel_shape="spherical",
+                   lrf_kind="reference", extra_feature_channels=4, local_neighbors=32,
+                   with_coeff=True, with_se=True, dtype="bfloat16")
+
+
 def test_register_batch_matches_reference_pipeline(rng):
     cfg = dict(blocks=((16, 1, 8), (32, 1, None)), dim_k=32, is_classify=False,
                point_kernel_formal="pointnet_kernel", voxel_shape="spherical",
                lrf_kind="pca", local_neighbors=16)
+    src, gt, got_t, want_t, got_idx, got_mask, want_idx, want_mask = \
+        _register_against_reference(rng, cfg)
+    agree = (got_mask == want_mask).mean(-1)
+    assert agree.min() >= 0.99, agree
+    for i in range(2):
+        if agree[i] == 1.0:  # same matches: the same pose up to rounding
+            np.testing.assert_allclose(got_t[i], want_t[i], atol=1e-3)
+    errs = pair_errors(torch.from_numpy(src), torch.from_numpy(gt), torch.from_numpy(got_t))
+    assert float(errs["rre"].max()) < 1.0, errs
+
+
+def test_register_batch_of_bench_model_in_bf16_matches_reference_pipeline(rng):
+    """bench.py's own model (dgcnn, global PPF, reference LRF, bf16) at
+    small widths, n = 256 and k = 32 (the reference's bf16 eval local-PPF
+    path, see test_torch_model)."""
+    src, gt, got_t, want_t, got_idx, got_mask, want_idx, want_mask = \
+        _register_against_reference(rng, BENCH_SMALL)
+    # bf16 rounding alone moves about 4% of the mutual-NN decisions of this
+    # random-weight model, whose matches are mostly near-ties: the
+    # reference's own bf16 run agrees with its f32 run on 0.957 and 0.984
+    # of the points here. Hold the port to 0.9 against the reference's bf16.
+    agree = (got_mask == want_mask).mean(-1)
+    assert agree.min() >= 0.9, agree
+    # The true match of point i is point i (dst is a moved copy of src):
+    # both find the same number of them, within 2.
+    truth = np.arange(src.shape[1])
+    right_got = ((got_idx == truth) & got_mask).sum(-1)
+    right_want = ((want_idx == truth) & want_mask).sum(-1)
+    assert np.abs(right_got - right_want).max() <= 2, (right_got, right_want)
+    # Where the reference recovers the pose (within 1 degree), so does the
+    # port; random weights leave one of the two pairs with a single true
+    # match, which determines no pose on either side.
+    rre = [pair_errors(torch.from_numpy(src), torch.from_numpy(gt),
+                       torch.from_numpy(t))["rre"].numpy() for t in (got_t, want_t)]
+    determined = rre[1] < 1.0
+    assert determined.any() and np.all(rre[0][determined] < 1.0), rre
+
+
+def _register_against_reference(rng, cfg):
+    """register_batch and bench.py's composition in JAX on 2 pairs whose
+    targets are moved copies of the sources: (src, gt, port poses,
+    reference poses, port matches and mutual-NN masks, reference ones)."""
     # Targets are exactly moved copies of the sources, so true matches exist
     # and the pose is well determined even with random weights; resampled
     # pairs leave a random-weight model a handful of inliers, where GNC's
@@ -132,11 +180,12 @@ def test_register_batch_matches_reference_pipeline(rng):
     clouds = jnp.concatenate([jnp.asarray(src), jnp.asarray(dst)], 0)
     x = jnp.concatenate([clouds, j_normals(clouds, impl="xla")], -1)
     feats = jax_model.apply({"params": params, "batch_stats": stats}, x, train=False)
-    want_t, want_mask = [], []
+    want_t, want_idx, want_mask = [], [], []
     for i in range(2):
         i1, i2, mask = j_mnn(feats[i], feats[2 + i])
         t, _ = j_gnc(jnp.asarray(src[i])[i1], jnp.asarray(dst[i])[i2], mask, noise_bound=0.02)
         want_t.append(np.asarray(t))
+        want_idx.append(np.asarray(i2))
         want_mask.append(np.asarray(mask))
 
     model = PVCNNClassifier(**cfg)
@@ -147,12 +196,7 @@ def test_register_batch_matches_reference_pipeline(rng):
     with torch.no_grad():
         c = torch.from_numpy(np.concatenate([src, dst], 0))
         f = model(torch.cat([c, estimate_normals(c)], -1))
-        _, _, got_mask = mutual_nearest_neighbors(f[:2], f[2:])
-    agree = (got_mask.numpy() == np.stack(want_mask)).mean(-1)
-    assert agree.min() >= 0.99, agree
-    for i in range(2):
-        if agree[i] == 1.0:  # same matches: the same pose up to rounding
-            np.testing.assert_allclose(got_t[i], want_t[i], atol=1e-3)
+        _, got_idx, got_mask = mutual_nearest_neighbors(f[:2], f[2:])
     assert np.isfinite(got_t).all() and got_t.shape == (2, 4, 4)
-    errs = pair_errors(torch.from_numpy(src), torch.from_numpy(gt), torch.from_numpy(got_t))
-    assert float(errs["rre"].max()) < 1.0, errs
+    return (src, gt, got_t, np.stack(want_t), got_idx.numpy(), got_mask.numpy(),
+            np.stack(want_idx), np.stack(want_mask))
