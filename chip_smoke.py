@@ -16,13 +16,20 @@ Phases (each prints one line with its wall time):
                on indices s and s + 1 (dropped, as -1 is), K4 against K3 by
                the adjoint identity, and K5 (the bf16 3x3x3 Conv3d) at the
                bench model's four shapes, every element within one bf16
-               step of its plain version, beside cuDNN's bf16 Conv3d.
+               step of its plain version, beside cuDNN's bf16 Conv3d, and
+               at each other r the kernel takes and couts of 40 and 96.
+               Then K1, K2 and K4 on clouds of 2048, 5000 and 16384 points
+               (past K1_SHARED_POINTS, the largest cloud any of them keeps
+               in one block's shared memory): neighbour counts equal,
+               the same tolerances, K4 as K3's adjoint.
   4. main    — register_batch on 16 SyntheticPairs(mode="noise", seed=0)
                pairs, flagship width (mn40_sph_pt_r4), seeded random weights;
                one warm-up and 3 timed batches; every launch counter must rise.
   5. parity  — the first 8 pairs of the timed batch against the same path
                with device="cpu"; GNC-TLS and Kabsch on the card against
                the CPU on the CPU run's matches.
+  5b. large  — register_batch with the flagship on 4 pairs of 2048 points
+               (ShapeNet's size), then its parity phase on all 4 pairs.
   6. bench   — the same 16 pairs through bench.py's headline model
                (models.bench_model: sph_dg, global PPF, reference LRF,
                bf16) with seeded weights: ms/batch and pairs/s, K5 launched
@@ -87,6 +94,20 @@ TOL = {"normals_moments": 1e-5, "scatter_mean": 1e-5, "corner_gather": 1e-6,
 K5_FLOOR = 2.0 ** -8
 # The bench model's convolutions at b = 2·16 clouds, r = 32: (cin, cout).
 K5_SHAPES = ((71, 64), (64, 64), (64, 128), (128, 128))
+# K5 at every other r the kernel takes and at couts that are no multiple
+# of 64: (b, r, cin, cout), held within one bf16 step like the above.
+K5_OTHER_SHAPES = ((4, 16, 64, 64), (2, 64, 64, 128), (1, 128, 64, 64), (4, 32, 64, 96),
+                   (4, 32, 71, 40))
+# Clouds past the model's 1024 points: (b, n). 16384 exceeds
+# K1_SHARED_POINTS, the largest cloud K1 stages in one block's shared
+# memory (csrc/normals_moments.cu; K2 and K4 keep none there), so it runs
+# K1's streaming path; K1's plain version there goes LARGE_QUERY_CHUNK
+# queries at a time.
+LARGE_CLOUDS = ((2, 2048), (2, 5000), (1, 16384))
+K1_SHARED_POINTS = 12288
+LARGE_QUERY_CHUNK = 2048
+# register_batch with the flagship on clouds of ShapeNet's 2048 points.
+LARGE_PAIRS, LARGE_POINTS = 4, 2048
 # K4 against K3: <K4(dout), grid> and <dout, K3(grid)> (sums in f64 of the
 # f32 kernel outputs) within 1e-5 relative.
 ADJOINT_TOL = 1e-5
@@ -442,7 +463,7 @@ def check_kernels(clouds, report: dict) -> None:
         k4["bytes"] += bt * n * c * 4 + bt * n * 8 * 8 + bt * s * c * 4
         k4["flops"] += int(valid4.sum()) * c * 2
     # At one channel the dense pass is 1/64 of the c = 64 one: what is left
-    # is mostly the per-cloud sort (one block per cloud).
+    # is mostly the passes that build the runs (count, scan, place, rank).
     dout1 = torch.randn((bt, n, 1), generator=gen, device=dev)
     k4["one_channel_ms"] = cuda_time_ms(lambda: oh.corner_scatter(dout1, idx4_32, w4, s))
     if k4["adjoint_rel_err"] > ADJOINT_TOL:
@@ -493,26 +514,104 @@ def check_kernels(clouds, report: dict) -> None:
               f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}){extra}", flush=True)
 
 
+def check_large_clouds(report: dict) -> None:
+    """K1, K2 and K4 against their plain versions on the LARGE_CLOUDS sizes
+    (SyntheticPairs source clouds, seed 3): K1 neighbour counts equal, every
+    error within TOL, K4 also K3's adjoint. Adds a "large" list to each
+    kernel's report."""
+    import torch
+
+    from rift_tpu_torch.data import SyntheticPairs
+    from rift_tpu_torch.ops.cuda import normals_kernel as nk
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
+                                              spherical_corner_weights,
+                                              spherical_voxel_indices)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r, k, r2, c = 32, 16, 0.01, 64
+    s = r ** 3
+    for name in ("normals_moments", "scatter_mean", "corner_scatter"):
+        report[name]["large"] = []
+    for b, n in LARGE_CLOUDS:
+        pts = torch.as_tensor(SyntheticPairs(num_pairs=b, num_points=n, mode="noise",
+                                             seed=3).arrays()[0], device=dev)
+        got = nk.neighborhood_moments(pts, k, r2)
+        want = nk.neighborhood_moments_plain(pts, k, r2, query_chunk=LARGE_QUERY_CHUNK)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2], want[2]):
+            fail(f"K1 at b={b}, n={n}: neighbour counts differ at "
+                 f"{int((got[2] != want[2]).sum())} queries")
+        e1 = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+        del want
+        report["normals_moments"]["large"].append(dict(
+            b=b, n=n, max_rel_err=e1,
+            ms=cuda_time_ms(lambda: nk.neighborhood_moments(pts, k, r2), reps=5)))
+
+        norm = normalize_coords_sphere(pts)
+        inds, _ = spherical_voxel_indices(norm, r)
+        idx, w = spherical_corner_weights(norm, inds, r)
+        inds = inds.clone()
+        inds[0, :3] = torch.tensor([s, s + 1, -1], device=dev)
+        inds32 = inds.to(torch.int32)
+        feat = torch.randn((b, n, c), generator=gen, device=dev)
+        out, cnt = oh.scatter_mean(feat, inds32, s)
+        want_out, want_cnt = oh.scatter_mean_plain(feat, inds, s)
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, want_cnt):
+            fail(f"K2 at b={b}, n={n}: counts differ")
+        report["scatter_mean"]["large"].append(dict(
+            b=b, n=n, max_rel_err=rel_err(out, want_out)[1],
+            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s), reps=5)))
+
+        idx = idx.clone()
+        idx[0, 0, :2] = torch.tensor([s, s + 1], device=dev)
+        idx32 = idx.to(torch.int32)
+        dout = torch.randn((b, n, c), generator=gen, device=dev)
+        got4 = oh.corner_scatter(dout, idx32, w, s)
+        want4 = oh.corner_scatter_plain(dout, idx, w, s)
+        grid = torch.randn((b, s, c), generator=gen, device=dev)
+        lhs = float((got4.double() * grid.double()).sum())
+        rhs = float((dout.double() * oh.corner_gather(grid, idx32, w).double()).sum())
+        torch.cuda.synchronize()
+        report["corner_scatter"]["large"].append(dict(
+            b=b, n=n, max_rel_err=rel_err(got4, want4)[1], adjoint_rel_err=abs(lhs - rhs) / abs(rhs),
+            ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx32, w, s), reps=5)))
+        for name in ("normals_moments", "scatter_mean", "corner_scatter"):
+            row = report[name]["large"][-1]
+            print(f"    {name} at b={b}, n={n}: rel err {row['max_rel_err']:.3e} (tol "
+                  f"{TOL[name]:g}), kernel {row['ms']:.4f} ms"
+                  + (f", adjoint {row['adjoint_rel_err']:.3e}" if name == "corner_scatter"
+                     else ", counts equal"), flush=True)
+            if row["max_rel_err"] > TOL[name] or row.get("adjoint_rel_err", 0.0) > ADJOINT_TOL:
+                fail(f"{name} at b={b}, n={n}: {row}")
+
+
 def check_conv3d(report: dict) -> None:
     """K5 against its plain version at the bench model's four shapes, with
-    cuDNN's bf16 Conv3d on channels_last_3d tensors as the yardstick."""
+    cuDNN's bf16 Conv3d on channels_last_3d tensors as the yardstick, then
+    at K5_OTHER_SHAPES. x is laid out as the model gives it to K5
+    (`padded_bf16`: a voxel stride of 72 for 71 channels)."""
     import torch
     import torch.nn.functional as F
 
     from rift_tpu_torch.ops.cuda import conv3d as k5
 
     dev = torch.device("cuda")
-    b, r = 2 * NUM_PAIRS, 32
     gen = torch.Generator(device=dev).manual_seed(5)
+    b, r = 2 * NUM_PAIRS, 32
     rep = dict(source="rift_tpu_torch/csrc/conv3d.cu",
                replaces="scripts/conv3d_kernel_experiment.py:61",
                shapes=f"x [{b},{r},{r},{r},cin] bf16, (cin, cout) in {list(K5_SHAPES)}",
                tol=TOL["conv3d_same"], peak_flops=PEAK_BF16_FLOP_PER_S,
                max_abs_err=0.0, max_rel_err=0.0, max_steps=0.0, equal_share=1.0,
                library_steps=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0,
-               per_shape=[])
-    for cin, cout in K5_SHAPES:
-        x = torch.randn((b, r, r, r, cin), generator=gen, device=dev).to(torch.bfloat16)
+               per_shape=[], other_shapes=[])
+
+    def held(bx, rx, cin, cout):
+        """(x, w, kernel output, max bf16 steps, bit-equal share, abs, rel)."""
+        x = k5.padded_bf16(torch.randn((bx, rx, rx, rx, cin), generator=gen, device=dev))
         w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
              * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
         got = k5.conv3d_same(x, w)
@@ -525,7 +624,11 @@ def check_conv3d(report: dict) -> None:
         steps = float(((got.float() - want_f).abs().double() / step).max())
         equal = float((got == want).double().mean())
         a, rel = rel_err(got.float(), want_f)
-        xc = x.permute(0, 4, 1, 2, 3)  # a channels_last_3d view of x
+        return x, w, want_f, step, steps, equal, a, rel
+
+    for cin, cout in K5_SHAPES:
+        x, w, want_f, step, steps, equal, a, rel = held(b, r, cin, cout)
+        xc = x.contiguous().permute(0, 4, 1, 2, 3)  # a channels_last_3d view of x
         wc = w.contiguous(memory_format=torch.channels_last_3d)
 
         def library():  # one PyTorch call: cuDNN's bf16 Conv3d, no bias
@@ -535,7 +638,7 @@ def check_conv3d(report: dict) -> None:
                            / step).max())
         if lib_steps > 4:
             fail(f"K5 library yardstick is {lib_steps:.1f} bf16 steps from the plain version")
-        del want, want_f, step
+        del want_f, step
         shape = dict(cin=cin, cout=cout, max_steps=steps, equal_share=equal, max_abs_err=a,
                      max_rel_err=rel,
                      ms=cuda_time_ms(lambda: k5.conv3d_same(x, w)),
@@ -545,18 +648,27 @@ def check_conv3d(report: dict) -> None:
                      bytes=b * r ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2)
         shape["bound_ms"] = max(shape["flops"] / PEAK_BF16_FLOP_PER_S,
                                 shape["bytes"] / PEAK_BYTES_PER_S) * 1e3
+        shape["bound_share"] = shape["bound_ms"] / shape["ms"]
         print(f"    K5 {cin}->{cout}: max {steps:.3f} bf16 steps, bit-equal {equal:.6f}, max abs "
-              f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms, plain "
-              f"{shape['plain_ms']:.4f} ms, cuDNN bf16 {shape['library_ms']:.4f} ms "
-              f"({lib_steps:.3f} steps), bound {shape['bound_ms']:.4f} ms", flush=True)
+              f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms, bound "
+              f"{shape['bound_ms']:.4f} ms, share of bound {shape['bound_share']:.3f}, cuDNN "
+              f"bf16 {shape['library_ms']:.4f} ms ({lib_steps:.3f} steps), plain "
+              f"{shape['plain_ms']:.4f} ms", flush=True)
         rep["per_shape"].append(shape)
-        rep["max_steps"] = max(rep["max_steps"], steps)
-        rep["equal_share"] = min(rep["equal_share"], equal)
         rep["library_steps"] = max(rep["library_steps"], lib_steps)
-        rep["max_abs_err"] = max(rep["max_abs_err"], a)
-        rep["max_rel_err"] = max(rep["max_rel_err"], rel)
         for key in ("ms", "plain_ms", "library_ms", "flops", "bytes"):
             rep[key] += shape[key]
+        for key, worst in (("max_steps", max), ("equal_share", min), ("max_abs_err", max),
+                           ("max_rel_err", max)):
+            rep[key] = worst(rep[key], shape[key])
+    for bx, rx, cin, cout in K5_OTHER_SHAPES:
+        x, w, _, _, steps, equal, a, rel = held(bx, rx, cin, cout)
+        ms = cuda_time_ms(lambda: k5.conv3d_same(x, w), reps=5)
+        print(f"    K5 b={bx} r={rx} {cin}->{cout}: max {steps:.3f} bf16 steps, bit-equal "
+              f"{equal:.6f}; kernel {ms:.4f} ms", flush=True)
+        rep["other_shapes"].append(dict(b=bx, r=rx, cin=cin, cout=cout, max_steps=steps,
+                                        equal_share=equal, ms=ms))
+        rep["max_steps"] = max(rep["max_steps"], steps)
     report["conv3d_same"] = rep
 
 
@@ -578,11 +690,12 @@ def path_stages(model, src, dst):
     return normals, feats, idx2, mask
 
 
-def register_phase(model, src, dst, wrappers: dict, per_batch: dict):
-    """register_batch on the card: one warm-up and TIMED_BATCHES timed
-    batches with every launch count set to 0 just before and read just
-    after; each kernel must have launched per_batch[name] times a batch.
-    Returns (transforms, median ms per batch, launch counts)."""
+def register_phase(model, src, dst, wrappers: dict, per_batch: dict,
+                   timed: int = TIMED_BATCHES):
+    """register_batch on the card: one warm-up and `timed` timed batches
+    with every launch count set to 0 just before and read just after; each
+    kernel must have launched per_batch[name] times a batch. Returns
+    (transforms, median ms per batch, launch counts)."""
     import torch
 
     from rift_tpu_torch.registration import register_batch
@@ -592,24 +705,25 @@ def register_phase(model, src, dst, wrappers: dict, per_batch: dict):
     est = register_batch(model, src, dst)  # warm-up
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMED_BATCHES):
+    for _ in range(timed):
         t1 = time.perf_counter()
         est = register_batch(model, src, dst)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     launches = read_counts(wrappers)
-    batches = TIMED_BATCHES + 1
+    batches = timed + 1
     for name in wrappers:
         want = per_batch.get(name, 0) * batches
         if launches[name] != want:
             fail(f"{name} launched {launches[name]} times in {batches} batches, expected {want}")
-    if not bool(torch.isfinite(est).all()) or tuple(est.shape) != (NUM_PAIRS, 4, 4):
+    if not bool(torch.isfinite(est).all()) or tuple(est.shape) != (src.shape[0], 4, 4):
         fail(f"register_batch gave non-finite or misshapen transforms {tuple(est.shape)}")
     return est, sorted(times)[len(times) // 2] * 1e3, launches
 
 
-def parity(model, src, dst, est, feat_tol: float, feat_share: float, mask_agree: float) -> str:
-    """The first PARITY_PAIRS pairs of the timed batch against the same path
+def parity(model, src, dst, est, feat_tol: float, feat_share: float, mask_agree: float,
+           pairs: int = PARITY_PAIRS) -> str:
+    """The first `pairs` pairs of the timed batch against the same path
     with device="cpu", and GNC-TLS and Kabsch on the card against the CPU
     on the CPU run's matches (the tolerances are set out at the top)."""
     import torch
@@ -619,7 +733,7 @@ def parity(model, src, dst, est, feat_tol: float, feat_share: float, mask_agree:
     from rift_tpu_torch.registration.pipeline import NOISE_BOUND
 
     dev = src.device
-    p, b = PARITY_PAIRS, src.shape[0]
+    p, b = pairs, src.shape[0]
     cpu_model = copy.deepcopy(model).cpu()
     # Card side: the timed batch's shapes (16 pairs), sliced to the first p.
     n_g, f_g, idx_g, m_g = path_stages(model, src, dst)
@@ -942,6 +1056,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report: dict = {}
     check_kernels(torch.cat([src, dst], 0), report)
+    check_large_clouds(report)
     phase("kernels", t0, "all kernels agree with their plain versions")
 
     t0 = time.perf_counter()
@@ -958,6 +1073,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("parity", t0, parity(model, src, dst, est, FEAT_POINT_TOL, FEAT_POINT_SHARE,
                                MASK_AGREE))
+
+    t0 = time.perf_counter()
+    src_l, dst_l, _ = (torch.as_tensor(a, device=dev) for a in SyntheticPairs(
+        num_pairs=LARGE_PAIRS, num_points=LARGE_POINTS, mode="noise", seed=1).arrays())
+    est_l, ms_l, launches_l = register_phase(model, src_l, dst_l, wrappers, REGISTER_LAUNCHES,
+                                             timed=1)
+    phase("large", t0, f"{LARGE_PAIRS} pairs x {LARGE_POINTS} points, flagship: {ms_l:.2f} "
+                       f"ms/batch; launches {launches_l}; parity: "
+                       + parity(model, src_l, dst_l, est_l, FEAT_POINT_TOL, FEAT_POINT_SHARE,
+                                MASK_AGREE, pairs=LARGE_PAIRS))
 
     t0 = time.perf_counter()
     bench = seeded_model(0, bench_model("dgcnn")).to(dev)
@@ -997,7 +1122,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("train parity", t0, train_parity())
 
-    paths = {"register": launches, "register_bf16": launches_b, "train": tr["launches"]}
+    paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
+             "train": tr["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -1011,7 +1137,8 @@ def main() -> int:
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shapes": rep["shapes"],
             **{k: rep[k] for k in ("adjoint_rel_err", "far_rel_err", "bf16", "max_steps",
-                                   "equal_share", "library_steps", "per_shape") if k in rep}})
+                                   "equal_share", "library_steps", "per_shape", "other_shapes", "large")
+               if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

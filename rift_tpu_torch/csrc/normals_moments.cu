@@ -26,6 +26,17 @@
 // deterministic. The d² expansion is written with __fmul_rn/__fadd_rn so
 // no multiply-add is fused: it rounds exactly as the plain PyTorch version
 // does, which keeps the neighbour sets identical at the radius boundary.
+//
+// Clouds of more than 1024 points (ShapeNet's 2048 and up) take a second
+// kernel, one warp per query as well. Its d² no longer fit a lane's
+// registers, so every pass (the max, each of the 32 bisection steps, the
+// bracket min, the moments) forms them again, by the same unfused
+// expansion, so the neighbour counts still equal the plain version's. Up
+// to kSharedPoints = 12288 points (192 KB at 16 B a point) the cloud and
+// its |p|² are staged in dynamic shared memory; above that each pass
+// streams the cloud from device memory (L2) and forms |p|² again. Sums run
+// in the same order as in the first kernel (lane-local in index order,
+// then the xor tree).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,6 +76,12 @@ __device__ __forceinline__ float warp_min(float v) {
 // |p|² = (x·x + y·y) + z·z, unfused.
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+__device__ __forceinline__ float sqdist(float qx, float qy, float qz, float q2, float x,
+                                       float y, float z, float p2) {
+  const float cross = __fadd_rn(__fadd_rn(__fmul_rn(qx, x), __fmul_rn(qy, y)), __fmul_rn(qz, z));
+  return fmaxf(__fsub_rn(__fadd_rn(q2, p2), __fmul_rn(2.0f, cross)), 0.0f);
 }
 
 __global__ void moments_kernel(const float* __restrict__ pts, float* __restrict__ out,
@@ -153,14 +170,140 @@ __global__ void moments_kernel(const float* __restrict__ pts, float* __restrict_
   }
 }
 
+constexpr int kSharedPoints = 12288;   // the large kernel's staged cloud: 192 KB
+constexpr int kLargeWarps = 16;
+constexpr int kLargeQueriesPerBlock = 64;  // 4 per warp
+
+// Point j of the cloud: staged in shared memory, or read from device memory
+// with |p|² formed again (the same unfused expression, the same bits).
+template <bool kStaged>
+struct Cloud {
+  const float* g;                      // [n, 3] in device memory
+  const float *sx, *sy, *sz, *s2;      // [n] each in shared memory
+  __device__ __forceinline__ void get(int j, float& x, float& y, float& z, float& p2) const {
+    if (kStaged) {
+      x = sx[j]; y = sy[j]; z = sz[j]; p2 = s2[j];
+    } else {
+      x = g[3 * j]; y = g[3 * j + 1]; z = g[3 * j + 2];
+      p2 = sq3(x, y, z);
+    }
+  }
+};
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+moments_large_kernel(const float* __restrict__ pts, float* __restrict__ out, int n, int k,
+                     float radius_sq) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  Cloud<kStaged> cl;
+  cl.g = pts + (size_t)b * n * 3;
+  cl.sx = smem; cl.sy = smem + n; cl.sz = smem + 2 * n; cl.s2 = smem + 3 * n;
+  if (kStaged) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const float x = cl.g[3 * j], y = cl.g[3 * j + 1], z = cl.g[3 * j + 2];
+      smem[j] = x; smem[n + j] = y; smem[2 * n + j] = z;
+      smem[3 * n + j] = sq3(x, y, z);
+    }
+    __syncthreads();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inf = __int_as_float(0x7f800000);
+  for (int qi = warp; qi < kLargeQueriesPerBlock; qi += kLargeWarps) {
+    const int i = blockIdx.x * kLargeQueriesPerBlock + qi;
+    if (i >= n) break;  // warp-uniform
+    float qx, qy, qz, q2;
+    cl.get(i, qx, qy, qz, q2);
+
+    float r2 = radius_sq;
+    if (k > 0) {
+      float dmax = 0.0f;
+      for (int j = lane; j < n; j += 32) {
+        float x, y, z, p2;
+        cl.get(j, x, y, z, p2);
+        dmax = fmaxf(dmax, sqdist(qx, qy, qz, q2, x, y, z, p2));
+      }
+      float lo = 0.0f, hi = warp_max(dmax);
+      for (int step = 0; step < kBisectSteps; ++step) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+        int c = 0;
+        for (int j = lane; j < n; j += 32) {
+          float x, y, z, p2;
+          cl.get(j, x, y, z, p2);
+          c += (sqdist(qx, qy, qz, q2, x, y, z, p2) <= mid);
+        }
+        if (warp_sum_int(c) >= k) hi = mid; else lo = mid;
+      }
+      float m = inf;
+      for (int j = lane; j < n; j += 32) {
+        float x, y, z, p2;
+        cl.get(j, x, y, z, p2);
+        const float d = sqdist(qx, qy, qz, q2, x, y, z, p2);
+        if (d > lo && d <= hi) m = fminf(m, d);
+      }
+      float kth = warp_min(m);
+      if (isinf(kth)) kth = 0.0f;  // empty bracket: >= k points at distance 0
+      r2 = fmaxf(radius_sq, __fmul_rn(kth, 1.000001f));
+    }
+
+    float acc[13];
+#pragma unroll
+    for (int c = 0; c < 13; ++c) acc[c] = 0.0f;
+    for (int j = lane; j < n; j += 32) {
+      float x, y, z, p2;
+      cl.get(j, x, y, z, p2);
+      if (sqdist(qx, qy, qz, q2, x, y, z, p2) < r2) {
+        acc[0] = __fadd_rn(acc[0], x);
+        acc[1] = __fadd_rn(acc[1], y);
+        acc[2] = __fadd_rn(acc[2], z);
+        acc[3] = __fadd_rn(acc[3], __fmul_rn(x, x));
+        acc[4] = __fadd_rn(acc[4], __fmul_rn(x, y));
+        acc[5] = __fadd_rn(acc[5], __fmul_rn(x, z));
+        acc[6] = __fadd_rn(acc[6], __fmul_rn(y, x));
+        acc[7] = __fadd_rn(acc[7], __fmul_rn(y, y));
+        acc[8] = __fadd_rn(acc[8], __fmul_rn(y, z));
+        acc[9] = __fadd_rn(acc[9], __fmul_rn(z, x));
+        acc[10] = __fadd_rn(acc[10], __fmul_rn(z, y));
+        acc[11] = __fadd_rn(acc[11], __fmul_rn(z, z));
+        acc[12] = __fadd_rn(acc[12], 1.0f);
+      }
+    }
+    float* o = out + ((size_t)b * n + i) * 13;
+#pragma unroll
+    for (int c = 0; c < 13; ++c) {
+      const float v = warp_sum(acc[c]);
+      if (lane == c) o[c] = v;
+    }
+  }
+}
+
 }  // namespace
 
-// points [b, n, 3] f32 contiguous, out [b, n, 13] f32; n <= 1024.
+// points [b, n, 3] f32 contiguous, out [b, n, 13] f32; any n. n <= 1024:
+// the register-resident kernel; up to kSharedPoints: the large kernel on a
+// cloud staged in shared memory; above: the large kernel streaming it.
 // Returns cudaGetLastError() after the launch.
 extern "C" int rift_normals_moments(const float* points, float* out, int b, int n, int k,
                                     float radius_sq, void* stream) {
   if (b <= 0 || n <= 0) return 0;
-  dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
-  moments_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(points, out, n, k, radius_sq);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= kMaxPoints) {
+    dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
+    moments_kernel<<<grid, kWarps * 32, 0, st>>>(points, out, n, k, radius_sq);
+    return (int)cudaGetLastError();
+  }
+  dim3 grid((n + kLargeQueriesPerBlock - 1) / kLargeQueriesPerBlock, b);
+  if (n <= kSharedPoints) {
+    const int smem = 4 * n * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(moments_large_kernel<true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    moments_large_kernel<true><<<grid, kLargeWarps * 32, smem, st>>>(points, out, n, k,
+                                                                     radius_sq);
+  } else {
+    moments_large_kernel<false><<<grid, kLargeWarps * 32, 0, st>>>(points, out, n, k,
+                                                                   radius_sq);
+  }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.cuda.conv3d import conv3d_same
+from ..ops.cuda.conv3d import conv3d_same, padded_bf16
 from ..ops.spherical import spherical_avg_voxelize, spherical_trilinear_devoxelize
 from .batch_norm import BatchNorm
 from .shared_mlp import SharedMLP, dense
@@ -123,8 +123,10 @@ class PVConv(nn.Module):
 
     def _voxel_branch_low(self, grid: torch.Tensor) -> torch.Tensor:
         """`dtype`: channels-last throughout, K5 in eval and cuDNN in
-        training; returns [b, r, r, r, out] in `dtype`."""
-        v = grid.to(self.dtype)
+        training; returns [b, r, r, r, out] in `dtype`. In eval the cast to
+        bf16 writes the layout K5 loads by TMA (`padded_bf16`)."""
+        eval_bf16 = not self.training and self.dtype == torch.bfloat16
+        v = padded_bf16(grid) if eval_bf16 else grid.to(self.dtype)
         for conv, bn in zip(self.convs, self.bns):
             w = conv.weight.to(self.dtype)
             if self.training:

@@ -6,8 +6,9 @@ k-th smallest d² by 32 bisection steps by counting and the min inside the
 bracket (empty bracket -> 0); r² = max(radius², kth·(1 + 1e-6)) (k = 0:
 fixed radius); then Σp, Σp⊗p and the count over the j with d² < r².
 
-The kernel is `csrc/normals_moments.cu`. `neighborhood_moments` launches it
-for a CUDA tensor and takes `neighborhood_moments_plain` only for a CPU
+The kernel is `csrc/normals_moments.cu` (any n: clouds of up to 1024
+points keep their d² in registers, larger ones form them again on each
+pass). `neighborhood_moments` launches it for a CUDA tensor and takes `neighborhood_moments_plain` only for a CPU
 tensor.
 """
 from __future__ import annotations
@@ -19,7 +20,6 @@ from . import build
 Tensor = torch.Tensor
 
 _BISECT_STEPS = 32
-MAX_POINTS = 1024  # the kernel stages one cloud in shared memory
 
 
 def point_sqdist(q: Tensor, p: Tensor) -> Tensor:
@@ -52,17 +52,23 @@ def _hybrid_radius_sq(d2: Tensor, k: int, radius_sq: float) -> Tensor:
     return torch.clamp(kth * grow, min=radius_sq)
 
 
-def neighborhood_moments_plain(points: Tensor, k: int, radius_sq: float
+def neighborhood_moments_plain(points: Tensor, k: int, radius_sq: float,
+                               query_chunk: int | None = None
                                ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version: points [b, n, 3] f32 -> (s1 [b, n, 3],
-    s2 [b, n, 3, 3], cnt [b, n])."""
+    s2 [b, n, 3, 3], cnt [b, n]). `query_chunk` bounds the queries whose
+    [chunk, n] d² are held at once (all n by default), for large clouds."""
     b, n, _ = points.shape
-    d2 = point_sqdist(points, points)
-    r2 = _hybrid_radius_sq(d2, k, radius_sq)
-    mask = (d2 < r2[..., None]).to(points.dtype)
     outer = (points[..., :, None] * points[..., None, :]).reshape(b, n, 9)
     rhs = torch.cat([points, outer, torch.ones_like(points[..., :1])], dim=-1)
-    out = torch.matmul(mask, rhs)  # [b, n, 13]
+    step = n if query_chunk is None else query_chunk
+    parts = []
+    for q0 in range(0, n, step):
+        d2 = point_sqdist(points[:, q0:q0 + step], points)
+        r2 = _hybrid_radius_sq(d2, k, radius_sq)
+        mask = (d2 < r2[..., None]).to(points.dtype)
+        parts.append(torch.matmul(mask, rhs))  # [b, chunk, 13]
+    out = torch.cat(parts, dim=1)
     return out[..., :3], out[..., 3:12].reshape(b, n, 3, 3), out[..., 12]
 
 
@@ -78,8 +84,6 @@ def neighborhood_moments(points: Tensor, k: int, radius_sq: float
         raise ValueError(f"points must be f32 [b, n, 3], got {points.dtype} "
                          f"{tuple(points.shape)}")
     b, n, _ = points.shape
-    if n > MAX_POINTS:
-        raise ValueError(f"the moments kernel takes n <= {MAX_POINTS}, got {n}")
     lib = build.load()
     pts = points.contiguous()
     out = torch.empty((b, n, 13), dtype=torch.float32, device=points.device)

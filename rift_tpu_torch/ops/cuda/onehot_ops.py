@@ -4,8 +4,9 @@ kernels and plain versions).
 Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2),
 `corner_gather_pallas` (K3) and its transpose `corner_scatter_pallas` (K4).
 The TPU kernels build one-hot selectors for the MXU; on the card the same
-functions are a sort-then-segment-sum (K2, K4) and a direct 8-row gather
-(K3), in `csrc/voxel_ops.cu`. Each wrapper launches its kernel for a CUDA
+functions are a counting sort by voxel then a segment sum in index order
+(K2, K4; any n and s) and a direct 8-row gather (K3), in
+`csrc/voxel_ops.cu`. Each wrapper launches its kernel for a CUDA
 tensor and takes its plain version only for a CPU tensor. An index outside
 [0, s) matches no voxel and drops out, as in the one-hot kernels.
 """
@@ -17,9 +18,21 @@ from . import build
 
 Tensor = torch.Tensor
 
-MAX_SORT_POINTS = 4096  # K2 sorts one cloud's keys in shared memory
-MAX_SCATTER_POINTS = 1024  # K4 sorts one cloud's 8·n corner keys in shared memory
-MAX_SCATTER_SEGMENTS = 1 << 19  # K4 keys hold the voxel in 19 bits
+_SCAN_TILE = 4096  # voxels per block of the kernels' prefix sum (csrc/voxel_ops.cu)
+
+
+def _runs_scratch(b: int, s: int, entries: int, device) -> Tensor:
+    """The int32 scratch of K2's and K4's runs over b clouds of s voxels and
+    `entries` indices each: counts, starts and order of the runs, the
+    placement's slots and cursors, and the scan's tile sums. The kernels
+    index it with 32-bit ints."""
+    segs, total = b * s, b * entries
+    if segs >= 2 ** 31 or total >= 2 ** 31:
+        raise ValueError(f"b·s = {segs} and b·entries = {total} must be below 2^31")
+    return torch.empty(3 * segs + 2 * total + -(-segs // _SCAN_TILE), dtype=torch.int32,
+                       device=device)
+
+
 # Input types of the K2 and K3 kernels, with the type code their C entry
 # points take (0: f32, 1: bf16); they sum and write f32 either way.
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,21 +77,17 @@ def scatter_mean(features: Tensor, inds: Tensor, num_segments: int
     b, n, c = features.shape
     if tuple(inds.shape) != (b, n):
         raise ValueError(f"inds must be [{b}, {n}], got {tuple(inds.shape)}")
-    if n > MAX_SORT_POINTS:
-        raise ValueError(f"the scatter-mean kernel takes n <= {MAX_SORT_POINTS}, got {n}")
     lib = build.load()
     feat = features.contiguous()
     ind = inds.to(torch.int32).contiguous()
     s = int(num_segments)
     dev = features.device
-    order = torch.empty((b, n), dtype=torch.int32, device=dev)
-    vstart = torch.empty((b, s), dtype=torch.int32, device=dev)
+    runs = _runs_scratch(b, s, n, dev)
     out = torch.empty((b, s, c), dtype=torch.float32, device=dev)
     cnt = torch.empty((b, s), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.rift_scatter_mean(feat.data_ptr(), _KERNEL_DTYPES[feat.dtype],
-                                      ind.data_ptr(), b, n, c, s,
-                                      order.data_ptr(), vstart.data_ptr(),
+                                      ind.data_ptr(), b, n, c, s, runs.data_ptr(),
                                       out.data_ptr(), cnt.data_ptr(), stream),
                 "rift_scatter_mean")
     scatter_mean.launches += 1
@@ -176,25 +185,17 @@ def corner_scatter(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
     if tuple(corner_idx.shape) != (b, n, 8) or corner_w.shape != corner_idx.shape:
         raise ValueError(f"corner_idx/corner_w must be [{b}, {n}, 8], got "
                          f"{tuple(corner_idx.shape)} / {tuple(corner_w.shape)}")
-    if n > MAX_SCATTER_POINTS:
-        raise ValueError(f"the corner-scatter kernel takes n <= {MAX_SCATTER_POINTS}, got {n}")
     s = int(num_segments)
-    if s >= MAX_SCATTER_SEGMENTS:
-        raise ValueError(f"the corner-scatter kernel takes fewer than "
-                         f"{MAX_SCATTER_SEGMENTS} segments, got {s}")
     lib = build.load()
     d = dout.contiguous()
     idx = corner_idx.to(torch.int32).contiguous()
     w = corner_w.to(torch.float32).contiguous()
     dev = dout.device
-    order = torch.empty((b, 8 * n), dtype=torch.int32, device=dev)
-    vstart = torch.empty((b, s), dtype=torch.int32, device=dev)
-    vlen = torch.empty((b, s), dtype=torch.int32, device=dev)
+    runs = _runs_scratch(b, s, 8 * n, dev)
     dgrid = torch.empty((b, s, c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.rift_corner_scatter(d.data_ptr(), idx.data_ptr(), w.data_ptr(), b, n, c, s,
-                                        order.data_ptr(), vstart.data_ptr(), vlen.data_ptr(),
-                                        dgrid.data_ptr(), stream),
+                                        runs.data_ptr(), dgrid.data_ptr(), stream),
                 "rift_corner_scatter")
     corner_scatter.launches += 1
     return dgrid

@@ -17,7 +17,10 @@ from rift_tpu.ops.pallas.normals_kernel import neighborhood_moments_pallas
 from rift_tpu.ops.pallas.onehot_ops import corner_scatter_pallas
 from rift_tpu_torch.ops.cuda import (conv3d_same, corner_gather, corner_scatter,
                                      neighborhood_moments, scatter_mean)
-from rift_tpu_torch.ops.cuda.conv3d import conv3d_same_plain
+from rift_tpu_torch.ops.cuda import conv3d as conv3d_module
+from rift_tpu_torch.ops.cuda import normals_kernel as normals_module
+from rift_tpu_torch.ops.cuda import onehot_ops as onehot_module
+from rift_tpu_torch.ops.cuda.conv3d import conv3d_same_plain, padded_bf16
 from rift_tpu_torch.ops.cuda.normals_kernel import neighborhood_moments_plain, point_sqdist
 from rift_tpu_torch.ops.cuda.onehot_ops import (corner_gather_plain, corner_scatter_plain,
                                                 scatter_mean_plain)
@@ -262,7 +265,9 @@ def test_conv3d_plain_matches_pallas(rng, cin, cout):
         xb, kb, r, chunk=r ** 3, interpret=True).astype(jnp.float32))
     xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
     wt = torch.from_numpy(np.array(kb.astype(jnp.float32))).permute(4, 3, 0, 1, 2)
-    got = conv3d_same(xt, wt.to(torch.bfloat16).contiguous())
+    # A cin that is no multiple of 8 goes in as the model gives it to K5:
+    # bf16 with a voxel stride padded to 8 channels.
+    got = conv3d_same(padded_bf16(xt) if cin % 8 else xt, wt.to(torch.bfloat16).contiguous())
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, r, r, r, cout)
     got = got.float().numpy()
     # Both round an f32 sum of the same exact products once to bf16; the
@@ -297,3 +302,100 @@ def test_conv3d_wrapper_takes_plain_version_on_cpu_and_checks_inputs(rng):
         conv3d_same(x, w.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="w must be"):
         conv3d_same(x, w[:, :4].contiguous())
+
+
+@pytest.mark.parametrize("kernel", ["normals_moments", "scatter_mean", "corner_scatter"])
+def test_plain_matches_pallas_past_the_old_card_limit(rng, kernel):
+    """K1, K2 and K4 at n = 2048 (ShapeNet's size, which the card refused
+    before the kernels took any n) against the Pallas kernels."""
+    b, n = 2, 2048
+    if kernel == "normals_moments":
+        pts = _cloud(rng, b, n, True)
+        r2 = 0.002
+        s1_j, s2_j, cnt_j = (np.asarray(a) for a in neighborhood_moments_pallas(
+            jnp.asarray(pts), 16, r2, tile=128, interpret=True))
+        s1, s2, cnt = (a.numpy() for a in neighborhood_moments(torch.from_numpy(pts), 16, r2))
+        # As at n = 256: d² may differ by an ulp between the matmul and the
+        # unfused sums, which can move a point across the radius.
+        same = cnt == cnt_j
+        assert same.mean() >= 0.99, same.mean()
+        np.testing.assert_allclose(s1[same], s1_j[same], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(s2[same], s2_j[same], rtol=1e-5, atol=1e-5)
+        return
+    s, c = 4096, 8
+    if kernel == "scatter_mean":
+        feat = rng.randn(b, n, c).astype(np.float32)
+        inds = rng.randint(-1, s, (b, n)).astype(np.int32)
+        inds[:, :50] = 7  # a crowded voxel
+        out_j, cnt_j = scatter_mean_pallas(jnp.asarray(feat), jnp.asarray(inds), s, tile=512)
+        out, cnt = scatter_mean(torch.from_numpy(feat), torch.from_numpy(inds), s)
+        np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+        return
+    idx, w = _corners(rng, b, n, s)
+    dout = rng.randn(b, n, c).astype(np.float32)
+    want = np.asarray(corner_scatter_pallas(jnp.asarray(dout), jnp.asarray(idx),
+                                            jnp.asarray(w), s, tile=512))
+    got = corner_scatter(torch.from_numpy(dout), torch.from_numpy(idx), torch.from_numpy(w), s)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2048, 5000])
+def test_wrappers_hold_no_size_limit(rng, n):
+    """The wrappers take any cloud size: on the CPU they return the plain
+    results at n = 2048 and 5000, and no module keeps a size constant."""
+    for module in (normals_module, onehot_module, conv3d_module):
+        assert not [name for name in vars(module) if name.startswith("MAX_")]
+    pts = torch.from_numpy(_cloud(rng, 1, n, False))
+    for a, b in zip(neighborhood_moments(pts, 8, 0.001), neighborhood_moments_plain(pts, 8, 0.001)):
+        assert torch.equal(a, b)
+    s = 512
+    feat = torch.randn(1, n, 4)
+    inds = torch.randint(-1, s, (1, n))
+    assert all(torch.equal(a, b) for a, b in
+               zip(scatter_mean(feat, inds, s), scatter_mean_plain(feat, inds, s)))
+    idx = torch.randint(-1, s, (1, n, 8))
+    w = torch.rand(1, n, 8)
+    assert torch.equal(corner_scatter(feat, idx, w, s), corner_scatter_plain(feat, idx, w, s))
+
+
+def test_moments_plain_by_query_chunks_is_the_whole(rng):
+    """The plain K1 over query chunks (how the card check holds a cloud too
+    large for one [n, n] d²) gives the unchunked result."""
+    pts = torch.from_numpy(_cloud(rng, 2, 300, True))
+    whole = neighborhood_moments_plain(pts, 16, 0.01)
+    for a, b in zip(whole, neighborhood_moments_plain(pts, 16, 0.01, query_chunk=64)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cin,cout", [(71, 64), (64, 128), (24, 40), (128, 200)])
+def test_conv3d_weight_taps_unpack_to_the_weight(rng, cin, cout):
+    """K5's packed weights [27, cout_p, cin_p] (K-major taps, zero pad)
+    give back the Conv3d weight [cout, cin, 3, 3, 3]."""
+    w = torch.from_numpy(rng.randn(cout, cin, 3, 3, 3).astype(np.float32)).to(torch.bfloat16)
+    taps = conv3d_module._weight_taps(w)
+    n = conv3d_module.tile_width(cout)
+    assert n == (64 if cout <= 64 else 128)
+    cin_p = -(-cin // conv3d_module.CIN_STEP) * conv3d_module.CIN_STEP
+    assert tuple(taps.shape) == (27, -(-cout // n) * n, cin_p) and taps.is_contiguous()
+    back = taps[:, :cout, :cin].reshape(3, 3, 3, cout, cin).permute(3, 4, 0, 1, 2)
+    assert torch.equal(back, w)
+    assert not taps[:, cout:].any() and not taps[:, :, cin:].any()
+    for i, j, k in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
+        assert torch.equal(taps[(i * 3 + j) * 3 + k, :cout, :cin], w[:, :, i, j, k])
+
+
+@pytest.mark.parametrize("cin", [71, 64])
+def test_conv3d_padded_input_unpacks_to_x(rng, cin):
+    """`padded_bf16` writes x in bf16 with a voxel stride of cin rounded up
+    to 8 (the layout K5 reads by TMA); its view is the unpadded bf16 x, and
+    the wrapper takes it as it takes a contiguous x."""
+    x = torch.from_numpy(rng.randn(2, 4, 4, 4, cin).astype(np.float32))
+    xp = padded_bf16(x)
+    cs = -(-cin // 8) * 8
+    assert xp.dtype == torch.bfloat16 and tuple(xp.shape) == tuple(x.shape)
+    assert xp.stride() == (64 * cs, 16 * cs, 4 * cs, cs, 1)
+    assert conv3d_module._voxel_stride(xp) == cs
+    assert torch.equal(xp.contiguous(), x.to(torch.bfloat16))
+    w = torch.from_numpy(rng.randn(16, cin, 3, 3, 3).astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(conv3d_same(xp, w), conv3d_same_plain(x.to(torch.bfloat16), w))
