@@ -18,10 +18,16 @@ Phases (each prints one line with its wall time):
                bench model's four shapes, every element within one bf16
                step of its plain version, beside cuDNN's bf16 Conv3d, and
                at each other r the kernel takes and couts of 40 and 96.
+               K2 and K4 called twice on the same inputs must be bit-equal,
+               and are timed also back to back (20 calls between two
+               events, no synchronize: device time without each call's
+               host enqueue), as are their library yardsticks.
                Then K1, K2 and K4 on clouds of 2048, 5000 and 16384 points
                (past K1_SHARED_POINTS, the largest cloud any of them keeps
                in one block's shared memory): neighbour counts equal,
-               the same tolerances, K4 as K3's adjoint.
+               the same tolerances, K4 as K3's adjoint; K2 and K4 on a
+               cloud of 16384 points all in one voxel and on one whose
+               indices are all -1 (timed), and at r = 16, 64 and 128.
   4. main    — register_batch on 16 SyntheticPairs(mode="noise", seed=0)
                pairs, flagship width (mn40_sph_pt_r4), seeded random weights;
                one warm-up and 3 timed batches; every launch counter must rise.
@@ -106,6 +112,16 @@ K5_OTHER_SHAPES = ((4, 16, 64, 64), (2, 64, 64, 128), (1, 128, 64, 64), (4, 32, 
 LARGE_CLOUDS = ((2, 2048), (2, 5000), (1, 16384))
 K1_SHARED_POINTS = 12288
 LARGE_QUERY_CHUNK = 2048
+# K2 and K4 on degenerate clouds of DEGENERATE_POINTS points (b = 1):
+# every point in one voxel, and every index -1. They are held against the
+# plain versions on the CPU, which add a voxel's entries in the kernels'
+# order (the card's index_add_ would add these 16384 or 131072 terms of
+# one voxel in atomic order), under the same TOL.
+DEGENERATE_POINTS = 16384
+# K2 and K4 at the other resolutions the model takes: (r, b).
+OTHER_R = ((16, 2), (64, 2), (128, 1))
+# Calls between two events for the back-to-back device times.
+B2B_CALLS = 20
 # register_batch with the flagship on clouds of ShapeNet's 2048 points.
 LARGE_PAIRS, LARGE_POINTS = 4, 2048
 # K4 against K3: <K4(dout), grid> and <dout, K3(grid)> (sums in f64 of the
@@ -204,6 +220,25 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(sorted(times)[len(times) // 2])
+
+
+def b2b_ms(fn, calls: int = B2B_CALLS) -> float:
+    """Device ms per call of `calls` back-to-back calls of fn() between two
+    CUDA events, with no synchronize between them, after one warm-up: the
+    device time without each call's host enqueue (which cuda_time_ms
+    includes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def short(t) -> list:
@@ -305,18 +340,22 @@ def check_kernels(clouds, report: dict) -> None:
     trash = torch.where(valid, inds, torch.full_like(inds, s))
     flat = (trash + torch.arange(b, device=dev)[:, None] * (s + 1)).reshape(-1)
     k2 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-              bytes=0, flops=0)
+              b2b_ms=0.0, library_b2b_ms=0.0, bytes=0, flops=0, bit_equal=True)
     for c in (67, 64):
         feat = torch.randn((b, n, c), generator=gen, device=dev)
         out, cnt = oh.scatter_mean(feat, inds32, s)
+        again = oh.scatter_mean(feat, inds32, s)
         want_out, want_cnt = oh.scatter_mean_plain(feat, inds, s)
         torch.cuda.synchronize()
         if not torch.equal(cnt, want_cnt):
             fail(f"K2 counts differ at c={c}")
+        if not (torch.equal(out, again[0]) and torch.equal(cnt, again[1])):
+            fail(f"K2 is not deterministic: two calls differ at c={c}")
         a, rel = rel_err(out, want_out)
         k2["max_abs_err"] = max(k2["max_abs_err"], a)
         k2["max_rel_err"] = max(k2["max_rel_err"], rel)
         k2["ms"] += cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s))
+        k2["b2b_ms"] += b2b_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["plain_ms"] += cuda_time_ms(lambda: oh.scatter_mean_plain(feat, inds, s))
         rows = feat.reshape(b * n, c)
 
@@ -328,21 +367,26 @@ def check_kernels(clouds, report: dict) -> None:
         if rel_err(lib_out, want_out)[1] > TOL["scatter_mean"]:
             fail("K2 library yardstick disagrees with the plain version")
         k2["library_ms"] += cuda_time_ms(library)
+        k2["library_b2b_ms"] += b2b_ms(library)
         k2["bytes"] += b * n * c * 4 + b * n * 4 + b * s * c * 4 + b * s * 4
         k2["flops"] += int(valid.sum()) * c + b * s * c
     # The bf16 model's inputs (c = 71 and 64), and indices s and s + 1 in
     # cloud 0, which must drop out as -1 does.
-    k2["bf16"] = dict(max_rel_err=0.0, ms=0.0, plain_ms=0.0)
+    k2["bf16"] = dict(max_rel_err=0.0, ms=0.0, b2b_ms=0.0, plain_ms=0.0)
     for c in (71, 64):
         feat = torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
         out, cnt = oh.scatter_mean(feat, inds32, s)
+        again = oh.scatter_mean(feat, inds32, s)
         want_out, want_cnt = oh.scatter_mean_plain(feat, inds, s)
         torch.cuda.synchronize()
         if out.dtype != torch.float32 or not torch.equal(cnt, want_cnt):
             fail(f"K2 on bf16 features: type {out.dtype}, counts equal "
                  f"{torch.equal(cnt, want_cnt)} at c={c}")
+        if not (torch.equal(out, again[0]) and torch.equal(cnt, again[1])):
+            fail(f"K2 on bf16 features is not deterministic: two calls differ at c={c}")
         k2["bf16"]["max_rel_err"] = max(k2["bf16"]["max_rel_err"], rel_err(out, want_out)[1])
         k2["bf16"]["ms"] += cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s))
+        k2["bf16"]["b2b_ms"] += b2b_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["bf16"]["plain_ms"] += cuda_time_ms(lambda: oh.scatter_mean_plain(feat, inds, s))
     k2["max_rel_err"] = max(k2["max_rel_err"], k2["bf16"]["max_rel_err"])
     far = inds32.clone()
@@ -435,13 +479,16 @@ def check_kernels(clouds, report: dict) -> None:
                            torch.zeros_like(idx4))).reshape(-1)
     w4_masked = torch.where(valid4, w4, torch.zeros_like(w4))
     k4 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-              bytes=0, flops=0, adjoint_rel_err=0.0,
-              skipped_rows=int((~valid4).all(-1).sum()))
+              b2b_ms=0.0, library_b2b_ms=0.0, bytes=0, flops=0, adjoint_rel_err=0.0,
+              bit_equal=True, skipped_rows=int((~valid4).all(-1).sum()))
     for c in (64, 128):
         dout = torch.randn((bt, n, c), generator=gen, device=dev)
         got = oh.corner_scatter(dout, idx4_32, w4, s)
+        again = oh.corner_scatter(dout, idx4_32, w4, s)
         want_out = oh.corner_scatter_plain(dout, idx4, w4, s)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K4 is not deterministic: two calls differ at c={c}")
         a, rel = rel_err(got, want_out)
         k4["max_abs_err"] = max(k4["max_abs_err"], a)
         k4["max_rel_err"] = max(k4["max_rel_err"], rel)
@@ -450,6 +497,7 @@ def check_kernels(clouds, report: dict) -> None:
         rhs = float((dout.double() * oh.corner_gather(grid, idx4_32, w4).double()).sum())
         k4["adjoint_rel_err"] = max(k4["adjoint_rel_err"], abs(lhs - rhs) / abs(rhs))
         k4["ms"] += cuda_time_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
+        k4["b2b_ms"] += b2b_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
         k4["plain_ms"] += cuda_time_ms(lambda: oh.corner_scatter_plain(dout, idx4, w4, s))
 
         def library():  # w·dout rows, then index_add_ into a flat grid with a trash row
@@ -459,11 +507,13 @@ def check_kernels(clouds, report: dict) -> None:
         if rel_err(library()[:bt * s].reshape(bt, s, c), want_out)[1] > TOL["corner_scatter"]:
             fail("K4 library yardstick disagrees with the plain version")
         k4["library_ms"] += cuda_time_ms(library)
+        k4["library_b2b_ms"] += b2b_ms(library)
         # dout, corner indices and weights read once; the dense dgrid written once.
         k4["bytes"] += bt * n * c * 4 + bt * n * 8 * 8 + bt * s * c * 4
         k4["flops"] += int(valid4.sum()) * c * 2
-    # At one channel the dense pass is 1/64 of the c = 64 one: what is left
-    # is mostly the passes that build the runs (count, scan, place, rank).
+    # At one channel the dense write is 1/64 of the c = 64 one: what is left
+    # is mostly each block's pass over the cloud's corner list and its
+    # grouping of the kept entries.
     dout1 = torch.randn((bt, n, 1), generator=gen, device=dev)
     k4["one_channel_ms"] = cuda_time_ms(lambda: oh.corner_scatter(dout1, idx4_32, w4, s))
     if k4["adjoint_rel_err"] > ADJOINT_TOL:
@@ -498,9 +548,14 @@ def check_kernels(clouds, report: dict) -> None:
         if "adjoint_rel_err" in rep:
             extra += (f"; adjoint rel err {rep['adjoint_rel_err']:.3e} (tol {ADJOINT_TOL:g}), "
                       f"{rep['one_channel_ms']:.4f} ms at one channel")
+        if "b2b_ms" in rep:
+            extra += (f"; back to back: kernel {rep['b2b_ms']:.4f} ms, library "
+                      f"{rep['library_b2b_ms']:.4f} ms; two calls bit-equal")
         if "bf16" in rep:
             extra += (f"; bf16 input: rel err {rep['bf16']['max_rel_err']:.3e}, kernel "
-                      f"{rep['bf16']['ms']:.4f} ms, plain {rep['bf16']['plain_ms']:.4f} ms")
+                      f"{rep['bf16']['ms']:.4f} ms"
+                      + (f" ({rep['bf16']['b2b_ms']:.4f} back to back)" if "b2b_ms" in rep["bf16"]
+                         else "") + f", plain {rep['bf16']['plain_ms']:.4f} ms")
         if "far_rel_err" in rep:
             extra += f"; indices s, s + 1: rel err {rep['far_rel_err']:.3e}"
         if "max_steps" in rep:
@@ -518,7 +573,7 @@ def check_large_clouds(report: dict) -> None:
     """K1, K2 and K4 against their plain versions on the LARGE_CLOUDS sizes
     (SyntheticPairs source clouds, seed 3): K1 neighbour counts equal, every
     error within TOL, K4 also K3's adjoint. Adds a "large" list to each
-    kernel's report."""
+    kernel's report; then check_degenerate and check_other_r."""
     import torch
 
     from rift_tpu_torch.data import SyntheticPairs
@@ -586,6 +641,117 @@ def check_large_clouds(report: dict) -> None:
                      else ", counts equal"), flush=True)
             if row["max_rel_err"] > TOL[name] or row.get("adjoint_rel_err", 0.0) > ADJOINT_TOL:
                 fail(f"{name} at b={b}, n={n}: {row}")
+    check_degenerate(report)
+    check_other_r(report)
+
+
+def check_degenerate(report: dict) -> None:
+    """K2 (c = 67 and 64) and K4 (c = 64) on one cloud of DEGENERATE_POINTS
+    points all in one voxel, and on one whose indices are all -1: two calls
+    bit-equal, counts equal, within TOL of the plain version on the CPU,
+    timed. Adds a "degenerate" list to both reports."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, s = DEGENERATE_POINTS, 32 ** 3
+    for name in ("scatter_mean", "corner_scatter"):
+        report[name]["degenerate"] = []
+    for case, voxel in (("one voxel", s // 2 + 16), ("all -1", -1)):
+        inds = torch.full((1, n), voxel, dtype=torch.int32, device=dev)
+        for c in (67, 64):
+            feat = torch.randn((1, n, c), generator=gen, device=dev)
+            out, cnt = oh.scatter_mean(feat, inds, s)
+            again = oh.scatter_mean(feat, inds, s)
+            want_out, want_cnt = oh.scatter_mean_plain(feat.cpu(), inds.cpu(), s)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again[0]) and torch.equal(cnt, again[1])):
+                fail(f"K2 on {case}, c={c}: two calls differ")
+            if not torch.equal(cnt.cpu(), want_cnt):
+                fail(f"K2 on {case}, c={c}: counts differ")
+            report["scatter_mean"]["degenerate"].append(dict(
+                case=case, n=n, c=c, max_rel_err=rel_err(out.cpu(), want_out)[1],
+                equal_to_plain=torch.equal(out.cpu(), want_out),
+                ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds, s), reps=3)))
+        idx = torch.full((1, n, 8), voxel, dtype=torch.int32, device=dev)
+        w = torch.rand((1, n, 8), generator=gen, device=dev)
+        dout = torch.randn((1, n, 64), generator=gen, device=dev)
+        got = oh.corner_scatter(dout, idx, w, s)
+        again = oh.corner_scatter(dout, idx, w, s)
+        want = oh.corner_scatter_plain(dout.cpu(), idx.cpu(), w.cpu(), s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"K4 on {case}: two calls differ")
+        report["corner_scatter"]["degenerate"].append(dict(
+            case=case, n=n, c=64, max_rel_err=rel_err(got.cpu(), want)[1],
+            equal_to_plain=torch.equal(got.cpu(), want),
+            ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx, w, s), reps=3)))
+    for name in ("scatter_mean", "corner_scatter"):
+        for row in report[name]["degenerate"]:
+            print(f"    {name} on {row['case']} (b=1, n={n}, c={row['c']}): rel err "
+                  f"{row['max_rel_err']:.3e} (tol {TOL[name]:g}), bit-equal to the plain "
+                  f"version {row['equal_to_plain']}, kernel {row['ms']:.4f} ms", flush=True)
+            if row["max_rel_err"] > TOL[name]:
+                fail(f"{name} on {row['case']}: {row}")
+
+
+def check_other_r(report: dict) -> None:
+    """K2 (c = 67, counts equal) and K4 (c = 64, also K3's adjoint) against
+    their plain versions at the OTHER_R resolutions, on SyntheticPairs
+    clouds of NUM_POINTS (seed 4). Adds an "other_r" list to both
+    reports."""
+    import torch
+
+    from rift_tpu_torch.data import SyntheticPairs
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
+                                              spherical_corner_weights,
+                                              spherical_voxel_indices)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name in ("scatter_mean", "corner_scatter"):
+        report[name]["other_r"] = []
+    for r, b in OTHER_R:
+        s = r ** 3
+        pts = torch.as_tensor(SyntheticPairs(num_pairs=b, num_points=NUM_POINTS, mode="noise",
+                                             seed=4).arrays()[0], device=dev)
+        norm = normalize_coords_sphere(pts)
+        inds, _ = spherical_voxel_indices(norm, r)
+        idx, w = spherical_corner_weights(norm, inds, r)
+        inds32, idx32 = inds.to(torch.int32), idx.to(torch.int32)
+        feat = torch.randn((b, NUM_POINTS, 67), generator=gen, device=dev)
+        out, cnt = oh.scatter_mean(feat, inds32, s)
+        want_out, want_cnt = oh.scatter_mean_plain(feat, inds, s)
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, want_cnt):
+            fail(f"K2 at r={r}: counts differ")
+        report["scatter_mean"]["other_r"].append(dict(
+            r=r, b=b, c=67, max_rel_err=rel_err(out, want_out)[1],
+            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s), reps=5)))
+        del out, want_out
+        dout = torch.randn((b, NUM_POINTS, 64), generator=gen, device=dev)
+        got = oh.corner_scatter(dout, idx32, w, s)
+        want = oh.corner_scatter_plain(dout, idx, w, s)
+        grid = torch.randn((b, s, 64), generator=gen, device=dev)
+        lhs = float((got.double() * grid.double()).sum())
+        rhs = float((dout.double() * oh.corner_gather(grid, idx32, w).double()).sum())
+        torch.cuda.synchronize()
+        report["corner_scatter"]["other_r"].append(dict(
+            r=r, b=b, c=64, max_rel_err=rel_err(got, want)[1],
+            adjoint_rel_err=abs(lhs - rhs) / abs(rhs),
+            ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx32, w, s), reps=5)))
+        del got, want, grid
+        for name in ("scatter_mean", "corner_scatter"):
+            row = report[name]["other_r"][-1]
+            print(f"    {name} at r={r} (s={s}), b={b}, c={row['c']}: rel err "
+                  f"{row['max_rel_err']:.3e} (tol {TOL[name]:g}), kernel {row['ms']:.4f} ms"
+                  + (f", adjoint {row['adjoint_rel_err']:.3e}" if name == "corner_scatter"
+                     else ", counts equal"), flush=True)
+            if row["max_rel_err"] > TOL[name] or row.get("adjoint_rel_err", 0.0) > ADJOINT_TOL:
+                fail(f"{name} at r={r}: {row}")
 
 
 def check_conv3d(report: dict) -> None:
@@ -1136,8 +1302,10 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shapes": rep["shapes"],
-            **{k: rep[k] for k in ("adjoint_rel_err", "far_rel_err", "bf16", "max_steps",
-                                   "equal_share", "library_steps", "per_shape", "other_shapes", "large")
+            **{k: rep[k] for k in ("b2b_ms", "library_b2b_ms", "bit_equal", "adjoint_rel_err",
+                                   "far_rel_err", "bf16", "max_steps", "equal_share",
+                                   "library_steps", "per_shape", "other_shapes", "large",
+                                   "degenerate", "other_r")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,24 @@
 """K2 voxel scatter-mean, K3 8-corner gather and K4 8-corner scatter (CUDA
 kernels and plain versions).
 
-Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2),
-`corner_gather_pallas` (K3) and its transpose `corner_scatter_pallas` (K4).
-The TPU kernels build one-hot selectors for the MXU; on the card the same
-functions are a counting sort by voxel then a segment sum in index order
-(K2, K4; any n and s) and a direct 8-row gather (K3), in
-`csrc/voxel_ops.cu`. Each wrapper launches its kernel for a CUDA
-tensor and takes its plain version only for a CPU tensor. An index outside
-[0, s) matches no voxel and drops out, as in the one-hot kernels.
+Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2,
+`_scatter_kernel`), `corner_gather_pallas` (K3, `_gather_kernel`) and its
+transpose `corner_scatter_pallas` (K4, `_scatter_w_kernel`). The TPU
+kernels build one-hot selectors for the MXU; on the card, in
+`csrc/voxel_ops.cu`, K3 is a direct 8-row gather (one launch), and K2 and
+K4 are one launch each of `voxel_sum_kernel`: a block owns
+`voxel_tile(b, s, entries, c)` consecutive voxels of one cloud, keeps the
+cloud's entries that fall in them in ascending order (a block-wide scan
+of each thread's count), groups them by voxel with a stable counting
+sort in shared memory, sums each group in entry order and writes its
+whole span of the dense [b, s, c] grid once with 16-byte stores, zeros
+(and K2's counts) included. No global scratch, no float atomics: two
+calls on the same inputs are bit-equal. K2 and K4 are bound by that
+dense write (bytes); tensor cores do not fit, since the one-hot product
+would be > 99% multiplications by zero and TF32 or bf16 would break the
+1e-5 tolerance. Each wrapper launches its kernel for a CUDA tensor and
+takes its plain version only for a CPU tensor. An index outside [0, s)
+matches no voxel and drops out, as in the one-hot kernels.
 """
 from __future__ import annotations
 
@@ -18,19 +28,43 @@ from . import build
 
 Tensor = torch.Tensor
 
-_SCAN_TILE = 4096  # voxels per block of the kernels' prefix sum (csrc/voxel_ops.cu)
+# Voxels per block of K2 and K4, smallest first; the least output span of
+# a block in floats (64 KB); the blocks a launch should have at least (8
+# on each of the H100's 132 SMs, rounded).
+VOXEL_TILES = (32, 64, 128, 256, 512, 1024)
+TILE_MIN_SPAN = 16384
+TILE_MIN_BLOCKS = 1024
 
 
-def _runs_scratch(b: int, s: int, entries: int, device) -> Tensor:
-    """The int32 scratch of K2's and K4's runs over b clouds of s voxels and
-    `entries` indices each: counts, starts and order of the runs, the
-    placement's slots and cursors, and the scan's tile sums. The kernels
-    index it with 32-bit ints."""
-    segs, total = b * s, b * entries
-    if segs >= 2 ** 31 or total >= 2 ** 31:
-        raise ValueError(f"b·s = {segs} and b·entries = {total} must be below 2^31")
-    return torch.empty(3 * segs + 2 * total + -(-segs // _SCAN_TILE), dtype=torch.int32,
-                       device=device)
+def voxel_tile(b: int, s: int, entries: int, c: int) -> int:
+    """Voxels per block of K2 and K4 for b clouds of s voxels, `entries`
+    indices per cloud and c channels. Every block reads its cloud's whole
+    index list, so the tile is the smallest of VOXEL_TILES whose output
+    span (tile·c floats) is at least TILE_MIN_SPAN and at least twice that
+    list (else the largest), then halved while the launch has fewer than
+    TILE_MIN_BLOCKS blocks (few large clouds); never more than s. On the
+    H100 these are the fastest tiles within a few percent at the main
+    path's shapes and at clouds of 2048-16384 points (`scatter_ab.py
+    --tiles`)."""
+    tile = next((t for t in VOXEL_TILES if t * c >= max(TILE_MIN_SPAN, 2 * entries)),
+                VOXEL_TILES[-1])
+    while tile > VOXEL_TILES[0] and b * -(-s // tile) < TILE_MIN_BLOCKS:
+        tile //= 2
+    return min(tile, s)
+
+
+def _stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device, without
+    the Python Stream object that `torch.cuda.current_stream(device)`
+    builds on every call (host time before each launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _check_sizes(b: int, s: int, entries: int) -> None:
+    """K2 and K4 index the grid and the entries of the batch with 32-bit
+    ints."""
+    if b * s >= 2 ** 31 or b * entries >= 2 ** 31:
+        raise ValueError(f"b·s = {b * s} and b·entries = {b * entries} must be below 2^31")
 
 
 # Input types of the K2 and K3 kernels, with the type code their C entry
@@ -81,13 +115,13 @@ def scatter_mean(features: Tensor, inds: Tensor, num_segments: int
     feat = features.contiguous()
     ind = inds.to(torch.int32).contiguous()
     s = int(num_segments)
+    _check_sizes(b, s, n)
     dev = features.device
-    runs = _runs_scratch(b, s, n, dev)
     out = torch.empty((b, s, c), dtype=torch.float32, device=dev)
     cnt = torch.empty((b, s), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     build.check(lib.rift_scatter_mean(feat.data_ptr(), _KERNEL_DTYPES[feat.dtype],
-                                      ind.data_ptr(), b, n, c, s, runs.data_ptr(),
+                                      ind.data_ptr(), b, n, c, s, voxel_tile(b, s, n, c),
                                       out.data_ptr(), cnt.data_ptr(), stream),
                 "rift_scatter_mean")
     scatter_mean.launches += 1
@@ -140,7 +174,7 @@ def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
     idx = corner_idx.to(torch.int32).contiguous()
     w = corner_w.to(torch.float32).contiguous()
     out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
-    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    stream = _stream(grid.device)
     build.check(lib.rift_corner_gather(g.data_ptr(), _KERNEL_DTYPES[g.dtype], idx.data_ptr(),
                                        w.data_ptr(), b, n, c, s, out.data_ptr(), stream),
                 "rift_corner_gather")
@@ -186,16 +220,16 @@ def corner_scatter(dout: Tensor, corner_idx: Tensor, corner_w: Tensor,
         raise ValueError(f"corner_idx/corner_w must be [{b}, {n}, 8], got "
                          f"{tuple(corner_idx.shape)} / {tuple(corner_w.shape)}")
     s = int(num_segments)
+    _check_sizes(b, s, 8 * n)
     lib = build.load()
     d = dout.contiguous()
     idx = corner_idx.to(torch.int32).contiguous()
     w = corner_w.to(torch.float32).contiguous()
     dev = dout.device
-    runs = _runs_scratch(b, s, 8 * n, dev)
     dgrid = torch.empty((b, s, c), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     build.check(lib.rift_corner_scatter(d.data_ptr(), idx.data_ptr(), w.data_ptr(), b, n, c, s,
-                                        runs.data_ptr(), dgrid.data_ptr(), stream),
+                                        voxel_tile(b, s, 8 * n, c), dgrid.data_ptr(), stream),
                 "rift_corner_scatter")
     corner_scatter.launches += 1
     return dgrid

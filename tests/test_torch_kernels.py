@@ -4,6 +4,7 @@ against the Pallas kernels they replace, run in interpret mode on the CPU as
 tests/test_pallas_ops.py runs them, and the autograd Functions built on K2,
 K3 and K4. On a CPU tensor each wrapper takes the plain version, so these
 also cover the wrappers' CPU route."""
+import glob
 import importlib.util
 import os
 
@@ -399,3 +400,109 @@ def test_conv3d_padded_input_unpacks_to_x(rng, cin):
     assert torch.equal(xp.contiguous(), x.to(torch.bfloat16))
     w = torch.from_numpy(rng.randn(16, cin, 3, 3, 3).astype(np.float32)).to(torch.bfloat16)
     assert torch.equal(conv3d_same(xp, w), conv3d_same_plain(x.to(torch.bfloat16), w))
+
+
+@pytest.mark.parametrize("kernel", ["scatter_mean", "corner_scatter"])
+@pytest.mark.parametrize("case", ["one_voxel", "all_dropped", "empty_cloud"])
+def test_plain_matches_pallas_on_degenerate_clouds(rng, kernel, case):
+    """K2's and K4's plain versions against the Pallas kernels (interpret
+    mode) on the inputs that take the card's kernels down their rarest
+    paths: every point of a cloud in one voxel, every index -1, and one
+    cloud of the batch with no entry at all."""
+    b, n, c, s = 2, 512, 8, 64
+    entries = (b, n) if kernel == "scatter_mean" else (b, n, 8)
+    ind = rng.randint(-1, s, entries).astype(np.int32)
+    if case == "one_voxel":
+        ind[:] = 5
+        ind[1] = 37
+    elif case == "all_dropped":
+        ind[:] = -1
+    else:
+        ind[1] = -1
+    feat = rng.randn(b, n, c).astype(np.float32)
+    if kernel == "scatter_mean":
+        want, want_cnt = (np.asarray(a) for a in scatter_mean_pallas(
+            jnp.asarray(feat), jnp.asarray(ind), s, tile=32))
+        got, cnt = (a.numpy() for a in scatter_mean(torch.from_numpy(feat),
+                                                    torch.from_numpy(ind), s))
+        np.testing.assert_array_equal(cnt, want_cnt)
+        assert cnt.sum() == (ind >= 0).sum()
+        # Sums of the same points in another order.
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        w = rng.rand(b, n, 8).astype(np.float32)
+        want = np.asarray(corner_scatter_pallas(jnp.asarray(feat), jnp.asarray(ind),
+                                                jnp.asarray(w), s, tile=32))
+        got = corner_scatter(*map(torch.from_numpy, (feat, ind, w)), s).numpy()
+        # Weighted rows summed in another order: one voxel adds 4096 of
+        # them, whose sum may cancel, so the rounding is bounded by the sum
+        # of their magnitudes (1e-6 of it: about 17 times f32's unit roundoff).
+        mass = corner_scatter(*map(torch.from_numpy, (np.abs(feat), ind, w)), s).numpy()
+        assert np.all(np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6 * mass + 1e-7)
+    if case != "one_voxel":
+        assert not got[1].any()  # an empty cloud writes zeros only
+    else:
+        assert not np.delete(got[0], 5, axis=0).any() and got[0, 5].any()
+
+
+def _c_entry_points():
+    """{name: [kind of each parameter: "pointer", "int" or "float"]} of every
+    `extern "C"` function in csrc/*.cu."""
+    import re
+
+    found = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "rift_tpu_torch", "csrc", "*.cu"))):
+        with open(path) as f:
+            text = f.read()
+        for name, params in re.findall(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            found[name] = ["pointer" if "*" in p else p.split()[0] for p in params.split(",")]
+    return found
+
+
+def test_c_entry_points_match_the_ctypes_signatures():
+    """Each `extern "C"` entry point of csrc/*.cu takes the arguments that
+    build._SIGNATURES gives ctypes, in number and kind: a pointer (or the
+    stream, void*) as c_void_p, an int as c_int, a float as c_float. No
+    compiler runs on the CPU to catch a mismatch."""
+    import ctypes
+
+    from rift_tpu_torch.ops.cuda import build
+
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    entries = _c_entry_points()
+    assert sorted(entries) == sorted(build._SIGNATURES)
+    for name, params in entries.items():
+        assert params == [kinds[t] for t in build._SIGNATURES[name]], (name, params)
+
+
+@pytest.mark.parametrize("b,s,entries,c,tile", [
+    (32, 32768, 1024, 67, 256),     # K2 at the registration shape
+    (32, 32768, 1024, 64, 256),
+    (16, 32768, 8192, 64, 256),     # K4 at the training shape
+    (16, 32768, 8192, 128, 128),
+    (16, 32768, 1024, 512, 32),     # wide rows: the smallest
+    (512, 32768, 131072, 64, 1024),  # more entries than any span: the largest
+    (2, 32768, 5000, 64, 64),       # few clouds: halved to 1024 blocks
+    (1, 32768, 131072, 64, 32),     # one cloud: the smallest tile
+    (2, 27, 100, 3, 27),            # fewer voxels than a tile: one tile of s
+])
+def test_voxel_tile_spans_64_kb_and_twice_the_index_list(b, s, entries, c, tile):
+    """K2's and K4's voxels per block: the smallest tile whose output span
+    is at least 64 KB and twice the cloud's index list (the largest where
+    none is), halved while the launch has fewer than 1024 blocks, never
+    more than s."""
+    got = onehot_module.voxel_tile(b, s, entries, c)
+    assert got == tile
+    assert got in onehot_module.VOXEL_TILES or got == s
+    if got > onehot_module.VOXEL_TILES[0] and got < s:
+        assert b * -(-s // got) >= onehot_module.TILE_MIN_BLOCKS
+
+
+def test_scatter_wrappers_reject_batches_past_32_bit_indices():
+    """K2 and K4 index the batch's grid and entries with 32-bit ints: the
+    size check raises at 2^31, not below."""
+    onehot_module._check_sizes(2 ** 15, 2 ** 16 - 1, 1024)
+    with pytest.raises(ValueError, match="below 2"):
+        onehot_module._check_sizes(2 ** 15, 2 ** 16, 1024)
+    with pytest.raises(ValueError, match="below 2"):
+        onehot_module._check_sizes(2 ** 12, 8, 2 ** 19)

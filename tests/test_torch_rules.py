@@ -1,6 +1,7 @@
-"""The port's ground rules: no JAX anywhere in rift_tpu_torch or
-chip_smoke.py, entry points default to the card and raise without one, and
-chip_smoke.py fails where there is no card or no package."""
+"""The port's ground rules: no JAX anywhere in rift_tpu_torch,
+chip_smoke.py or scatter_ab.py; entry points default to the card and
+raise without one; chip_smoke.py fails where there is no card or no
+package."""
 import ast
 import os
 import shutil
@@ -17,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rift_tpu")
 
 def _port_files():
     pkg = os.path.join(ROOT, "rift_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scatter_ab.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
