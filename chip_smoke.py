@@ -120,8 +120,35 @@ LARGE_QUERY_CHUNK = 2048
 DEGENERATE_POINTS = 16384
 # K2 and K4 at the other resolutions the model takes: (r, b).
 OTHER_R = ((16, 2), (64, 2), (128, 1))
-# Calls between two events for the back-to-back device times.
+# Calls between two events for the back-to-back and device-only times.
 B2B_CALLS = 20
+# dev_ms queues its calls behind torch.cuda._sleep for twice their host
+# enqueue time plus DEV_SLEEP_MARGIN_S, at DEV_SLEEP_CYCLES_PER_S (at or
+# above the H100's top SM clock, so the sleep lasts at least that long).
+DEV_SLEEP_MARGIN_S = 1e-3
+DEV_SLEEP_CYCLES_PER_S = 2.0e9
+# K1 on clouds built to be hard, (case, b, n, k, r²), each with its
+# neighbour counts equal to the plain version's: "duplicates" is the CPU
+# tests' cloud (20 copies of point 0, >= k points at distance 0: the empty
+# bracket rule, and a 1e-4 cluster); "shell" puts hundreds of points at
+# nearly one small distance from a few queries, so the bracket left by the
+# 32 bisection steps holds several values and its min is not the exact
+# k-th smallest (the replay must give the bracket's answer); k >= n and
+# k > 32 (no lane-minimum threshold) take the select's other branches;
+# n = 2048 takes the large-cloud kernel, where the shell's 600 candidates
+# overflow its list.
+K1_HARD = (("duplicates", 2, 1024, 16, 0.01), ("duplicates", 1, 2048, 16, 0.01),
+           ("shell", 2, 1024, 16, 1e-6), ("shell", 1, 2048, 16, 1e-6),
+           ("shell", 1, 2048, 40, 1e-6), ("k = n", 2, 1024, 1024, 0.01),
+           ("k > n", 2, 10, 16, 0.01), ("k > n", 1, 2048, 3000, 0.01),
+           ("k > 32", 2, 1024, 40, 0.01))
+# K3 on shapes off the main path, (case, c, grid type): c = 67 (no whole
+# 16-byte vectors: the scalar tail), c = 40 (10 f32 or 5 bf16 vectors a
+# row), and a grid or index pointer 4 or 8 bytes off 16-byte alignment
+# (the scalar tail, the scalar staging).
+K3_OTHER = (("c=67", 67, "f32"), ("c=67", 67, "bf16"), ("c=40", 40, "f32"),
+            ("c=40", 40, "bf16"), ("misaligned grid", 64, "f32"),
+            ("misaligned indices", 64, "f32"))
 # register_batch with the flagship on clouds of ShapeNet's 2048 points.
 LARGE_PAIRS, LARGE_POINTS = 4, 2048
 # K4 against K3: <K4(dout), grid> and <dout, K3(grid)> (sums in f64 of the
@@ -241,6 +268,40 @@ def b2b_ms(fn, calls: int = B2B_CALLS) -> float:
     return start.elapsed_time(end) / calls
 
 
+def dev_ms(fn, calls: int = B2B_CALLS) -> float:
+    """Device ms per call of `calls` calls of fn() queued behind
+    torch.cuda._sleep, after one warm-up. The sleep lasts twice their
+    measured host enqueue time (plus a margin), so every call is queued
+    before the card reaches the first: the two events around them time the
+    device alone, even for a call shorter than its enqueue, where b2b_ms
+    times the host's enqueue rate. Fails if the sleep ended before the last
+    call was queued, at each of 3 lengths."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int((2 * host_s + DEV_SLEEP_MARGIN_S) * DEV_SLEEP_CYCLES_PER_S))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        covered = not start.query()  # the card was still asleep when the last call was queued
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / calls
+        host_s *= 4
+    fail("dev_ms: the sleep ended before the calls were queued, at 3 lengths")
+    return 0.0
+
+
 def short(t) -> list:
     """A tensor's values at 3 significant digits, for the log."""
     return [float(f"{float(x):.3g}") for x in t]
@@ -319,9 +380,14 @@ def check_kernels(clouds, report: dict) -> None:
                  torch.cat([w.reshape(b, n, -1) for w in want[:2]], -1))[1]
     abs1 = max(rel_err(got[0], want[0])[0], rel_err(got[1], want[1])[0])
     total_nbrs = float(want[2].sum())
-    # d² 9 flops + 32 bisection steps x (compare, add) + bracket min 3 +
-    # mask 1 per (query, point); 22 flops per neighbour for the moments.
-    flops = b * n * n * (9 + 64 + 3 + 1) + 22 * total_nbrs
+    # The function's least work: per (query, point) d² 9 operations, one
+    # step of an exact selection and the radius test; 22 per neighbour for
+    # the 13 moments. (The bisection's own work, the earlier bound: d² 9,
+    # 32 steps x (compare, add), the bracket min 3 and the mask 1.) Unfused
+    # f32 operations run at most at half of PEAK_F32_FLOP_PER_S, which
+    # counts a fused multiply-add as two.
+    flops = b * n * n * (9 + 1 + 1) + 22 * total_nbrs
+    bisection_flops = b * n * n * (9 + 64 + 3 + 1) + 22 * total_nbrs
     bytes_ = b * n * 3 * 4 + b * n * 13 * 4
     report["normals_moments"] = dict(
         source="rift_tpu_torch/csrc/normals_moments.cu",
@@ -329,8 +395,11 @@ def check_kernels(clouds, report: dict) -> None:
         shapes=f"points [{b},{n},3] k={k}",
         max_abs_err=abs1, max_rel_err=e1, tol=TOL["normals_moments"],
         ms=cuda_time_ms(lambda: nk.neighborhood_moments(clouds, k, r2)),
+        dev_ms=dev_ms(lambda: nk.neighborhood_moments(clouds, k, r2)),
         plain_ms=cuda_time_ms(lambda: nk.neighborhood_moments_plain(clouds, k, r2)),
-        flops=flops, bytes=bytes_, library_ms=None)
+        flops=flops, bytes=bytes_, library_ms=None, library_dev_ms=None,
+        bisection_bound_ms=bisection_flops / PEAK_F32_FLOP_PER_S * 1e3,
+        neighbours_per_query=total_nbrs / (b * n))
 
     # K2 at c = 67 and c = 64 over the clouds' spherical voxel indices.
     norm = normalize_coords_sphere(clouds)
@@ -340,7 +409,8 @@ def check_kernels(clouds, report: dict) -> None:
     trash = torch.where(valid, inds, torch.full_like(inds, s))
     flat = (trash + torch.arange(b, device=dev)[:, None] * (s + 1)).reshape(-1)
     k2 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-              b2b_ms=0.0, library_b2b_ms=0.0, bytes=0, flops=0, bit_equal=True)
+              b2b_ms=0.0, library_b2b_ms=0.0, dev_ms=0.0, library_dev_ms=0.0, bytes=0,
+              flops=0, bit_equal=True)
     for c in (67, 64):
         feat = torch.randn((b, n, c), generator=gen, device=dev)
         out, cnt = oh.scatter_mean(feat, inds32, s)
@@ -356,6 +426,7 @@ def check_kernels(clouds, report: dict) -> None:
         k2["max_rel_err"] = max(k2["max_rel_err"], rel)
         k2["ms"] += cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["b2b_ms"] += b2b_ms(lambda: oh.scatter_mean(feat, inds32, s))
+        k2["dev_ms"] += dev_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["plain_ms"] += cuda_time_ms(lambda: oh.scatter_mean_plain(feat, inds, s))
         rows = feat.reshape(b * n, c)
 
@@ -368,11 +439,12 @@ def check_kernels(clouds, report: dict) -> None:
             fail("K2 library yardstick disagrees with the plain version")
         k2["library_ms"] += cuda_time_ms(library)
         k2["library_b2b_ms"] += b2b_ms(library)
+        k2["library_dev_ms"] += dev_ms(library)
         k2["bytes"] += b * n * c * 4 + b * n * 4 + b * s * c * 4 + b * s * 4
         k2["flops"] += int(valid.sum()) * c + b * s * c
     # The bf16 model's inputs (c = 71 and 64), and indices s and s + 1 in
     # cloud 0, which must drop out as -1 does.
-    k2["bf16"] = dict(max_rel_err=0.0, ms=0.0, b2b_ms=0.0, plain_ms=0.0)
+    k2["bf16"] = dict(max_rel_err=0.0, ms=0.0, b2b_ms=0.0, dev_ms=0.0, plain_ms=0.0)
     for c in (71, 64):
         feat = torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
         out, cnt = oh.scatter_mean(feat, inds32, s)
@@ -387,6 +459,7 @@ def check_kernels(clouds, report: dict) -> None:
         k2["bf16"]["max_rel_err"] = max(k2["bf16"]["max_rel_err"], rel_err(out, want_out)[1])
         k2["bf16"]["ms"] += cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["bf16"]["b2b_ms"] += b2b_ms(lambda: oh.scatter_mean(feat, inds32, s))
+        k2["bf16"]["dev_ms"] += dev_ms(lambda: oh.scatter_mean(feat, inds32, s))
         k2["bf16"]["plain_ms"] += cuda_time_ms(lambda: oh.scatter_mean_plain(feat, inds, s))
     k2["max_rel_err"] = max(k2["max_rel_err"], k2["bf16"]["max_rel_err"])
     far = inds32.clone()
@@ -405,26 +478,33 @@ def check_kernels(clouds, report: dict) -> None:
                f"[{b},{n},71] and [{b},{n},64] in 'bf16')",
         tol=TOL["scatter_mean"], **k2)
 
-    # K3 at c = 64 and c = 128 with the clouds' corner indices and weights.
+    # K3 at c = 64 and c = 128 with the clouds' corner indices (int64, as
+    # spherical_corner_weights gives them and the path passes them) and
+    # weights; the same call on int32 indices must give the same bits.
     idx, w = spherical_corner_weights(norm, inds, r)
     idx32 = idx.to(torch.int32)
     touched = int(torch.unique((idx + torch.arange(b, device=dev)[:, None, None] * s)
                                [idx >= 0]).numel())
-    k3 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-              bytes=0, flops=0)
+    k3 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, dev_ms=0.0, plain_ms=0.0,
+              library_ms=0.0, library_dev_ms=0.0, int32_dev_ms=0.0, bytes=0, flops=0)
     bag_idx = (torch.clamp(idx, min=0) + torch.arange(b, device=dev)[:, None, None] * s
                ).reshape(-1)
     bag_w = torch.where(idx >= 0, w, torch.zeros_like(w)).reshape(-1)
     offsets = torch.arange(0, b * n * 8, 8, device=dev)
     for c in (64, 128):
         grid = torch.randn((b, s, c), generator=gen, device=dev)
-        out = oh.corner_gather(grid, idx32, w)
+        out = oh.corner_gather(grid, idx, w)
+        out32 = oh.corner_gather(grid, idx32, w)
         want_out = oh.corner_gather_plain(grid, idx, w)
         torch.cuda.synchronize()
+        if not torch.equal(out, out32):
+            fail(f"K3 at c={c}: int64 and int32 indices give different bits")
         a, rel = rel_err(out, want_out)
         k3["max_abs_err"] = max(k3["max_abs_err"], a)
         k3["max_rel_err"] = max(k3["max_rel_err"], rel)
-        k3["ms"] += cuda_time_ms(lambda: oh.corner_gather(grid, idx32, w))
+        k3["ms"] += cuda_time_ms(lambda: oh.corner_gather(grid, idx, w))
+        k3["dev_ms"] += dev_ms(lambda: oh.corner_gather(grid, idx, w))
+        k3["int32_dev_ms"] += dev_ms(lambda: oh.corner_gather(grid, idx32, w))
         k3["plain_ms"] += cuda_time_ms(lambda: oh.corner_gather_plain(grid, idx, w))
         table = grid.reshape(b * s, c)
 
@@ -435,37 +515,46 @@ def check_kernels(clouds, report: dict) -> None:
         if rel_err(library().reshape(b, n, c), want_out)[1] > 1e-5:
             fail("K3 library yardstick disagrees with the plain version")
         k3["library_ms"] += cuda_time_ms(library)
+        k3["library_dev_ms"] += dev_ms(library)
         # Grid rows this run's corners touch, once each; indices, weights
         # and the output once.
         k3["bytes"] += touched * c * 4 + b * n * 8 * 8 + b * n * c * 4
         k3["flops"] += int((idx >= 0).sum()) * c * 2
-    k3["bf16"] = dict(max_rel_err=0.0, ms=0.0, plain_ms=0.0)
+    k3["bf16"] = dict(max_rel_err=0.0, ms=0.0, dev_ms=0.0, plain_ms=0.0)
     for c in (64, 128):
         grid = torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
-        out = oh.corner_gather(grid, idx32, w)
+        out = oh.corner_gather(grid, idx, w)
+        out32 = oh.corner_gather(grid, idx32, w)
         want_out = oh.corner_gather_plain(grid, idx, w)
         torch.cuda.synchronize()
-        if out.dtype != torch.float32:
-            fail(f"K3 on a bf16 grid wrote {out.dtype}")
+        if out.dtype != torch.float32 or not torch.equal(out, out32):
+            fail(f"K3 on a bf16 grid wrote {out.dtype}; int64 and int32 indices equal "
+                 f"{torch.equal(out, out32)}")
         k3["bf16"]["max_rel_err"] = max(k3["bf16"]["max_rel_err"], rel_err(out, want_out)[1])
-        k3["bf16"]["ms"] += cuda_time_ms(lambda: oh.corner_gather(grid, idx32, w))
+        k3["bf16"]["ms"] += cuda_time_ms(lambda: oh.corner_gather(grid, idx, w))
+        k3["bf16"]["dev_ms"] += dev_ms(lambda: oh.corner_gather(grid, idx, w))
         k3["bf16"]["plain_ms"] += cuda_time_ms(lambda: oh.corner_gather_plain(grid, idx, w))
     k3["max_rel_err"] = max(k3["max_rel_err"], k3["bf16"]["max_rel_err"])
-    far = idx32.clone()
+    # Indices s, s + 1 and -1 drop out: two corners of point 0, all of
+    # point 1 (s + 1) and of point 2 (-1), one of point 3.
+    far = idx.clone()
     far[0, 0, :2] = torch.tensor([s, s + 1], device=dev)
     far[0, 1, :] = s + 1
+    far[0, 2, :] = -1
+    far[0, 3, 3] = -1
     out = oh.corner_gather(grid, far, w)
     want_out = oh.corner_gather_plain(grid, far, w)
     torch.cuda.synchronize()
     k3["far_rel_err"] = rel_err(out, want_out)[1]
-    if k3["far_rel_err"] > TOL["corner_gather"] or bool(out[0, 1].any()):
-        fail(f"K3 on indices s, s + 1: rel err {k3['far_rel_err']:.3e}, "
-             f"all-out-of-range row zero {not bool(out[0, 1].any())}")
+    if k3["far_rel_err"] > TOL["corner_gather"] or bool(out[0, 1:3].any()):
+        fail(f"K3 on indices s, s + 1, -1: rel err {k3['far_rel_err']:.3e}, "
+             f"dropped rows zero {not bool(out[0, 1:3].any())}")
+    k3["other"] = check_corner_gather_other(idx, w, s, gen)
     report["corner_gather"] = dict(
         source="rift_tpu_torch/csrc/voxel_ops.cu",
         replaces="rift_tpu/ops/pallas/onehot_ops.py:101",
-        shapes=f"grid [{b},{s},64] and [{b},{s},128], corners [{b},{n},8] (f32; the same "
-               f"shapes bf16 in 'bf16')",
+        shapes=f"grid [{b},{s},64] and [{b},{s},128], corners [{b},{n},8] int64 (f32; the "
+               f"same shapes bf16 in 'bf16')",
         tol=TOL["corner_gather"], **k3)
 
     # K4 at the training batch (the first TRAIN_BATCH clouds), c = 64 and
@@ -479,7 +568,8 @@ def check_kernels(clouds, report: dict) -> None:
                            torch.zeros_like(idx4))).reshape(-1)
     w4_masked = torch.where(valid4, w4, torch.zeros_like(w4))
     k4 = dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-              b2b_ms=0.0, library_b2b_ms=0.0, bytes=0, flops=0, adjoint_rel_err=0.0,
+              b2b_ms=0.0, library_b2b_ms=0.0, dev_ms=0.0, library_dev_ms=0.0, bytes=0, flops=0,
+              adjoint_rel_err=0.0,
               bit_equal=True, skipped_rows=int((~valid4).all(-1).sum()))
     for c in (64, 128):
         dout = torch.randn((bt, n, c), generator=gen, device=dev)
@@ -498,6 +588,7 @@ def check_kernels(clouds, report: dict) -> None:
         k4["adjoint_rel_err"] = max(k4["adjoint_rel_err"], abs(lhs - rhs) / abs(rhs))
         k4["ms"] += cuda_time_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
         k4["b2b_ms"] += b2b_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
+        k4["dev_ms"] += dev_ms(lambda: oh.corner_scatter(dout, idx4_32, w4, s))
         k4["plain_ms"] += cuda_time_ms(lambda: oh.corner_scatter_plain(dout, idx4, w4, s))
 
         def library():  # w·dout rows, then index_add_ into a flat grid with a trash row
@@ -508,6 +599,7 @@ def check_kernels(clouds, report: dict) -> None:
             fail("K4 library yardstick disagrees with the plain version")
         k4["library_ms"] += cuda_time_ms(library)
         k4["library_b2b_ms"] += b2b_ms(library)
+        k4["library_dev_ms"] += dev_ms(library)
         # dout, corner indices and weights read once; the dense dgrid written once.
         k4["bytes"] += bt * n * c * 4 + bt * n * 8 * 8 + bt * s * c * 4
         k4["flops"] += int(valid4.sum()) * c * 2
@@ -562,11 +654,55 @@ def check_kernels(clouds, report: dict) -> None:
             extra += (f"; max {rep['max_steps']:.3f} bf16 steps (tol {rep['tol']:g}), "
                       f"bit-equal share {rep['equal_share']:.6f}, library max "
                       f"{rep['library_steps']:.3f} steps")
+        if "bisection_bound_ms" in rep:
+            extra += (f"; bisection's work {rep['bisection_bound_ms']:.4f} ms; "
+                      f"{rep['neighbours_per_query']:.2f} neighbours a query")
+        if "int32_dev_ms" in rep:
+            extra += f"; int32 indices {rep['int32_dev_ms']:.4f} ms device only"
+        if "bf16" in rep and "dev_ms" in rep["bf16"]:
+            extra += f"; bf16 device only {rep['bf16']['dev_ms']:.4f} ms"
         tol = "" if "max_steps" in rep else f" (tol {rep['tol']:g})"
         print(f"  {name}: {rep['shapes']}: max abs err {rep['max_abs_err']:.3e}, "
-              f"rel {rep['max_rel_err']:.3e}{tol}; kernel {rep['ms']:.4f} ms, plain "
-              f"{rep['plain_ms']:.4f} ms, library {rep['library_ms']} ms, bound "
-              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}){extra}", flush=True)
+              f"rel {rep['max_rel_err']:.3e}{tol}; kernel {rep['ms']:.4f} ms per call, "
+              f"{rep['dev_ms']:.4f} device only, plain {rep['plain_ms']:.4f} ms, library "
+              f"{rep['library_ms']} ms ({rep['library_dev_ms']} device only), bound "
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}), share of bound "
+              f"{rep['bound_ms'] / rep['dev_ms']:.3f} device only{extra}", flush=True)
+
+
+def check_corner_gather_other(idx, w, s: int, gen) -> list:
+    """K3 at the K3_OTHER shapes (the tail path, vectors of 10 or 5 a row,
+    misaligned pointers) on the main path's corners: within TOL of the
+    plain version and bit-equal on int64 and int32 indices."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+
+    b = idx.shape[0]
+    rows = []
+    for case, c, kind in K3_OTHER:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        grid = torch.randn((b, s, c), generator=gen, device=idx.device).to(dtype)
+        i64 = idx
+        if case == "misaligned grid":  # 4 bytes past a 16-byte boundary
+            grid = torch.cat([grid.new_zeros(1), grid.reshape(-1)])[1:].view(b, s, c)
+        if case == "misaligned indices":  # 8 bytes past a 16-byte boundary
+            i64 = torch.cat([idx.new_zeros(1), idx.reshape(-1)])[1:].view(idx.shape)
+        out = oh.corner_gather(grid, i64, w)
+        out32 = oh.corner_gather(grid, i64.to(torch.int32), w)
+        want = oh.corner_gather_plain(grid, i64, w)
+        torch.cuda.synchronize()
+        row = dict(case=case, c=c, grid=kind, max_rel_err=rel_err(out, want)[1],
+                   int64_equals_int32=torch.equal(out, out32),
+                   grid_offset=grid.data_ptr() % 16, index_offset=i64.data_ptr() % 16)
+        print(f"    corner_gather {case} ({kind}, c={c}; pointer offsets {row['grid_offset']}, "
+              f"{row['index_offset']} bytes): rel err {row['max_rel_err']:.3e} (tol "
+              f"{TOL['corner_gather']:g}), int64 and int32 indices bit-equal "
+              f"{row['int64_equals_int32']}", flush=True)
+        if row["max_rel_err"] > TOL["corner_gather"] or not row["int64_equals_int32"]:
+            fail(f"K3 {case}: {row}")
+        rows.append(row)
+    return rows
 
 
 def check_large_clouds(report: dict) -> None:
@@ -602,7 +738,8 @@ def check_large_clouds(report: dict) -> None:
         del want
         report["normals_moments"]["large"].append(dict(
             b=b, n=n, max_rel_err=e1,
-            ms=cuda_time_ms(lambda: nk.neighborhood_moments(pts, k, r2), reps=5)))
+            ms=cuda_time_ms(lambda: nk.neighborhood_moments(pts, k, r2), reps=5),
+            dev_ms=dev_ms(lambda: nk.neighborhood_moments(pts, k, r2))))
 
         norm = normalize_coords_sphere(pts)
         inds, _ = spherical_voxel_indices(norm, r)
@@ -618,7 +755,8 @@ def check_large_clouds(report: dict) -> None:
             fail(f"K2 at b={b}, n={n}: counts differ")
         report["scatter_mean"]["large"].append(dict(
             b=b, n=n, max_rel_err=rel_err(out, want_out)[1],
-            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s), reps=5)))
+            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds32, s), reps=5),
+            dev_ms=dev_ms(lambda: oh.scatter_mean(feat, inds32, s))))
 
         idx = idx.clone()
         idx[0, 0, :2] = torch.tensor([s, s + 1], device=dev)
@@ -632,17 +770,84 @@ def check_large_clouds(report: dict) -> None:
         torch.cuda.synchronize()
         report["corner_scatter"]["large"].append(dict(
             b=b, n=n, max_rel_err=rel_err(got4, want4)[1], adjoint_rel_err=abs(lhs - rhs) / abs(rhs),
-            ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx32, w, s), reps=5)))
+            ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx32, w, s), reps=5),
+            dev_ms=dev_ms(lambda: oh.corner_scatter(dout, idx32, w, s))))
         for name in ("normals_moments", "scatter_mean", "corner_scatter"):
             row = report[name]["large"][-1]
             print(f"    {name} at b={b}, n={n}: rel err {row['max_rel_err']:.3e} (tol "
-                  f"{TOL[name]:g}), kernel {row['ms']:.4f} ms"
+                  f"{TOL[name]:g}), kernel {row['ms']:.4f} ms ({row['dev_ms']:.4f} device only)"
                   + (f", adjoint {row['adjoint_rel_err']:.3e}" if name == "corner_scatter"
                      else ", counts equal"), flush=True)
             if row["max_rel_err"] > TOL[name] or row.get("adjoint_rel_err", 0.0) > ADJOINT_TOL:
                 fail(f"{name} at b={b}, n={n}: {row}")
+    check_k1_hard(report)
     check_degenerate(report)
     check_other_r(report)
+
+
+def hard_cloud(case: str, b: int, n: int, seed: int):
+    """A K1_HARD cloud [b, n, 3] f32 on the card, from numpy's seeded
+    generator: uniform in [-1, 1]³, then "duplicates": points 1-20 copies of
+    point 0, points 40-59 within 1e-4 of point 40 (the CPU tests' cloud);
+    "shell": query 0 at the origin (so d² near it rounds on a fine grid)
+    and 600 points around it at distance 0.01·(1 + 1e-6·u), u uniform in
+    [-1, 1], in random directions: their d² lie within a few hundred ulps
+    of 1e-4, inside one bisection bracket, with ties."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-1.0, 1.0, (b, n, 3)).astype(np.float32)
+    if case == "duplicates":
+        pts[:, 1:21] = pts[:, :1]
+        pts[:, 40:60] = pts[:, 40:41] + 1e-4 * rng.randn(b, 20, 3).astype(np.float32)
+    elif case == "shell":
+        u = rng.randn(b, 600, 3)
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        rho = 0.01 * (1.0 + 1e-6 * rng.uniform(-1.0, 1.0, (b, 600, 1)))
+        pts[:, 0] = 0.0
+        pts[:, 1:601] = (rho * u).astype(np.float32)
+    return torch.as_tensor(pts, device="cuda")
+
+
+def check_k1_hard(report: dict) -> None:
+    """K1 on the K1_HARD clouds: neighbour counts equal to the plain
+    version's, moments within TOL. Prints, for each, the queries whose
+    exact k-th smallest d² differs from the bisection's bracket min (where
+    the replay, not the selection alone, gives the answer). Adds a "hard"
+    list to K1's report."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import normals_kernel as nk
+
+    report["normals_moments"]["hard"] = []
+    for seed, (case, b, n, k, r2) in enumerate(K1_HARD):
+        pts = hard_cloud(case, b, n, seed)
+        got = nk.neighborhood_moments(pts, k, r2)
+        want = nk.neighborhood_moments_plain(pts, k, r2, query_chunk=LARGE_QUERY_CHUNK)
+        d2 = nk.point_sqdist(pts[:, :LARGE_QUERY_CHUNK], pts)
+        bisection = nk._hybrid_radius_sq(d2, k, r2)
+        exact = torch.kthvalue(d2, min(k, n), dim=-1).values if k <= n else None
+        torch.cuda.synchronize()
+        replayed = (0 if exact is None else
+                    int((torch.clamp(exact * torch.tensor(1.0 + 1e-6, device=pts.device),
+                                     min=r2) != bisection).sum()))
+        row = dict(case=case, b=b, n=n, k=k, radius_sq=r2,
+                   counts_equal=torch.equal(got[2], want[2]),
+                   max_rel_err=max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1]),
+                   queries_where_exact_kth_differs=replayed,
+                   mean_neighbours=float(want[2].mean()))
+        print(f"    normals_moments on {case} (b={b}, n={n}, k={k}, r²={r2:g}): counts equal "
+              f"{row['counts_equal']}, rel err {row['max_rel_err']:.3e} (tol "
+              f"{TOL['normals_moments']:g}), {row['mean_neighbours']:.2f} neighbours a query; "
+              f"r² from the exact k-th smallest differs from the bisection's at {replayed} of "
+              f"the first {min(n, LARGE_QUERY_CHUNK) * b} queries", flush=True)
+        if not row["counts_equal"]:
+            fail(f"K1 on {case} (b={b}, n={n}, k={k}): neighbour counts differ at "
+                 f"{int((got[2] != want[2]).sum())} queries")
+        if row["max_rel_err"] > TOL["normals_moments"]:
+            fail(f"K1 on {case}: {row}")
+        report["normals_moments"]["hard"].append(row)
 
 
 def check_degenerate(report: dict) -> None:
@@ -772,7 +977,8 @@ def check_conv3d(report: dict) -> None:
                shapes=f"x [{b},{r},{r},{r},cin] bf16, (cin, cout) in {list(K5_SHAPES)}",
                tol=TOL["conv3d_same"], peak_flops=PEAK_BF16_FLOP_PER_S,
                max_abs_err=0.0, max_rel_err=0.0, max_steps=0.0, equal_share=1.0,
-               library_steps=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0,
+               library_steps=0.0, ms=0.0, dev_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               library_dev_ms=0.0, flops=0, bytes=0,
                per_shape=[], other_shapes=[])
 
     def held(bx, rx, cin, cout):
@@ -808,21 +1014,23 @@ def check_conv3d(report: dict) -> None:
         shape = dict(cin=cin, cout=cout, max_steps=steps, equal_share=equal, max_abs_err=a,
                      max_rel_err=rel,
                      ms=cuda_time_ms(lambda: k5.conv3d_same(x, w)),
+                     dev_ms=dev_ms(lambda: k5.conv3d_same(x, w)),
                      plain_ms=cuda_time_ms(lambda: k5.conv3d_same_plain(x, w)),
-                     library_ms=cuda_time_ms(library),
+                     library_ms=cuda_time_ms(library), library_dev_ms=dev_ms(library),
                      flops=2 * 27 * r ** 3 * cin * cout * b,
                      bytes=b * r ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2)
         shape["bound_ms"] = max(shape["flops"] / PEAK_BF16_FLOP_PER_S,
                                 shape["bytes"] / PEAK_BYTES_PER_S) * 1e3
         shape["bound_share"] = shape["bound_ms"] / shape["ms"]
         print(f"    K5 {cin}->{cout}: max {steps:.3f} bf16 steps, bit-equal {equal:.6f}, max abs "
-              f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms, bound "
+              f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms ({shape['dev_ms']:.4f} "
+              f"device only, cuDNN {shape['library_dev_ms']:.4f}), bound "
               f"{shape['bound_ms']:.4f} ms, share of bound {shape['bound_share']:.3f}, cuDNN "
               f"bf16 {shape['library_ms']:.4f} ms ({lib_steps:.3f} steps), plain "
               f"{shape['plain_ms']:.4f} ms", flush=True)
         rep["per_shape"].append(shape)
         rep["library_steps"] = max(rep["library_steps"], lib_steps)
-        for key in ("ms", "plain_ms", "library_ms", "flops", "bytes"):
+        for key in ("ms", "dev_ms", "plain_ms", "library_ms", "library_dev_ms", "flops", "bytes"):
             rep[key] += shape[key]
         for key, worst in (("max_steps", max), ("equal_share", min), ("max_abs_err", max),
                            ("max_rel_err", max)):
@@ -1302,10 +1510,12 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "shapes": rep["shapes"],
+            "dev_ms": rep["dev_ms"], "library_dev_ms": rep["library_dev_ms"],
             **{k: rep[k] for k in ("b2b_ms", "library_b2b_ms", "bit_equal", "adjoint_rel_err",
                                    "far_rel_err", "bf16", "max_steps", "equal_share",
                                    "library_steps", "per_shape", "other_shapes", "large",
-                                   "degenerate", "other_r")
+                                   "degenerate", "other_r", "bisection_bound_ms",
+                                   "neighbours_per_query", "int32_dev_ms", "other", "hard")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

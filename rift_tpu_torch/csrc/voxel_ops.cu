@@ -80,9 +80,25 @@
 // 1 store; the grid rows a cloud touches are few (≤ 8·n rows) and stay in
 // L2, so the least traffic is the b·n·c output plus the b·n·8 corner
 // indices and weights (the grid is counted once as an input).
-// Design: one thread per (point, channel), channel fastest, so the 8 loads
-// of a warp read contiguous grid rows. Corners are summed in k order with
-// unfused multiply and add, as the plain PyTorch version does.
+// Design (`corner_gather_kernel`, one launch a call): a block covers a run
+// of points of one cloud (blockIdx.y, so no division finds the cloud) and
+// its threads cover each point's row in 16-byte vectors, 4 f32 or 8 bf16
+// channels a thread, with 32-bit offsets inside the cloud. The block reads
+// its points' 8 indices and 8 weights once, as 16-byte loads, checks the
+// indices against [0, s) and keeps them in shared memory for the point's
+// threads; int32 and int64 indices are template cases, so the path's int64
+// corner indices need no conversion op. A thread issues its point's 8 row
+// loads (16 bytes each, kept as raw words) before it sums any, adds them
+// in k order with unfused multiply and add, as the plain PyTorch version
+// does (the same bits), and stores 16 bytes. A c that is no multiple of
+// the vector, or a grid or output off 16-byte alignment, takes the scalar
+// tail (one channel a thread); indices or weights off alignment are
+// staged by scalar loads. No tensor cores: the Pallas kernel contracts a
+// one-hot matrix on the MXU, here 8 nonzeros in s columns.
+// Measured (PERF.md §6, chip_smoke.py and scatter_ab.py, NVIDIA H100 80GB
+// HBM3, 700 W): the two f32 calls of a registration batch 0.044 ms on the
+// device alone against a 0.0236 ms bound (the earlier one-thread-per-element
+// kernel: 0.071 with the int32 copy of the indices), bf16 0.025.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -518,25 +534,151 @@ int launch_voxel_sum(const T* src, const int* ind, const float* w, int b, int m,
   return (int)cudaGetLastError();
 }
 
+// K3: a block covers `blockDim.y` consecutive points of one cloud
+// (blockIdx.y) and its threads, along x, the point's row of channels in
+// V-wide vectors (V = 4 f32 or 8 bf16: 16 bytes a load; V = 1 for the
+// scalar tail). The block's 8 corner indices and weights a point are read
+// once, as 16-byte loads where aligned, checked against [0, s) (int32 or
+// int64, by I) and kept in shared memory for the point's threads.
+constexpr int kGatherThreads = 128;      // threads a K3 block has at most (256 and 512: slower)
+constexpr int kGatherPoints = kGatherThreads;  // points a K3 block covers at most
+
+template <typename I>
+__device__ __forceinline__ int corner_or_skip(I v, int s) {
+  return v >= 0 && v < (I)s ? (int)v : -1;
+}
+
+// Element i of 16 bytes of a grid row, as a float: 4 f32, or 8 bf16 widened
+// exactly. The rows stay raw words in registers until their add.
+__device__ __forceinline__ unsigned word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
 template <typename T>
-__global__ void corner_gather_kernel(const T* __restrict__ grid, const int* __restrict__ idx,
-                                     const float* __restrict__ w, float* __restrict__ out,
-                                     int n, int s, int c, long long total) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int ch = (int)(e % c);
-  const long long bp = e / c;          // b * n + p
-  const int b = (int)(bp / n);
-  const int* ix = idx + bp * 8;
-  const float* wt = w + bp * 8;
-  const T* g = grid + (size_t)b * s * c + ch;
-  float acc = 0.0f;
+__device__ __forceinline__ float element(const uint4& u, int i) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(word(u, i));
+  const unsigned w = word(u, i >> 1);
+  return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+template <typename T, typename I, int V>
+__global__ void __launch_bounds__(kGatherThreads)
+corner_gather_kernel(const T* __restrict__ grid, const I* __restrict__ idx,
+                     const float* __restrict__ w, float* __restrict__ out, int n, int s, int c,
+                     bool vec_stage) {
+  __shared__ int sv[kGatherPoints * 8];
+  __shared__ float sw[kGatherPoints * 8];
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * blockDim.y;
+  const int np = min((int)blockDim.y, n - p0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  // The block's [np, 8] indices and weights: one contiguous span of each.
+  const size_t base = ((size_t)b * n + p0) * 8;
+  const int count = np * 8;
+  if (vec_stage) {
+    constexpr int kI = 16 / sizeof(I);   // indices a 16-byte load holds
+    const I* ix = idx + base;
+    for (int e = tid; e < count / kI; e += nthreads) {
+      if constexpr (kI == 4) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(ix) + e);
+        sv[4 * e] = corner_or_skip(v.x, s);
+        sv[4 * e + 1] = corner_or_skip(v.y, s);
+        sv[4 * e + 2] = corner_or_skip(v.z, s);
+        sv[4 * e + 3] = corner_or_skip(v.w, s);
+      } else {
+        const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(ix) + e);
+        sv[2 * e] = corner_or_skip(v.x, s);
+        sv[2 * e + 1] = corner_or_skip(v.y, s);
+      }
+    }
+    for (int e = tid; e < count / 4; e += nthreads) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(w + base) + e);
+      sw[4 * e] = v.x; sw[4 * e + 1] = v.y; sw[4 * e + 2] = v.z; sw[4 * e + 3] = v.w;
+    }
+  } else {
+    for (int e = tid; e < count; e += nthreads) {
+      sv[e] = corner_or_skip(__ldg(idx + base + e), s);
+      sw[e] = __ldg(w + base + e);
+    }
+  }
+  __syncthreads();
+  const int pl = threadIdx.y;
+  if (pl >= np) return;
+  int v[8];
+  float wt[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const int v = ix[k];
-    if (v >= 0 && v < s) acc = __fadd_rn(acc, __fmul_rn(wt[k], to_f32(g[(size_t)v * c])));
+    v[k] = sv[pl * 8 + k];
+    wt[k] = sw[pl * 8 + k];
   }
-  out[e] = acc;
+  const T* g = grid + (size_t)b * s * c;   // s·c < 2^31: 32-bit offsets inside the cloud
+  float* o = out + ((size_t)b * n + p0 + pl) * c;
+  if constexpr (V == 1) {
+    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = v[k] >= 0 ? to_f32(g[v[k] * c + ch]) : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (v[k] >= 0) acc = __fadd_rn(acc, __fmul_rn(wt[k], x[k]));
+      o[ch] = acc;
+    }
+  } else {
+    for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
+      uint4 x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)   // the 8 row loads in flight together
+        x[k] = v[k] >= 0 ? __ldg(reinterpret_cast<const uint4*>(g + v[k] * c + ch))
+                         : make_uint4(0u, 0u, 0u, 0u);
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (v[k] >= 0) {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(wt[k], element<T>(x[k], i)));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; i += 4)
+        *reinterpret_cast<float4*>(o + ch + i) = make_float4(acc[i], acc[i + 1], acc[i + 2],
+                                                             acc[i + 3]);
+    }
+  }
+}
+
+template <typename T, typename I>
+int launch_corner_gather(const T* grid, const I* idx, const float* w, int b, int n, int c, int s,
+                         float* out, cudaStream_t st) {
+  if (b <= 0 || n <= 0 || c <= 0) return 0;
+  if (b > 65535 || (long long)s * c >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  constexpr int V = sizeof(T) == 4 ? 4 : 8;   // 16 bytes of grid row a load
+  const bool vec = c % V == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec_stage = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int lanes = vec ? c / V : c;           // threads a row wants
+  const int x = lanes < 64 ? lanes : 64;       // at least 2 points a block
+  const int y = kGatherThreads / x;            // points a block covers
+  const dim3 block(x, y), blocks((n + y - 1) / y, b);
+  if (vec)
+    corner_gather_kernel<T, I, V><<<blocks, block, 0, st>>>(grid, idx, w, out, n, s, c,
+                                                            vec_stage);
+  else
+    corner_gather_kernel<T, I, 1><<<blocks, block, 0, st>>>(grid, idx, w, out, n, s, c,
+                                                            vec_stage);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int corner_gather_by_index(const T* grid, const void* idx, int idx_type, const float* w, int b,
+                           int n, int c, int s, float* out, cudaStream_t st) {
+  if (idx_type == 1)
+    return launch_corner_gather(grid, (const long long*)idx, w, b, n, c, s, out, st);
+  return launch_corner_gather(grid, (const int*)idx, w, b, n, c, s, out, st);
 }
 
 }  // namespace
@@ -555,23 +697,18 @@ extern "C" int rift_scatter_mean(const void* features, int dtype, const int* ind
                                        out, cnt, st);
 }
 
-// grid [b, s, c], f32 (dtype 0) or bf16 (dtype 1); idx [b, n, 8] int32
-// (outside [0, s) = skipped), w [b, n, 8] f32 -> out [b, n, c] f32.
-// Returns cudaGetLastError() after the launch.
-extern "C" int rift_corner_gather(const void* grid, int dtype, const int* idx, const float* w,
-                                  int b, int n, int c, int s, float* out, void* stream) {
-  const long long total = (long long)b * n * c;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+// grid [b, s, c], f32 (dtype 0) or bf16 (dtype 1); idx [b, n, 8], int32
+// (idx_type 0) or int64 (idx_type 1), outside [0, s) = skipped; w [b, n, 8]
+// f32 -> out [b, n, c] f32. b <= 65535, s·c below 2^31. One launch;
+// returns cudaGetLastError() after it.
+extern "C" int rift_corner_gather(const void* grid, int dtype, const void* idx, int idx_type,
+                                  const float* w, int b, int n, int c, int s, float* out,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    corner_gather_kernel<<<blocks, threads, 0, st>>>((const __nv_bfloat16*)grid, idx, w, out, n,
-                                                     s, c, total);
-  else
-    corner_gather_kernel<<<blocks, threads, 0, st>>>((const float*)grid, idx, w, out, n, s, c,
-                                                     total);
-  return (int)cudaGetLastError();
+    return corner_gather_by_index((const __nv_bfloat16*)grid, idx, idx_type, w, b, n, c, s, out,
+                                  st);
+  return corner_gather_by_index((const float*)grid, idx, idx_type, w, b, n, c, s, out, st);
 }
 
 // dout [b, n, c] f32, idx [b, n, 8] int32 (outside [0, s) = skipped),

@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "rift_normals_moments": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
     "rift_scatter_mean": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "rift_corner_gather": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "rift_corner_gather": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     "rift_corner_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "rift_conv3d_same": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -1,15 +1,25 @@
 """K1: hybrid-radius neighbourhood moments (CUDA kernel and plain version).
 
-Twin of `rift_tpu/ops/pallas/normals_kernel.py:neighborhood_moments_pallas`.
-For each query i: d²(i, j) = (|q|² + |p|²) − 2·q·p clamped at 0; the exact
-k-th smallest d² by 32 bisection steps by counting and the min inside the
-bracket (empty bracket -> 0); r² = max(radius², kth·(1 + 1e-6)) (k = 0:
-fixed radius); then Σp, Σp⊗p and the count over the j with d² < r².
+Twin of `rift_tpu/ops/pallas/normals_kernel.py:neighborhood_moments_pallas`
+(its `_moments_kernel`). For each query i: d²(i, j) = (|q|² + |p|²) − 2·q·p
+clamped at 0; `lo`, `hi` from 32 bisection steps by counting from
+[0, max d²] and kth = the min of the d² inside (lo, hi] (empty -> 0);
+r² = max(radius², kth·(1 + 1e-6)) (k = 0: fixed radius); then Σp, Σp⊗p
+and the count over the j with d² < r².
 
-The kernel is `csrc/normals_moments.cu` (any n: clouds of up to 1024
-points keep their d² in registers, larger ones form them again on each
-pass). `neighborhood_moments` launches it for a CUDA tensor and takes `neighborhood_moments_plain` only for a CPU
-tensor.
+The kernel, `csrc/normals_moments.cu`, reaches the same r² without the
+bisection's 32 passes over d²: each step asks count(d² <= mid) >= k, which
+holds exactly when the exact k-th smallest d² is <= mid, so it selects that
+value once (a bitonic sort of the few d² under a threshold, or a radix
+select on their bits), replays the 32 steps on it and takes the bracket's
+min in one pass (`hybrid_radius_sq_by_select` is that algorithm in torch,
+for the tests). It sums the moments over a compacted neighbour list. Its
+bound is operations, about 11 a (query, point) and 22 a neighbour; no
+tensor cores, since only unfused f32 d² keeps the neighbour sets equal to
+the plain version's. One launch per call, any n (clouds of up to 1024
+points keep their d² in registers, larger ones form them again on each of
+about 3 passes). `neighborhood_moments` launches it for a CUDA tensor and
+takes `neighborhood_moments_plain` only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ def point_sqdist(q: Tensor, p: Tensor) -> Tensor:
 
 
 def _hybrid_radius_sq(d2: Tensor, k: int, radius_sq: float) -> Tensor:
-    """r² [..., m] from the exact k-th smallest d² by bracketed counting."""
+    """r² [..., m] from the bracket (lo, hi] left by 32 bisection steps by
+    counting: the min of the d² inside it (0 when empty)."""
     if k <= 0:
         return torch.full(d2.shape[:-1], radius_sq, dtype=d2.dtype, device=d2.device)
     lo = torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
@@ -45,11 +56,39 @@ def _hybrid_radius_sq(d2: Tensor, k: int, radius_sq: float) -> Tensor:
         pred = (d2 <= mid[..., None]).sum(-1) >= k
         lo = torch.where(pred, lo, mid)
         hi = torch.where(pred, mid, hi)
+    return _bracket_radius_sq(d2, lo, hi, radius_sq)
+
+
+def _bracket_radius_sq(d2: Tensor, lo: Tensor, hi: Tensor, radius_sq: float) -> Tensor:
+    """max(radius², m·(1 + 1e-6)), m the min of the d² in (lo, hi] (0 when
+    none is)."""
     inside = (d2 > lo[..., None]) & (d2 <= hi[..., None])
-    kth = torch.where(inside, d2, torch.full_like(d2, float("inf"))).amin(-1)
-    kth = torch.where(torch.isfinite(kth), kth, torch.zeros_like(kth))
+    low = torch.where(inside, d2, torch.full_like(d2, float("inf"))).amin(-1)
+    low = torch.where(torch.isfinite(low), low, torch.zeros_like(low))
     grow = torch.tensor(1.0 + 1e-6, dtype=d2.dtype, device=d2.device)
-    return torch.clamp(kth * grow, min=radius_sq)
+    return torch.clamp(low * grow, min=radius_sq)
+
+
+def hybrid_radius_sq_by_select(d2: Tensor, k: int, radius_sq: float) -> Tensor:
+    """`_hybrid_radius_sq` by K1's algorithm: the exact k-th smallest d²
+    (`torch.kthvalue`; +inf when k exceeds the points), the 32 bisection
+    steps replayed on that one value per query (count(d² <= mid) >= k is
+    kth <= mid), then the min in (lo, hi]. The same bits as the bisection by
+    counting; for the tests."""
+    if k <= 0:
+        return torch.full(d2.shape[:-1], radius_sq, dtype=d2.dtype, device=d2.device)
+    n = d2.shape[-1]
+    have = k <= n
+    kth = (torch.kthvalue(d2, k, dim=-1).values if have
+           else torch.full(d2.shape[:-1], float("inf"), dtype=d2.dtype, device=d2.device))
+    lo = torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
+    hi = d2.amax(-1)
+    for _ in range(_BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        pred = (kth <= mid) & have
+        lo = torch.where(pred, lo, mid)
+        hi = torch.where(pred, mid, hi)
+    return _bracket_radius_sq(d2, lo, hi, radius_sq)
 
 
 def neighborhood_moments_plain(points: Tensor, k: int, radius_sq: float,

@@ -5,8 +5,11 @@ Twins of `rift_tpu/ops/pallas/onehot_ops.py`: `scatter_mean_pallas` (K2,
 `_scatter_kernel`), `corner_gather_pallas` (K3, `_gather_kernel`) and its
 transpose `corner_scatter_pallas` (K4, `_scatter_w_kernel`). The TPU
 kernels build one-hot selectors for the MXU; on the card, in
-`csrc/voxel_ops.cu`, K3 is a direct 8-row gather (one launch), and K2 and
-K4 are one launch each of `voxel_sum_kernel`: a block owns
+`csrc/voxel_ops.cu`, K3 is a direct 8-row gather (one launch; a block
+covers a run of points of one cloud, its threads 16-byte vectors of each
+point's row, the 8 corner rows loaded together and summed in k order; it
+reads int32 or int64 indices as they are), and K2 and K4 are one launch
+each of `voxel_sum_kernel`: a block owns
 `voxel_tile(b, s, entries, c)` consecutive voxels of one cloud, keeps the
 cloud's entries that fall in them in ascending order (a block-wide scan
 of each thread's count), groups them by voxel with a stable counting
@@ -70,6 +73,9 @@ def _check_sizes(b: int, s: int, entries: int) -> None:
 # Input types of the K2 and K3 kernels, with the type code their C entry
 # points take (0: f32, 1: bf16); they sum and write f32 either way.
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Index types K3 reads as they are, with their type code: the path's int64
+# corner indices go to the kernel with no conversion.
+_INDEX_TYPES = {torch.int32: 0, torch.int64: 1}
 
 
 def scatter_mean_plain(features: Tensor, inds: Tensor, num_segments: int
@@ -153,8 +159,9 @@ def corner_gather_plain(grid: Tensor, corner_idx: Tensor, corner_w: Tensor
 def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
     """K3. out[b, p, c] = Σ_k w[b, p, k]·grid[b, idx[b, p, k], c], skipping
     idx outside [0, s); grid f32 or bf16, out f32 (a bf16 grid is read as
-    it is and summed in f32, as the Pallas kernel does). CPU tensor: the
-    plain version; CUDA tensor: the kernel."""
+    it is and summed in f32, as the Pallas kernel does); int32 and int64
+    indices are read as they are (other integer types are converted to
+    int32). CPU tensor: the plain version; CUDA tensor: the kernel."""
     if grid.device.type == "cpu":
         return corner_gather_plain(grid, corner_idx, corner_w)
     if grid.device.type != "cuda" or corner_idx.device != grid.device \
@@ -169,14 +176,18 @@ def corner_gather(grid: Tensor, corner_idx: Tensor, corner_w: Tensor) -> Tensor:
         raise ValueError(f"corner_idx/corner_w must be [{b}, n, 8], got "
                          f"{tuple(corner_idx.shape)} / {tuple(corner_w.shape)}")
     n = corner_idx.shape[1]
+    if b > 65535 or s * c >= 2 ** 31:
+        raise ValueError(f"K3 takes b <= 65535 and s·c below 2^31, got b = {b}, s·c = {s * c}")
     lib = build.load()
     g = grid.contiguous()
-    idx = corner_idx.to(torch.int32).contiguous()
+    idx = corner_idx if corner_idx.dtype in _INDEX_TYPES else corner_idx.to(torch.int32)
+    idx = idx.contiguous()
     w = corner_w.to(torch.float32).contiguous()
     out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
     stream = _stream(grid.device)
     build.check(lib.rift_corner_gather(g.data_ptr(), _KERNEL_DTYPES[g.dtype], idx.data_ptr(),
-                                       w.data_ptr(), b, n, c, s, out.data_ptr(), stream),
+                                       _INDEX_TYPES[idx.dtype], w.data_ptr(), b, n, c, s,
+                                       out.data_ptr(), stream),
                 "rift_corner_gather")
     corner_gather.launches += 1
     return out

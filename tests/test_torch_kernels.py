@@ -506,3 +506,106 @@ def test_scatter_wrappers_reject_batches_past_32_bit_indices():
         onehot_module._check_sizes(2 ** 15, 2 ** 16, 1024)
     with pytest.raises(ValueError, match="below 2"):
         onehot_module._check_sizes(2 ** 12, 8, 2 ** 19)
+
+
+def _built_d2(case, rng):
+    """(d² [m, n] f32 >= 0, k) built so the k-th smallest sits where the
+    bisection is hard: "ulps" — a run of 12 values each 1-3 ulps above the
+    last at 1e-3 (below it 5 small values, above it values up to 4), k
+    inside the run; "ties" — 9 copies of one value covering rank k; "zeros"
+    — every d² 0 (the empty-bracket rule); "k1" — random, k = 1; "k_eq_n"
+    and "k_gt_n" — random, k = n and k = n + 5."""
+    m, n = 24, 64
+    d2 = rng.uniform(0.0, 4.0, (m, n)).astype(np.float32)
+    if case == "ulps":
+        for i in range(m):
+            run = [np.float32(1e-3)]
+            for _ in range(11):
+                v = run[-1]
+                for _ in range(rng.randint(1, 4)):
+                    v = np.nextafter(v, np.float32(np.inf), dtype=np.float32)
+                run.append(v)
+            d2[i, :5] = rng.uniform(0.0, 1e-4, 5).astype(np.float32)
+            d2[i, 5:17] = run
+            d2[i] = d2[i, rng.permutation(n)]
+        return d2, 5 + 1 + 6
+    if case == "ties":
+        d2[:, :4] = rng.uniform(0.0, 1e-4, (m, 4)).astype(np.float32)
+        d2[:, 4:13] = np.float32(2e-3)
+        return d2, 8
+    if case == "zeros":
+        return np.zeros((m, n), np.float32), 16
+    return d2, {"k1": 1, "k_eq_n": n, "k_gt_n": n + 5}[case]
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 32, 33, 256])
+def test_select_and_replay_is_the_bisection_on_random_d2(rng, k):
+    """K1's algorithm (exact k-th smallest, the 32 steps replayed on it, the
+    bracket min) gives `_hybrid_radius_sq`'s bits on d² of random clouds."""
+    pts = torch.from_numpy(rng.uniform(-1.0, 1.0, (2, 256, 3)).astype(np.float32))
+    d2 = point_sqdist(pts, pts)
+    for r2 in (0.0, 0.01):
+        want = normals_module._hybrid_radius_sq(d2, k, r2)
+        got = normals_module.hybrid_radius_sq_by_select(d2, k, r2)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ulps", "ties", "zeros", "k1", "k_eq_n", "k_gt_n"])
+def test_select_and_replay_is_the_bisection_on_built_d2(rng, case):
+    """The same bits on d² built to be hard: runs of values a few ulps
+    apart and ties at the k-th, all zeros, k = 1 and k >= n."""
+    d2, k = _built_d2(case, rng)
+    d2 = torch.from_numpy(d2)
+    for r2 in (0.0, 1e-6):
+        want = normals_module._hybrid_radius_sq(d2, k, r2)
+        got = normals_module.hybrid_radius_sq_by_select(d2, k, r2)
+        assert torch.equal(got, want), (case, r2)
+
+
+def test_exact_kth_is_not_the_bisection_answer_on_built_d2(rng):
+    """The replay is needed: on the built d² the radius from the exact k-th
+    smallest (times 1 + 1e-6) differs from the bisection's at some queries,
+    which the select-and-replay algorithm still matches."""
+    differ = 0
+    for case in ("ulps", "ties", "zeros", "k1"):
+        d2, k = _built_d2(case, rng)
+        d2 = torch.from_numpy(d2)
+        kth = torch.kthvalue(d2, k, dim=-1).values
+        exact = kth * torch.tensor(1.0 + 1e-6, dtype=torch.float32)
+        differ += int((exact != normals_module._hybrid_radius_sq(d2, k, 0.0)).sum())
+    assert differ > 0
+
+
+def test_point_sqdist_sorts_as_its_uint32_bits(rng):
+    """Non-negative f32 d² from point_sqdist (coincident points included)
+    sort the same as their bits as uint32 with the sign masked: K1's radix
+    select orders the keys so."""
+    pts = rng.uniform(-1.0, 1.0, (2, 300, 3)).astype(np.float32)
+    pts[:, 1:6] = pts[:, :1]
+    d2 = point_sqdist(torch.from_numpy(pts), torch.from_numpy(pts)).reshape(-1)
+    assert bool((d2 >= 0).all())
+    keys = d2.view(torch.int32) & 0x7FFFFFFF  # non-negative, so int64 order is uint32 order
+    by_bits = d2[torch.argsort(keys.long(), stable=True)]
+    assert torch.equal(by_bits, torch.sort(d2, stable=True).values)
+
+
+@pytest.mark.parametrize("index_type", [np.int64, np.int32])
+def test_corner_gather_plain_on_int64_and_int32_matches_pallas_at_c67(rng, index_type):
+    """K3's plain version takes int64 (the path's) and int32 indices alike:
+    the same bits, and within the one-hot kernel's summation order of
+    corner_gather_pallas at c = 67 (no whole 16-byte vectors on the card),
+    with -1, s and s + 1 dropped."""
+    b, n, c, s = 2, 64, 67, 128
+    grid = rng.randn(b, s, c).astype(np.float32)
+    idx = rng.randint(0, s, (b, n, 8)).astype(np.int64)
+    idx[0, 3] = -1
+    idx[1, 5, :2] = [s, s + 1]
+    w = rng.rand(b, n, 8).astype(np.float32)
+    want = np.asarray(corner_gather_pallas(jnp.asarray(grid), jnp.asarray(idx.astype(np.int32)),
+                                           jnp.asarray(w), tile=32))
+    got = corner_gather(torch.from_numpy(grid), torch.from_numpy(idx.astype(index_type)),
+                        torch.from_numpy(w))
+    other = corner_gather_plain(torch.from_numpy(grid), torch.from_numpy(idx), torch.from_numpy(w))
+    assert torch.equal(got, other)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert np.all(got.numpy()[0, 3] == 0)
