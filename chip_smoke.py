@@ -1,8 +1,9 @@
 """Smoke run of rift_tpu_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, register 16 scan pairs of 1024 points at
 the flagship width and with bench.py's headline model in bf16, train the
-flagship classifier on batches of 16 clouds of 1024 points, and compare
-every path with its CPU run.
+flagship classifier on batches of 16 clouds of 1024 points, run the
+flagship's registration evaluation (100 pairs, flip hypotheses, TEASER),
+and compare every path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -51,6 +52,15 @@ Phases (each prints one line with its wall time):
                clouds/s, and the forward/backward/optimizer split.
   9. train parity — one step on 4 clouds from the same weights, dropout
                off, on the card and on the CPU: loss, gradients, BN stats.
+ 10. evaluate — evaluate_registration of the mn40_sph_pt_r4 preset with its
+               evaluate section unchanged (100 noise pairs x 1024 points, 64
+               a batch, teaserpp, flip hypotheses, canonical voxels) from a
+               seeded checkpoint in a temp train.ckpt_dir: K1, K2, K3
+               launched 1, 2, 2 times a batch, finite results, pairs/s, peak
+               memory; then a 64-pair batch timed and staged (normals, the
+               5b forward, consensus, TEASER core, rotation, polish,
+               metrics), 4 of its pairs against the CPU (EVAL_PARITY), and
+               K2 and K3 at the 5b forward's shapes.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -199,6 +209,28 @@ EVAL_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2}
 REGISTER_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2}
 BENCH_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2,
                   "conv3d_same": 4}
+# The flagship's registration evaluation (train/loop.py:evaluate_registration)
+# runs the mn40_sph_pt_r4 preset's evaluate section as it is: 100 noise
+# pairs of 1024 points, 64 a batch (the tail padded), teaserpp, flip
+# hypotheses (one [5b, n, 6] forward a batch) and canonical voxels. Kernel
+# launches per batch; the run makes one warm-up batch and ceil(100/64)
+# timed ones.
+EVALUATE_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2}
+# Card vs CPU on the first EVAL_PARITY_PAIRS pairs of a staged batch
+# (EVAL_PARITY): features of every hypothesis and of the targets under
+# FEAT_POINT_TOL and FEAT_POINT_SHARE; the same hypothesis wherever the
+# CPU's top rigidity score leads the runner-up by more than SCORE_MARGIN of
+# the top (the mutual-NN masks agree on >= MASK_AGREE of the points, and a
+# match that changes moves a score by at most twice its share: 2%), and
+# mutual-NN agreement >= MASK_AGREE where the hypotheses agree. TEASER on
+# the card on the CPU run's matches: kept sets agree on >= MASK_AGREE of
+# the matches (a compatibility test within rounding of 2·noise_bound may
+# flip); poses within TRANSFORM_TOL where a NUDGE of the matches leaves the
+# CPU's TEASER pose in place (end to end where the matches are the same),
+# and everywhere the card pose's TLS cost over the matches both keep at
+# most TLS_COST_SLACK above the CPU pose's.
+EVAL_PARITY_PAIRS = 4
+SCORE_MARGIN = 0.05
 # Card vs CPU, one step on PARITY_CLOUDS clouds from the same weights:
 # loss within 1e-3 relative; BN running statistics within 1e-3 of each
 # buffer's largest value; per parameter, the gradients' cosine >= 0.999
@@ -518,7 +550,7 @@ def check_kernels(clouds, report: dict) -> None:
         k3["library_dev_ms"] += dev_ms(library)
         # Grid rows this run's corners touch, once each; indices, weights
         # and the output once.
-        k3["bytes"] += touched * c * 4 + b * n * 8 * 8 + b * n * c * 4
+        k3["bytes"] += touched * c * 4 + b * n * 8 * (idx.element_size() + 4) + b * n * c * 4
         k3["flops"] += int((idx >= 0).sum()) * c * 2
     k3["bf16"] = dict(max_rel_err=0.0, ms=0.0, dev_ms=0.0, plain_ms=0.0)
     for c in (64, 128):
@@ -1204,6 +1236,343 @@ def stage_split(model, src, dst) -> dict:
     return out
 
 
+# --- The flagship's registration evaluation (train/loop.py) ---------------
+
+
+def eval_checkpoint(ckpt_dir: str, seed: int = 0):
+    """The mn40_sph_pt_r4 preset's classifier with seeded weights, saved by
+    the port's CheckpointManager as `common` in `ckpt_dir` (with the preset
+    as its config snapshot): the checkpoint evaluate_registration restores
+    from train.ckpt_dir. Returns the preset with that train.ckpt_dir."""
+    import torch
+
+    from rift_tpu_torch.train import build_model, create_state, get_config
+    from rift_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = get_config("mn40_sph_pt_r4")
+    cfg.train.ckpt_dir = ckpt_dir
+    state = create_state(build_model(cfg), cfg, 1, torch.device("cpu"), seed=seed)
+    seeded_model(seed, state.model)
+    CheckpointManager(ckpt_dir).save_common(state, {}, cfg)
+    return cfg
+
+
+def eval_stages(model, src, dst, noise_bound: float, timed: dict | None = None) -> dict:
+    """register_eval_batch on b pairs, split at its stages: the shipped
+    functions it composes, called in its order, each stage ended by a
+    synchronize and its wall ms added to `timed` when given: normals,
+    flip_features (the [5b, n, 6] forward), consensus (hypothesis_matches,
+    whose rigidity scores the parity rule reads, and choose_hypothesis,
+    which consensus_match composes), then teaser_pose's core
+    (compatibility_core), rotation (_tim_pose) and polish (gnc_pose).
+    The metrics are the caller's. Returns the intermediate tensors."""
+    import torch
+
+    from rift_tpu_torch.ops.neighbors import gather_rows
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import (choose_hypothesis, compatibility_core, gnc_pose,
+                                             hypothesis_matches)
+    from rift_tpu_torch.registration.gnc import _tim_pose
+    from rift_tpu_torch.train.loop import flip_features
+
+    cuda = src.device.type == "cuda"
+
+    def stage(name, fn, sync_free=False):
+        """On the card, a `sync_free` stage runs under sync debug mode
+        "error": a host sync inside it (an .item(), a bool() of a tensor, a
+        copy of constants from the host) fails the run."""
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if cuda and sync_free:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = fn()
+        except RuntimeError as e:
+            if cuda and sync_free and "synchroniz" in str(e):
+                fail(f"the {name} stage synchronized with the host: {e}")
+            raise
+        finally:
+            if cuda and sync_free:
+                torch.cuda.set_sync_debug_mode("default")
+        if cuda:
+            torch.cuda.synchronize()
+        if timed is not None:
+            timed[name] = timed.get(name, 0.0) + (time.perf_counter() - t1) * 1e3
+        return result
+
+    b, n = src.shape[:2]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        normals = stage("normals", lambda: estimate_normals(clouds))
+        x = torch.cat([clouds, normals], -1)
+        feats = stage("forward 5b", lambda: flip_features(model, x, b))
+        f_src_h, f_dst = feats[:4 * b].reshape(b, 4, n, -1), feats[4 * b:]
+
+        def consensus():
+            hyp = hypothesis_matches(src, dst, f_src_h, f_dst, tau=2.0 * noise_bound)
+            return hyp[3], choose_hypothesis(*hyp)
+
+        scores, (i1, i2, mask, h) = stage("consensus", consensus, sync_free=True)
+        s_src, s_dst = gather_rows(src, i1), gather_rows(dst, i2)
+        keep, deg = stage("TEASER core",
+                          lambda: compatibility_core(s_src, s_dst, mask, noise_bound),
+                          sync_free=True)
+        init = stage("TEASER rotation", lambda: _tim_pose(s_src, s_dst, keep, deg, noise_bound),
+                     sync_free=True)
+        transform, _ = stage("TEASER polish", lambda: gnc_pose(
+            s_src, s_dst, keep, noise_bound=noise_bound, init_transform=init))
+    return dict(normals=normals, feats=feats, scores=scores, h=h, i1=i1, i2=i2, mask=mask,
+                keep=keep, transform=transform)
+
+
+def eval_phase(wrappers: dict) -> dict:
+    """evaluate_registration of the mn40_sph_pt_r4 preset, its evaluate
+    section unchanged, on the card from a seeded checkpoint; then one batch
+    of batch_pairs pairs timed (median of TIMED_BATCHES), profiled and
+    staged (the stages of eval_stages, per-batch launches checked), its
+    parity with the CPU, and K2 and K3 at the 5b forward's shapes."""
+    import torch
+
+    from rift_tpu_torch.data import get_pairs
+    from rift_tpu_torch.registration import pair_errors
+    from rift_tpu_torch.train import evaluate_registration, resolve_extractor
+    from rift_tpu_torch.train.loop import register_eval_batch
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = eval_checkpoint(ckpt_dir)
+        ev = cfg.evaluate
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        results = evaluate_registration(cfg)  # device=None: the card
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_counts(wrappers)
+        batches = 1 + -(-ev.num_pairs // ev.batch_pairs)  # the warm-up and the timed ones
+        for name in wrappers:
+            want = EVALUATE_LAUNCHES.get(name, 0) * batches
+            if launches[name] != want:
+                fail(f"evaluate_registration: {name} launched {launches[name]} times in "
+                     f"{batches} batches, expected {want}")
+        if not all(math.isfinite(v) for v in results.values()):
+            fail(f"evaluate_registration gave non-finite results {results}")
+        model = resolve_extractor(cfg)
+    if not model.use_new_coords_for_voxel or model.head is not None:
+        fail("the restored extractor does not voxelize in the canonical frame")
+
+    dev = torch.device("cuda")
+    batch = next(get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode,
+                           ev.num_pairs).batches(ev.batch_pairs))
+    src, dst, gt = (torch.as_tensor(a, device=dev)
+                    for a in (batch.source, batch.target, batch.transform))
+    times = []
+    for _ in range(TIMED_BATCHES):
+        t1 = time.perf_counter()
+        est = register_eval_batch(model, src, dst, ev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = sorted(times)[len(times) // 2] * 1e3
+    profile = profile_step(lambda: register_eval_batch(model, src, dst, ev))
+    split: dict = {}
+    before = read_counts(wrappers)
+    stages = eval_stages(model, src, dst, ev.noise_bound, timed=split)
+    after = read_counts(wrappers)
+    per_batch = {k: after[k] - before[k] for k in after}
+    if any(per_batch[k] != EVALUATE_LAUNCHES.get(k, 0) for k in per_batch):
+        fail(f"staged batch: launches {per_batch}, expected {EVALUATE_LAUNCHES}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    errs = pair_errors(src, gt, stages["transform"])
+    torch.cuda.synchronize()
+    split["metrics"] = (time.perf_counter() - t1) * 1e3
+    split["total"] = sum(split.values())
+    staged_diff = float((stages["transform"] - est).abs().max())
+    if not torch.equal(stages["transform"], est):  # the split times register_eval_batch itself
+        fail(f"the staged batch's poses differ from register_eval_batch's by {staged_diff:.3e}")
+    parity_msg = eval_parity(model, src, dst, stages, ev.noise_bound)
+    kernels = eval_kernel_times(model, src, dst)
+    return dict(results=results, run_s=run_s, peak_gb=peak_gb, launches=launches,
+                batches=batches, ms_per_batch=ms, batch_pairs=ev.batch_pairs, split=split,
+                per_batch=per_batch, staged_diff=staged_diff, parity=parity_msg, profile=profile,
+                kernels=kernels, median_rre=float(errs["rre"].median()))
+
+
+def eval_parity(model, src, dst, stages: dict, noise_bound: float,
+                pairs: int = EVAL_PARITY_PAIRS) -> str:
+    """The first `pairs` pairs of the staged batch against eval_stages on
+    the CPU (a copy of the model), and TEASER on the card against the CPU
+    on the CPU run's matches, under the rules at the top (EVAL_PARITY)."""
+    import torch
+
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import compatibility_core, teaser_pose
+
+    p, b = pairs, src.shape[0]
+    cpu_model = copy.deepcopy(model).cpu()
+    src_c, dst_c = src[:p].cpu(), dst[:p].cpu()
+    c = eval_stages(cpu_model, src_c, dst_c, noise_bound)
+    # Card side, sliced to the same clouds: the sources' 4 hypotheses and
+    # the targets.
+    clouds = torch.cat([torch.arange(4 * p), 4 * b + torch.arange(p)]).to(src.device)
+    f_g = stages["feats"][clouds].cpu()
+    g = {k: stages[k][:p].cpu() for k in ("scores", "h", "i2", "mask", "keep", "transform")}
+    point_err = (f_g - c["feats"]).abs().amax(-1) / float(c["feats"].abs().max())
+    bad_share = float((point_err > FEAT_POINT_TOL).float().mean())
+    top2 = torch.topk(c["scores"].double(), 2, dim=-1).values
+    lead = (top2[:, 0] - top2[:, 1]) / top2[:, 0].clamp(min=1.0)
+    decided = lead > SCORE_MARGIN
+    same_h = g["h"] == c["h"]
+    same = same_h & (g["mask"] == c["mask"]).all(-1) & (g["i2"] == c["i2"]).all(-1)
+    agree = float((g["mask"] == c["mask"])[same_h].float().mean()) if bool(same_h.any()) else 1.0
+    # TEASER alone on the CPU run's matches: on the card, and on the CPU with
+    # the matches nudged, to find the pairs whose pose the matches determine.
+    m_src = torch.gather(src_c, 1, c["i1"][..., None].expand(-1, -1, 3))
+    m_dst = torch.gather(dst_c, 1, c["i2"][..., None].expand(-1, -1, 3))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad(), f32_geometry():
+        t_solver = teaser_pose(m_src.to(src.device), m_dst.to(src.device),
+                               c["mask"].to(src.device), noise_bound=noise_bound)[0].cpu()
+        keep_solver = compatibility_core(m_src.to(src.device), m_dst.to(src.device),
+                                         c["mask"].to(src.device), noise_bound)[0].cpu()
+        spread = torch.zeros(p)
+        for _ in range(NUDGE_TRIES):
+            nudged = m_dst + NUDGE * torch.randn(m_dst.shape, generator=gen)
+            t_n = teaser_pose(m_src, nudged, c["mask"], noise_bound=noise_bound)[0]
+            spread = torch.maximum(spread, (t_n - c["transform"]).abs().amax((-2, -1)))
+    determined = spread <= TRANSFORM_TOL
+    keep_agree = float((keep_solver == c["keep"]).float().mean())
+    solver_diff = (t_solver - c["transform"]).abs().amax((-2, -1))
+    t_diff = (g["transform"] - c["transform"]).abs().amax((-2, -1))
+    kept = keep_solver & c["keep"]
+    worse_solver = (tls_cost(t_solver, m_src, m_dst, kept, noise_bound)
+                    - tls_cost(c["transform"], m_src, m_dst, kept, noise_bound))
+    shared = c["keep"] & g["keep"] & (g["i2"] == c["i2"]) & same_h[:, None]
+    worse_e2e = (tls_cost(g["transform"], m_src, m_dst, shared, noise_bound)
+                 - tls_cost(c["transform"], m_src, m_dst, shared, noise_bound))
+    msg = (f"{p} pairs ({4 * p + p} clouds): features, share of points off by > "
+           f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}), median point err "
+           f"{float(point_err.median()):.3e}; hypothesis card {g['h'].tolist()} CPU "
+           f"{c['h'].tolist()}, CPU scores {c['scores'].tolist()} (lead "
+           f"{short(lead)}, decided above {SCORE_MARGIN}: {decided.tolist()}); mutual-NN "
+           f"agreement {agree:.4f} (tol {MASK_AGREE}), same matches {same.tolist()}; "
+           f"TEASER on the CPU's matches: kept sets agree {keep_agree:.4f} (tol {MASK_AGREE}), "
+           f"kept {c['keep'].sum(-1).tolist()}, transform max abs diff {short(solver_diff)}, "
+           f"end to end {short(t_diff)} (tol {TRANSFORM_TOL}; CPU pose spread under a "
+           f"{NUDGE:g} nudge {short(spread)}, determined {determined.tolist()}); TLS cost, "
+           f"card minus CPU, solver {short(worse_solver)}, end to end {short(worse_e2e)} "
+           f"(tol {TLS_COST_SLACK})")
+    if bad_share > FEAT_POINT_SHARE or bool((~same_h & decided).any()) or agree < MASK_AGREE \
+            or keep_agree < MASK_AGREE or not bool(torch.isfinite(c["transform"]).all()):
+        fail("evaluate parity: " + msg)
+    if bool((worse_solver > TLS_COST_SLACK).any()) or bool((worse_e2e > TLS_COST_SLACK).any()) \
+            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((t_diff[determined & same] > TRANSFORM_TOL).any()):
+        fail("evaluate parity: " + msg)
+    return msg
+
+
+def eval_kernel_times(model, src, dst) -> dict:
+    """K1, K2 and K3 at this path's shapes, against their plain versions
+    (TOL), timed per call and on the device alone, with their bounds. K1 on
+    the [2b, n, 3] clouds as estimate_normals calls it (k = 16, r² = 0.1²);
+    K2 and K3 on the canonical coordinates of the [5b, n] clouds (each
+    source under its 4 flips), K2 at the two blocks' input widths and K3 at
+    their output widths."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import normals_kernel as nk
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+    from rift_tpu_torch.ops.lrf import change_coords, lrf_basis, lrf_flip_hypotheses
+    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
+                                              spherical_corner_weights,
+                                              spherical_voxel_indices)
+
+    b = src.shape[0]
+    clouds = torch.cat([src, dst], 0)
+    k, r2 = 16, 0.1 * 0.1
+    got = nk.neighborhood_moments(clouds, k, r2)
+    want = nk.neighborhood_moments_plain(clouds, k, r2)
+    torch.cuda.synchronize()
+    cb, n = clouds.shape[:2]
+    err = rel_err(torch.cat([g.reshape(cb, n, -1) for g in got[:2]], -1),
+                  torch.cat([w.reshape(cb, n, -1) for w in want[:2]], -1))[1]
+    if not torch.equal(got[2], want[2]) or err > TOL["normals_moments"]:
+        fail(f"K1 at the evaluate shape [{cb},{n},3]: neighbour counts differ at "
+             f"{int((got[2] != want[2]).sum())} queries, rel err {err:.3e}")
+    # The least work, as in check_kernels: per (query, point) d² 9
+    # operations, a step of an exact selection and the radius test; 22 per
+    # neighbour for the 13 moments; the points read and the moments written.
+    bound_ops = (cb * n * n * (9 + 1 + 1) + 22 * float(want[2].sum())) / PEAK_F32_FLOP_PER_S
+    bound_bytes = (cb * n * 3 * 4 + cb * n * 13 * 4) / PEAK_BYTES_PER_S
+    rows = {"normals_moments": [dict(
+        shape=f"points [{cb},{n},3] k={k}", max_rel_err=err,
+        ms=cuda_time_ms(lambda: nk.neighborhood_moments(clouds, k, r2), reps=5),
+        dev_ms=dev_ms(lambda: nk.neighborhood_moments(clouds, k, r2), calls=5),
+        bound_ms=max(bound_ops, bound_bytes) * 1e3,
+        bound_by="operations" if bound_ops > bound_bytes else "bytes")],
+        "scatter_mean": [], "corner_gather": []}
+    del got, want
+    blocks = [model.layers[name] for name in model._backbone if name.startswith("PVConv")]
+    r = blocks[0].resolution
+    s = r ** 3
+    with torch.no_grad():
+        centred = clouds - clouds.mean(-2, keepdim=True)
+        basis = lrf_basis(centred, model.lrf_kind)
+        lrf_all = torch.cat([lrf_flip_hypotheses(basis[:b]).reshape(-1, 3, 3), basis[b:]], 0)
+        pts = torch.cat([centred[:b].repeat_interleave(4, dim=0), centred[b:]], 0)
+        norm = normalize_coords_sphere(change_coords(pts, lrf_all))
+        inds, _ = spherical_voxel_indices(norm, r)
+        idx, w = spherical_corner_weights(norm, inds, r)
+    bb, n = inds.shape
+    gen = torch.Generator(device=src.device).manual_seed(5)
+    touched = int(torch.unique((idx + torch.arange(bb, device=src.device)[:, None, None] * s)
+                               [idx >= 0]).numel())
+    for block in blocks:
+        c_in, c_out = block.convs[0].in_channels, block.convs[0].out_channels
+        feat = torch.randn((bb, n, c_in), generator=gen, device=src.device)
+        out, cnt = oh.scatter_mean(feat, inds, s)
+        want, want_cnt = oh.scatter_mean_plain(feat, inds, s)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)[1]
+        if not torch.equal(cnt, want_cnt) or err > TOL["scatter_mean"]:
+            fail(f"K2 at the 5b shape [{bb},{n},{c_in}]: counts equal "
+                 f"{torch.equal(cnt, want_cnt)}, rel err {err:.3e}")
+        del out, cnt, want, want_cnt
+        nbytes = bb * n * c_in * 4 + bb * n * 8 + bb * s * c_in * 4 + bb * s * 4
+        rows["scatter_mean"].append(dict(
+            shape=f"[{bb},{n},{c_in}] -> [{bb},{s},{c_in}]", max_rel_err=err,
+            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds, s), reps=5),
+            dev_ms=dev_ms(lambda: oh.scatter_mean(feat, inds, s), calls=5),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+        del feat
+        grid = torch.randn((bb, s, c_out), generator=gen, device=src.device)
+        out = oh.corner_gather(grid, idx, w)
+        want = oh.corner_gather_plain(grid, idx, w)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)[1]
+        if err > TOL["corner_gather"]:
+            fail(f"K3 at the 5b shape [{bb},{s},{c_out}]: rel err {err:.3e}")
+        del out, want
+        nbytes = touched * c_out * 4 + bb * n * 8 * (idx.element_size() + 4) + bb * n * c_out * 4
+        rows["corner_gather"].append(dict(
+            shape=f"[{bb},{s},{c_out}] at [{bb},{n},8] -> [{bb},{n},{c_out}]", max_rel_err=err,
+            ms=cuda_time_ms(lambda: oh.corner_gather(grid, idx, w), reps=5),
+            dev_ms=dev_ms(lambda: oh.corner_gather(grid, idx, w), calls=5),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+        del grid
+    for name, rs in rows.items():
+        for row in rs:
+            print(f"    {name} at the evaluate shape {row['shape']}: rel err "
+                  f"{row['max_rel_err']:.3e} (tol {TOL[name]:g}); kernel {row['ms']:.4f} ms per "
+                  f"call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), share {row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
+    return rows
+
+
 def train_config():
     """The mn40_sph_pt_r4 preset cut to a small split: one epoch of
     TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds."""
@@ -1495,9 +1864,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase("train parity", t0, train_parity())
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ev = eval_phase(wrappers)
+    res = ev["results"]
+    print(f"evaluate: {smi}: flagship evaluation (teaserpp, flips, canonical voxels), "
+          f"{ev['batch_pairs']} pairs a batch: {1.0 / res['reg_time']:.2f} pairs/s by reg_time "
+          f"({res['reg_time'] * 1e3:.2f} ms a pair), {ev['ms_per_batch']:.2f} ms per "
+          f"{ev['batch_pairs']}-pair batch (median of {TIMED_BATCHES}), "
+          f"{ev['batch_pairs'] / ev['ms_per_batch'] * 1e3:.2f} pairs/s; whole call "
+          f"{ev['run_s']:.2f} s for {ev['batches']} batches with the warm-up; peak "
+          f"{ev['peak_gb']:.2f} GB; staged batch: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ev["split"].items())
+          + f"; result (seeded weights: information only) "
+          f"{json.dumps({k: round(v, 6) for k, v in res.items()})}", flush=True)
+    print(f"evaluate profile (one batch): {json.dumps(ev['profile'])}", flush=True)
+    phase("evaluate", t0, f"launches {ev['launches']} in {ev['batches']} batches, "
+                          f"{ev['per_batch']} in the staged one; staged pose bit-equal to "
+                          f"register_eval_batch's (max abs diff {ev['staged_diff']:.3e}); median "
+                          f"RRE of the staged batch {ev['median_rre']:.3f} deg; parity: "
+                          + ev["parity"])
+    for name, rows in ev["kernels"].items():
+        report[name]["eval_5b"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
-             "train": tr["launches"]}
+             "train": tr["launches"], "evaluate": ev["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -1515,7 +1907,8 @@ def main() -> int:
                                    "far_rel_err", "bf16", "max_steps", "equal_share",
                                    "library_steps", "per_shape", "other_shapes", "large",
                                    "degenerate", "other_r", "bisection_bound_ms",
-                                   "neighbours_per_query", "int32_dev_ms", "other", "hard")
+                                   "neighbours_per_query", "int32_dev_ms", "other", "hard",
+                                   "eval_5b")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,16 @@
 """Synthetic registration pairs, a numpy copy of
-`rift_tpu.data.registration_pairs.SyntheticPairs` in its 'clean' and
-'noise' modes, with the procedural shapes of `rift_tpu/data/synthetic.py`
-and the transforms of `rift_tpu/data/transforms.py` it needs. The same
-seed gives the same arrays as the original.
+`rift_tpu.data.registration_pairs` (`PairBatch`, `SyntheticPairs` in its
+'clean' and 'noise' modes, `get_pairs`), with the procedural shapes of
+`rift_tpu/data/synthetic.py` and the transforms of
+`rift_tpu/data/transforms.py` it needs. The same seed gives the same
+arrays as the original. The h5 test pairs, the 'partial' modes and the
+'icl_nuim' sequence pairs wait for their slice (ROADMAP item 8).
 """
 from __future__ import annotations
+
+import os
+from collections.abc import Iterator
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -209,6 +215,13 @@ def jitter(pcd: np.ndarray, sigma: float = 0.01, clip: float | None = 0.05,
     return out
 
 
+@dataclass
+class PairBatch:
+    source: np.ndarray      # [b, n, 3]
+    target: np.ndarray      # [b, n, 3]
+    transform: np.ndarray   # [b, 4, 4] ground truth source -> target
+
+
 class SyntheticPairs:
     """Registration pairs from procedural shapes: mode 'clean' (full clouds)
     or 'noise' (+ clipped Gaussian noise on both clouds). Item i is
@@ -219,7 +232,8 @@ class SyntheticPairs:
                  max_amp: float = 0.5, noise_sigma: float = 0.01,
                  noise_clip: float = 0.05, seed: int = 0):
         if mode not in ("clean", "noise"):
-            raise NotImplementedError(f"pair mode {mode!r} is not ported yet")
+            raise NotImplementedError(f"pair mode {mode!r} is not ported yet "
+                                      "(ROADMAP item 8)")
         self.num_pairs = num_pairs
         self.num_points = num_points
         self.mode = mode
@@ -250,3 +264,26 @@ class SyntheticPairs:
         """All pairs stacked: (source [m, n, 3], target [m, n, 3], T [m, 4, 4])."""
         items = [self[i] for i in range(len(self))]
         return tuple(np.stack([it[j] for it in items]) for j in range(3))
+
+    def batches(self, batch_size: int = 1) -> Iterator[PairBatch]:
+        """Consecutive pairs, `batch_size` at a time (the last batch may be
+        shorter)."""
+        for start in range(0, len(self), batch_size):
+            items = [self[i] for i in range(start, min(start + batch_size, len(self)))]
+            yield PairBatch(source=np.stack([a for a, _, _ in items]),
+                            target=np.stack([b for _, b, _ in items]),
+                            transform=np.stack([t for _, _, t in items]))
+
+
+def get_pairs(path: str | None, num_points: int = 1024, mode: str = "noise",
+              num_pairs: int = 100) -> SyntheticPairs:
+    """The evaluation's pairs: synthetic ones of `mode` when `path` is None
+    or not a file, as in the reference. An h5 file and the 'icl_nuim' and
+    'partial' modes are not ported yet."""
+    if path and os.path.isfile(path):
+        raise NotImplementedError(f"h5 test pairs ({path}) are not ported yet "
+                                  "(ROADMAP item 8)")
+    if mode == "icl_nuim":
+        raise NotImplementedError("'icl_nuim' sequence pairs are not ported yet "
+                                  "(ROADMAP item 8)")
+    return SyntheticPairs(num_pairs=num_pairs, num_points=num_points, mode=mode)

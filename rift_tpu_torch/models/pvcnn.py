@@ -2,8 +2,12 @@
 `rift_tpu/models/pvcnn.py:PVCNNClassifier`.
 
 Ported: centring; the 'change_coords' preprocess (`lrf_kind` 'pca' or
-'reference'), with `extra_feature_channels=4` appending the global PPF of
-each point (features [new_coords, global_ppf], 7 channels); the local-PPF
+'reference', or a basis given to `forward` as `lrf`), with
+`extra_feature_channels=4` appending the global PPF of
+each point (features [new_coords, global_ppf], 7 channels);
+`use_new_coords_for_voxel`, which voxelizes the canonical coordinates
+instead of the centred raw ones (the local-PPF branch stays in the raw
+frame, as in the reference); the local-PPF
 branch in both modes (eval: ball-query grouping with masked empty slots;
 train: `ball_query` with its duplicate padding, so BatchNorm sees the
 reference's rows); the backbone of spherical PVConv blocks (`pointnet_kernel`
@@ -68,7 +72,8 @@ class PVCNNClassifier(nn.Module):
                  local_radius: float = 0.3, local_neighbors: int = 128,
                  local_fuse_dim: int = 64,
                  dropout: float = 0.2,
-                 dtype: str | None = None):
+                 dtype: str | None = None,
+                 use_new_coords_for_voxel: bool = False):
         super().__init__()
         if rot_invariant_preprocess != "change_coords" or extra_feature_channels not in (0, 4):
             raise NotImplementedError(
@@ -80,6 +85,7 @@ class PVCNNClassifier(nn.Module):
             raise NotImplementedError(f"local feature {with_local_feat!r} is not ported yet")
         del dim_k  # the last block's width is the feature width, as in the reference
         self.lrf_kind = lrf_kind
+        self.use_new_coords_for_voxel = use_new_coords_for_voxel
         self.global_ppf = extra_feature_channels == 4
         self.local_radius = local_radius
         self.local_neighbors = local_neighbors
@@ -123,11 +129,16 @@ class PVCNNClassifier(nn.Module):
                 "Dense_2": nn.Linear(w2, num_classes)})
             self.dropout = dropout
 
-    def forward(self, inputs: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, generator: torch.Generator | None = None,
+                lrf: torch.Tensor | None = None) -> torch.Tensor:
+        """`lrf` [b, 3, 3] (rows = axes), when given, replaces the basis
+        `lrf_basis(coords, lrf_kind)` of the 'change_coords' preprocess (the
+        flip hypotheses of `train.loop.evaluate_registration`)."""
         coords = inputs[..., :3]
         coords = coords - coords.mean(-2, keepdim=True)
-        features = change_coords(coords, lrf_basis(coords, self.lrf_kind))
+        basis = lrf if lrf is not None else lrf_basis(coords, self.lrf_kind)
+        features = change_coords(coords, basis)
+        voxel_coords = features if self.use_new_coords_for_voxel else coords
         if (self._local is not None or self.global_ppf) and inputs.shape[-1] < 6:
             raise ValueError("PPF features need normals: inputs [b, n, 6]")
         normals = inputs[..., 3:6]
@@ -153,7 +164,7 @@ class PVCNNClassifier(nn.Module):
             features = torch.cat([features, fused.amax(-2)], dim=-1)
         for name in self._backbone:
             layer = self.layers[name]
-            features = (layer(features, coords) if isinstance(layer, PVConv)
+            features = (layer(features, voxel_coords) if isinstance(layer, PVConv)
                         else layer(features))
         if self.head is None:
             return features.float()

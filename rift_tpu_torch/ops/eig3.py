@@ -15,6 +15,13 @@ import torch
 Tensor = torch.Tensor
 
 
+def unit_axis(k: int, like: Tensor) -> Tensor:
+    """The unit vector along axis k in `like`'s type and device, made on the
+    device (a `torch.tensor` of constants would be a synchronous copy from
+    the host on the card)."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[k]
+
+
 def _det3(b: Tensor) -> Tensor:
     return (b[..., 0, 0] * (b[..., 1, 1] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 1])
             - b[..., 0, 1] * (b[..., 1, 0] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 0])
@@ -47,8 +54,7 @@ def _eigvec_for(a: Tensor, lam: Tensor) -> Tensor:
     vec = torch.gather(crosses, -2, best[..., None, None].expand(
         best.shape + (1, 3)))[..., 0, :]
     norm = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype,
-                            device=a.device).expand(vec.shape)
+    fallback = unit_axis(2, a).expand(vec.shape)
     ok = norm[..., 0] > 1e-20
     return torch.where(ok[..., None], vec / torch.clamp(norm, min=1e-20), fallback)
 
@@ -72,10 +78,8 @@ def eigh_sym3(a: Tensor) -> tuple[Tensor, Tensor]:
     # Re-orthogonalize v0 against v2 (the best-separated pair).
     v0 = v0 - (v0 * v2).sum(-1, keepdim=True) * v2
     n0 = torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
-    alt = torch.linalg.cross(v2, ex.expand(v2.shape))
-    alt2 = torch.linalg.cross(v2, ey.expand(v2.shape))
+    alt = torch.linalg.cross(v2, unit_axis(0, a).expand(v2.shape))
+    alt2 = torch.linalg.cross(v2, unit_axis(1, a).expand(v2.shape))
     alt = torch.where(torch.linalg.vector_norm(alt, dim=-1, keepdim=True) > 0.1,
                       alt, alt2)
     alt = _unit(alt)

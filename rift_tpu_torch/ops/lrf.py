@@ -1,7 +1,7 @@
 """Local reference frames: the 'change_coords' rotation-invariant preprocess.
 
 Twin of `rift_tpu/ops/lrf.py` (`global_lrf`, `pca_lrf`, `lrf_basis`,
-`change_coords`). Bases are [..., 3, 3] with ROWS = axes; canonical
+`change_coords`, `lrf_flip_hypotheses`). Bases are [..., 3, 3] with ROWS = axes; canonical
 coordinates are coords @ basisᵀ.
 """
 from __future__ import annotations
@@ -60,6 +60,16 @@ def pca_lrf(coords: Tensor) -> Tensor:
     vecs = vecs * sign[..., None, :]
     vx, vy = vecs[..., :, 0], vecs[..., :, 1]
     return torch.stack([vx, vy, torch.linalg.cross(vx, vy)], dim=-2)
+
+
+def lrf_flip_hypotheses(basis: Tensor) -> Tensor:
+    """The 4 right-handed sign assignments of a basis [..., 3, 3] (rows =
+    axes) -> [..., 4, 3, 3]: (+,+,+), (+,-,-), (-,+,-), (-,-,+). A proper
+    rotation flips an even number of axes, so these are all the frames a
+    sign-ambiguous orthogonal frame can take."""
+    eye = torch.eye(3, dtype=basis.dtype, device=basis.device)
+    flips = torch.cat([torch.ones_like(eye[:1]), 2.0 * eye - 1.0])  # [4, 3], made on the device
+    return basis[..., None, :, :] * flips[:, :, None]
 
 
 def lrf_basis(coords: Tensor, kind: str = "reference") -> Tensor:

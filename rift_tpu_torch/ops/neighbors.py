@@ -58,6 +58,11 @@ def ball_query(centers: Tensor, points: Tensor, radius: float,
     return torch.where((cnt > 0)[..., None], padded, nearest.expand_as(padded))
 
 
+def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """x [..., n, c], idx [..., k] -> x's rows idx [..., k, c]."""
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape + (x.shape[-1],)))
+
+
 def grouping(features: Tensor, indices: Tensor) -> Tensor:
     """features [..., n, c], indices [..., m, u] -> [..., m, u, c]."""
     m, u = indices.shape[-2:]

@@ -1,18 +1,28 @@
-"""GNC-TLS robust pose, twin of `rift_tpu/registration/gnc.py:gnc_pose`
-with `kind="tls", early_exit=True`, batched over pairs.
+"""GNC-TLS robust pose and the TEASER-style pipeline, twins of
+`rift_tpu/registration/gnc.py` (`gnc_pose` with `kind="tls",
+early_exit=True`, `compatibility_core`, `_rotation_gnc_tls`,
+`_masked_component_median`, `teaser_pose`), batched over pairs.
 
-Each iteration updates the TLS weights (Yang et al. 2020, eq. 14) from the
-residuals of the current transform, re-solves a weighted Kabsch, and grows
-μ by `gnc_factor`. A pair stops at its fixed point — the first iteration
-whose weights repeat the previous ones — or after `max_iterations`; a
-stopped pair keeps its carry while the others go on, as the reference's
-vmapped `lax.while_loop` does.
+`gnc_pose`: each iteration updates the TLS weights (Yang et al. 2020,
+eq. 14) from the residuals of the current transform, re-solves a weighted
+Kabsch, and grows μ by `gnc_factor`. A pair stops at its fixed point — the
+first iteration whose weights repeat the previous ones — or after
+`max_iterations`; a stopped pair keeps its carry while the others go on,
+as the reference's vmapped `lax.while_loop` does. Its loop tests on the
+host whether any pair is still active, once an iteration.
+
+`teaser_pose`: the degree core of the TIM compatibility graph, rotation
+GNC-TLS on translation-invariant measurements from the core's max-degree
+anchor, the median translation, then `gnc_pose` from that estimate on the
+kept set. Up to the polish it has fixed shapes and no host sync.
 """
 from __future__ import annotations
 
 import torch
 
-from .kabsch import weighted_kabsch
+from ..ops.neighbors import pairwise_sqdist
+from ..ops.precision import f32_geometry
+from .kabsch import rotation_from_h, weighted_kabsch
 
 Tensor = torch.Tensor
 
@@ -25,28 +35,37 @@ def _residuals(transform: Tensor, src: Tensor, dst: Tensor) -> Tensor:
 
 
 def _tls_weights(transform, mu, src, dst, valid, c2):
-    r2 = _residuals(transform, src, dst) ** 2
-    mu = mu[..., None]
+    return _tls(_residuals(transform, src, dst) ** 2, mu[..., None], c2) * valid
+
+
+def _tls(r2: Tensor, mu: Tensor, c2: float) -> Tensor:
+    """The TLS weight of each squared residual r2 [b, n] at μ [b, 1]."""
     th1 = (mu + 1.0) / mu * c2
     th2 = mu / (mu + 1.0) * c2
     mid = torch.sqrt(c2 * mu * (mu + 1.0) / torch.clamp(r2, min=1e-20)) - mu
-    w = torch.where(r2 >= th1, torch.zeros_like(r2),
-                    torch.where(r2 <= th2, torch.ones_like(r2), mid))
-    return w * valid
+    return torch.where(r2 >= th1, torch.zeros_like(r2),
+                       torch.where(r2 <= th2, torch.ones_like(r2), mid))
+
+
+def _mu0(r2_max: Tensor, c2: float) -> Tensor:
+    """TEASER's initial μ from the largest valid squared residual."""
+    return torch.clamp(c2 / torch.clamp(2.0 * r2_max - c2, min=1e-12), min=1e-6)
 
 
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
-             gnc_factor: float = 1.4, max_iterations: int = 100
-             ) -> tuple[Tensor, Tensor]:
+             gnc_factor: float = 1.4, max_iterations: int = 100,
+             init_transform: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """src/dst [b, n, 3] putative matches, valid [b, n] bool ->
-    (transform [b, 4, 4], final weights [b, n]). Strict f32 is the caller's
-    to set (`ops/precision.py:f32_geometry`, as `register_batch` does)."""
+    (transform [b, 4, 4], final weights [b, n]). `init_transform` [b, 4, 4]
+    seeds the iteration (and μ's start), by default the plain Kabsch on the
+    valid set. Strict f32 is the caller's to set
+    (`ops/precision.py:f32_geometry`, as `register_batch` does)."""
     c2 = noise_bound * noise_bound
     valid = valid.to(src.dtype)
-    transform = weighted_kabsch(src, dst, valid)
+    transform = weighted_kabsch(src, dst, valid) if init_transform is None else init_transform
     r2 = _residuals(transform, src, dst) ** 2
     r2_max = torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1)
-    mu = torch.clamp(c2 / torch.clamp(2.0 * r2_max - c2, min=1e-12), min=1e-6)
+    mu = _mu0(r2_max, c2)
     w_prev = valid
     it = 0
     active = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
@@ -61,3 +80,106 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
         active = active & ~done
         it += 1
     return transform, w_prev
+
+
+def compatibility_core(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,
+                       rounds: int = 4, min_keep: int = 8) -> tuple[Tensor, Tensor]:
+    """Degree core of the TIM compatibility graph: src/dst [b, n, 3]
+    matched points, valid [b, n] -> (keep bool [b, n], degree [b, n]
+    within the kept set).
+
+    Matches i and j are compatible when |‖s_i − s_j‖ − ‖d_i − d_j‖| ≤
+    2·noise_bound (both valid, i ≠ j); distances from the
+    ‖x‖² + ‖y‖² − 2·x·yᵀ expansion, an f32 matmul (strict under
+    `f32_geometry`). Each of `rounds` rounds keeps the vertices whose
+    degree among the kept ones is at least half the largest, unless fewer
+    than `min_keep` would remain (then the previous set stays)."""
+    def pdist(x):
+        return torch.sqrt(pairwise_sqdist(x, x))
+
+    n = src.shape[-2]
+    eye = torch.eye(n, dtype=torch.bool, device=src.device)
+    compat = ((pdist(src) - pdist(dst)).abs() <= 2.0 * noise_bound) & ~eye
+    compat = compat & valid[..., :, None] & valid[..., None, :]
+    compat_f = compat.to(src.dtype)
+
+    def degree(keep):
+        return torch.matmul(compat_f, keep[..., None])[..., 0] * keep
+
+    keep = valid.to(src.dtype)
+    for _ in range(rounds):
+        deg = degree(keep)
+        thr = 0.5 * deg.amax(-1, keepdim=True)
+        new = keep * (deg >= thr).to(src.dtype)
+        ok = new.sum(-1, keepdim=True) >= min_keep
+        keep = torch.where(ok, new, keep)
+    return keep > 0.5, degree(keep)
+
+
+def _rotation_gnc_tls(v: Tensor, w: Tensor, valid: Tensor, noise_bound: float,
+                      gnc_factor: float = 1.4, iterations: int = 40) -> Tensor:
+    """Rotation-only GNC-TLS on translation-invariant measurements: v/w
+    [b, n, 3] with w ≈ R·v, valid [b, n] -> R [b, 3, 3]. Procrustes
+    without centring, `iterations` fixed iterations (no early exit)."""
+    c2 = noise_bound * noise_bound
+    valid = valid.to(v.dtype)
+
+    def solve(wt):
+        h = torch.matmul((v * wt[..., None]).transpose(-1, -2), w)  # Σ wt·v⊗w
+        return rotation_from_h(h.transpose(-1, -2))
+
+    rot = solve(valid)
+    res0 = torch.linalg.vector_norm(torch.matmul(v, rot.transpose(-1, -2)) - w, dim=-1)
+    r2max = torch.where(valid > 0, res0 ** 2, torch.zeros_like(res0)).amax(-1, keepdim=True)
+    mu = _mu0(r2max, c2)
+    for _ in range(iterations):
+        r2 = ((torch.matmul(v, rot.transpose(-1, -2)) - w) ** 2).sum(-1)
+        rot = solve(_tls(r2, mu, c2) * valid)
+        mu = mu * gnc_factor
+    return rot
+
+
+def _masked_component_median(x: Tensor, valid: Tensor) -> Tensor:
+    """Component-wise lower median over the valid rows: x [b, n, c], valid
+    [b, n] -> [b, c] (+inf when no row is valid)."""
+    big = torch.where(valid[..., None], x, torch.full_like(x, float("inf")))
+    srt = torch.sort(big, dim=-2).values
+    mid = torch.clamp(valid.sum(-1) - 1, min=0) // 2  # [b]
+    return torch.gather(srt, -2, mid[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+
+
+def _tim_pose(src: Tensor, dst: Tensor, keep: Tensor, deg: Tensor,
+              noise_bound: float) -> Tensor:
+    """TEASER's estimate from the degree core: the max-degree match as the
+    anchor (the first on ties), rotation GNC-TLS on the TIMs
+    v_i = s_i − s_a, w_i = d_i − d_a of the other kept matches, then the
+    median translation over the kept set -> transform [b, 4, 4]."""
+    a = torch.argmax(deg, dim=-1)  # [b]
+    anchor = a[:, None, None].expand(-1, 1, 3)
+    v = src - torch.gather(src, 1, anchor)
+    w = dst - torch.gather(dst, 1, anchor)
+    arange = torch.arange(src.shape[1], device=src.device)
+    tim_valid = keep & (arange[None, :] != a[:, None])
+    # A TIM is the difference of two noisy points: its bound is twice.
+    rot = _rotation_gnc_tls(v, w, tim_valid, 2.0 * noise_bound)
+    t = _masked_component_median(dst - torch.matmul(src, rot.transpose(-1, -2)), keep)
+    init = torch.zeros(src.shape[:1] + (4, 4), dtype=src.dtype, device=src.device)
+    init[:, :3, :3] = rot
+    init[:, :3, 3] = t
+    init[:, 3, 3] = 1.0
+    return init
+
+
+@f32_geometry()
+def teaser_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
+                prune_rounds: int = 4, polish: bool = True) -> tuple[Tensor, Tensor]:
+    """TEASER-style pose: `compatibility_core` -> `_tim_pose` -> GNC-TLS
+    polish (`gnc_pose` from that estimate on the kept set). src/dst
+    [b, n, 3], valid [b, n] -> (transform [b, 4, 4], weights [b, n]).
+    Without `polish`, the weights are the kept matches within
+    `noise_bound` of the TIM estimate."""
+    keep, deg = compatibility_core(src, dst, valid, noise_bound, rounds=prune_rounds)
+    init = _tim_pose(src, dst, keep, deg, noise_bound)
+    if polish:
+        return gnc_pose(src, dst, keep, noise_bound=noise_bound, init_transform=init)
+    return init, (keep & (_residuals(init, src, dst) <= noise_bound)).to(src.dtype)

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.eig3 import eigh_sym3
+from ..ops.eig3 import eigh_sym3, unit_axis
 
 Tensor = torch.Tensor
 
@@ -28,10 +28,8 @@ def rotation_from_h(h: Tensor) -> Tensor:
     hv1 = torch.matmul(h, v1[..., None])[..., 0]
     hv1 = hv1 - (hv1 * u2).sum(-1, keepdim=True) * u2
     n1 = _norm(hv1)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=h.dtype, device=h.device).expand(u2.shape)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=h.dtype, device=h.device).expand(u2.shape)
-    alt = torch.linalg.cross(u2, ex)
-    alt2 = torch.linalg.cross(u2, ey)
+    alt = torch.linalg.cross(u2, unit_axis(0, h).expand(u2.shape))
+    alt2 = torch.linalg.cross(u2, unit_axis(1, h).expand(u2.shape))
     alt = torch.where(_norm(alt) > 0.1, alt, alt2)
     alt = alt / torch.clamp(_norm(alt), min=1e-20)
     u1 = torch.where(n1 > 1e-12 * torch.clamp(sigma2[..., None], min=1.0),

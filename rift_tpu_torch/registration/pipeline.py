@@ -1,19 +1,57 @@
-"""Batched pair registration, twin of `bench.py:register_batch`: normals ->
-PVCNN features -> mutual-NN matches -> GNC-TLS pose, for every pair."""
+"""Batched pair registration.
+
+- `register_batch`, twin of `bench.py:register_batch`: normals -> PVCNN
+  features -> mutual-NN matches -> GNC-TLS pose, for every pair.
+- `register_pair` and `register_pair_from_matches`, twins of
+  `rift_tpu/registration/pipeline.py`, batched over pairs: features or
+  given matches -> the robust solver of `method`. Only 'teaserpp' is
+  ported (`gnc.teaser_pose`); 'ransac', 'fgr', 'icp' and the '+icp',
+  '+picp', '+pl' refiners wait for their slice (ROADMAP item 8).
+"""
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
-from ..ops.neighbors import mutual_nearest_neighbors
+from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
-from .gnc import gnc_pose
+from .gnc import gnc_pose, teaser_pose
 
 Tensor = torch.Tensor
 
 
 NOISE_BOUND = 0.02  # GNC-TLS noise bound of bench.py and the reference
+
+
+def check_method(method: str) -> None:
+    """Raise unless `method` is the one that is ported ('teaserpp')."""
+    if method != "teaserpp":
+        raise NotImplementedError(f"method {method!r} is not ported yet; only 'teaserpp' "
+                                  "is (ROADMAP item 8)")
+
+
+@f32_geometry()
+def register_pair_from_matches(pts1: Tensor, pts2: Tensor, idx1: Tensor, idx2: Tensor,
+                               mask: Tensor, method: str = "teaserpp",
+                               noise_bound: float = NOISE_BOUND) -> tuple[Tensor, Tensor]:
+    """Robust pose from given matches, for b pairs: pts1 [b, n, 3], pts2
+    [b, m, 3], matches (idx1, idx2, mask) [b, k] -> (transform [b, 4, 4]
+    mapping pts1 onto pts2, inlier mask [b, k])."""
+    check_method(method)
+    transform, w = teaser_pose(gather_rows(pts1, idx1), gather_rows(pts2, idx2), mask,
+                               noise_bound=noise_bound)
+    return transform, w > 0.5
+
+
+def register_pair(pts1: Tensor, pts2: Tensor, feat1: Tensor, feat2: Tensor,
+                  method: str = "teaserpp", noise_bound: float = NOISE_BOUND
+                  ) -> tuple[Tensor, Tensor]:
+    """Mutual-NN matches of the features [b, n, c] and [b, m, c], then
+    `register_pair_from_matches`: -> (transform [b, 4, 4], inliers [b, n])."""
+    idx1, idx2, mask = mutual_nearest_neighbors(feat1, feat2)
+    return register_pair_from_matches(pts1, pts2, idx1.expand(idx2.shape), idx2, mask,
+                                      method, noise_bound)
 
 
 def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:

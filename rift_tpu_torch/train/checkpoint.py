@@ -52,14 +52,20 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
-    def restore(self, state: TrainState, name: str = "common") -> dict | None:
-        """Load `name` into `state` in place (model, optimizer, step) and
-        return its best metrics; None when there is no such checkpoint."""
+    def restore_raw(self, name: str = "common") -> dict | None:
+        """The saved dict of `name` on the CPU ({'model': state_dict,
+        'optimizer': ..., 'step': int, 'best': {...}}), or None."""
         path = self._path(name) + ".pt"
         if not os.path.isfile(path):
             return None
-        device = next(state.model.parameters()).device
-        saved = torch.load(path, map_location=device, weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def restore(self, state: TrainState, name: str = "common") -> dict | None:
+        """Load `name` into `state` in place (model, optimizer, step) and
+        return its best metrics; None when there is no such checkpoint."""
+        saved = self.restore_raw(name)
+        if saved is None:
+            return None
         state.model.load_state_dict(saved["model"])
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])

@@ -1,5 +1,6 @@
-"""Training configuration: the dataclasses `train()` reads, copied from
-`rift_tpu/train/config.py` (`ModelConfig`, `OptimConfig`, `TrainConfig`;
+"""Training and evaluation configuration: the dataclasses `train()` and
+`evaluate_registration()` read, copied from `rift_tpu/train/config.py`
+(`ModelConfig`, `OptimConfig`, `TrainConfig`, `EvalConfig`;
 `ModelNet40Config` is in `data/modelnet40.py`), and two presets:
 
 - `mn40_sph_pt_r4`: the flagship, the values of
@@ -13,8 +14,10 @@
 Only the fields the port reads are here; the dataclasses have slots, so
 setting any other raises. The reference's other training fields change
 nothing on one card with the probe off (`log_every`, `data_parallel`,
-`reg_probe_pairs`, `cache_npy`), and its registration and sequence
-sections wait for their slices.
+`reg_probe_pairs`, `cache_npy`), and its sequence section waits for its
+slice. `EvalConfig` has every field of the reference's with its default;
+the ones only the unported solvers read (`inlier_threshold`,
+`num_hypotheses`, `ransac_irls`, `ransac_irls_shrink`) are carried unused.
 """
 from __future__ import annotations
 
@@ -66,6 +69,34 @@ class TrainConfig:
 
 
 @dataclass(slots=True)
+class EvalConfig:
+    """Registration evaluation (`train/loop.py:evaluate_registration`).
+    `method`: 'teaserpp' (the other solvers and the '+icp', '+picp', '+pl'
+    refiners wait for their slice). `pairs_path` None or not a file:
+    synthetic pairs of `pairs_mode` 'clean' or 'noise'. `batch_pairs`: pairs
+    per batch, the tail padded. `canonical_voxel`: voxelize in the LRF
+    frame (`use_new_coords_for_voxel` on a checkpoint's change_coords
+    trunk). `flip_hypotheses`: source features under the 4 sign
+    assignments of its LRF, the most rigid matching kept
+    (`registration/consensus.py`)."""
+    method: str = "teaserpp"
+    pairs_path: str | None = None
+    pairs_mode: str = "noise"
+    num_pairs: int = 100
+    num_points: int = 1024
+    noise_bound: float = 0.02
+    inlier_threshold: float = 0.08
+    num_hypotheses: int = 1000
+    ransac_irls: int = 3
+    ransac_irls_shrink: float = 1.0
+    batch_pairs: int = 64
+    ckpt_dir: str | None = None
+    ckpt_name: str = "common"
+    canonical_voxel: bool = True
+    flip_hypotheses: bool = True
+
+
+@dataclass(slots=True)
 class ExperimentConfig:
     name: str = "mn40_sph_dg"
     seed: int = 0
@@ -73,6 +104,7 @@ class ExperimentConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     dataset: ModelNet40Config = field(default_factory=ModelNet40Config)
+    evaluate: EvalConfig = field(default_factory=EvalConfig)
 
 
 def presets() -> dict[str, ExperimentConfig]:

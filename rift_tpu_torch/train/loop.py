@@ -1,33 +1,48 @@
-"""Classification training and validation, twin of `rift_tpu/train/loop.py`
-(`build_model`, `train`, `run_meters`, `update_best`, `_improved`,
-`evaluate_classification`) on one card.
+"""Classification training and registration evaluation, twin of
+`rift_tpu/train/loop.py` on one card: `build_model`, `train`, `run_meters`,
+`update_best`, `_improved`, `evaluate_classification`, and
+`load_trained_state`, `extractor_from_snapshot`, `resolve_extractor`,
+`evaluate_registration` (method 'teaserpp', with or without the
+flip-hypothesis consensus).
 
 Not ported yet (ROADMAP): the data-parallel step (`make_distributed_step`),
-the in-training registration probe, `train_segmentation`, and
-`evaluate_classification_ckpt`.
+the in-training registration probe, `train_segmentation`,
+`evaluate_classification_ckpt` and the evaluation extras (the method
+sweep, feature extraction, rotation consistency).
 """
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
 import time
 
 import numpy as np
 import torch
 
+from ..data import get_pairs
 from ..data.modelnet40 import get_datasets
 from ..device import resolve_device
 from ..models import PVCNNClassifier
+from ..ops.lrf import lrf_basis, lrf_flip_hypotheses
+from ..ops.normals import estimate_normals
+from ..ops.precision import f32_geometry
+from ..registration import (consensus_match, pair_errors, register_pair,
+                            register_pair_from_matches)
+from ..registration.pipeline import check_method
 from .checkpoint import CheckpointManager
-from .config import ExperimentConfig
-from .meters import MeterClassification
-from .steps import TrainState, create_state, eval_step, train_step
+from .config import EvalConfig, ExperimentConfig, ModelConfig
+from .meters import MeterClassification, MeterRegistration
+from .steps import TrainState, create_state, eval_step, init_params, train_step
 from .utils import MetricWriter, get_logger
+
+Tensor = torch.Tensor
 
 
 def build_model(config: ExperimentConfig) -> PVCNNClassifier:
     m = config.model
-    if m.with_transform_fine_tune or m.use_new_coords_for_voxel or m.dtype:
-        raise NotImplementedError("with_transform_fine_tune, use_new_coords_for_voxel and "
-                                  "dtype are not ported yet")
+    if m.with_transform_fine_tune or m.dtype:
+        raise NotImplementedError("with_transform_fine_tune and dtype are not ported yet")
     return PVCNNClassifier(
         blocks=tuple(tuple(b) for b in m.blocks),
         dim_k=m.dim_k,
@@ -43,7 +58,8 @@ def build_model(config: ExperimentConfig) -> PVCNNClassifier:
         rot_invariant_preprocess=m.rot_invariant_preprocess,
         lrf_kind=m.lrf_kind,
         with_local_feat=m.with_local_feat,
-        local_neighbors=m.local_neighbors)
+        local_neighbors=m.local_neighbors,
+        use_new_coords_for_voxel=m.use_new_coords_for_voxel)
 
 
 def _improved(new: float, old: float | None) -> bool:
@@ -142,3 +158,156 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
             update_best(best, results, ckpt, state, config)
             ckpt.save_common(state, best, config)
     return {"state": state, "best": best, "loss": loss}
+
+
+def load_trained_state(ckpt_dir: str, name: str = "common") -> tuple[dict, dict]:
+    """A port checkpoint for evaluation: (the saved dict, whose 'model' is
+    the state dict and 'step' the update count; the config snapshot saved
+    beside it, {} when there is none)."""
+    ckpt = CheckpointManager(ckpt_dir)
+    raw = ckpt.restore_raw(name)
+    if raw is None:
+        raise FileNotFoundError(f"no checkpoint {name!r} under {ckpt_dir!r} "
+                                f"(expected {os.path.join(ckpt_dir, name)}.pt)")
+    meta = ckpt.load_meta(name) or {}
+    return raw, meta.get("config", {})
+
+
+def extractor_from_snapshot(config: ExperimentConfig, snapshot: dict) -> PVCNNClassifier:
+    """The registration feature extractor with the trained trunk's
+    architecture: the snapshot's model config wins over `config.model`,
+    `is_classify` is off, and `evaluate.canonical_voxel` on a
+    'change_coords' trunk turns on `use_new_coords_for_voxel` (the same
+    parameters, the voxel grid in the canonical frame)."""
+    snap_model = dict(snapshot.get("model") or {})
+    if snap_model:
+        known = {f.name for f in dataclasses.fields(ModelConfig)}
+        mcfg = ModelConfig(**{k: v for k, v in snap_model.items() if k in known})
+    else:
+        mcfg = dataclasses.replace(config.model)
+    mcfg.is_classify = False
+    if config.evaluate.canonical_voxel and mcfg.rot_invariant_preprocess == "change_coords":
+        mcfg.use_new_coords_for_voxel = True
+    return build_model(dataclasses.replace(config, model=mcfg))
+
+
+def resolve_extractor(config: ExperimentConfig, model: PVCNNClassifier | None = None,
+                      ckpt_dir: str | None = None, ckpt_name: str | None = None,
+                      device: str | torch.device | None = None,
+                      log: logging.Logger | None = None) -> PVCNNClassifier:
+    """The feature extractor to evaluate, in eval mode on `device`: an
+    explicit `model` (already on `device`) > the checkpoint `ckpt_name`
+    (default `evaluate.ckpt_name`, else 'common') in `ckpt_dir` or
+    `evaluate.ckpt_dir` > `train.ckpt_dir`'s, when it holds one > a seeded
+    init of `config.model` (logged as untrained). A checkpoint's classifier
+    head is dropped."""
+    device = resolve_device(device)
+    log = log or get_logger(config.name)
+    if model is not None:
+        p = next(model.parameters())
+        if p.device.type != device.type:
+            raise ValueError(f"model is on {p.device}, the run on {device}")
+        return model.eval()
+    ckpt_dir = ckpt_dir or config.evaluate.ckpt_dir
+    ckpt_name = ckpt_name or config.evaluate.ckpt_name or "common"
+    if ckpt_dir is None and os.path.isfile(
+            os.path.join(config.train.ckpt_dir, ckpt_name + ".pt")):
+        ckpt_dir = config.train.ckpt_dir
+    if ckpt_dir is not None:
+        raw, snapshot = load_trained_state(ckpt_dir, ckpt_name)
+        model = extractor_from_snapshot(config, snapshot)
+        model.load_state_dict({k: v for k, v in raw["model"].items()
+                               if not k.startswith("head.")})
+        log.info("restored %s/%s (step %d)", ckpt_dir, ckpt_name, int(raw["step"]))
+    else:
+        log.warning("evaluating an UNTRAINED model (no checkpoint found; pass ckpt_dir or "
+                    "evaluate.ckpt_dir for trained features)")
+        model = build_model(config)
+        init_params(model, config.seed)
+    return model.to(device).eval()
+
+
+def flip_features(model: PVCNNClassifier, x: Tensor, b: int) -> Tensor:
+    """Features [5b, n, c] of the 2b clouds x [2b, n, 6] (b sources, then
+    b targets): each source under its 4 LRF sign flips, in sources' order,
+    then each target under its own basis, in one forward. The bases are
+    those of the centred clouds, as the reference computes them outside
+    the model (which centres again inside)."""
+    clouds = x[..., :3].contiguous()  # reduced in the same order as the cat's inputs
+    basis = lrf_basis(clouds - clouds.mean(-2, keepdim=True), model.lrf_kind)
+    lrf_all = torch.cat([lrf_flip_hypotheses(basis[:b]).reshape(-1, 3, 3), basis[b:]], 0)
+    return model(torch.cat([x[:b].repeat_interleave(4, dim=0), x[b:]], 0), lrf=lrf_all)
+
+
+def register_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor,
+                        evaluate: EvalConfig) -> Tensor:
+    """Estimated transforms [b, 4, 4] of b pairs [b, n, 3] on the model's
+    device: normals of the 2b clouds; with `flip_hypotheses`,
+    `flip_features` (one [5b, n, 6] forward), `consensus_match` and
+    `register_pair_from_matches`; without, one 2b forward and
+    `register_pair`."""
+    if model.head is not None:
+        raise ValueError("registration needs a feature extractor (is_classify=False)")
+    b, n = src.shape[:2]
+    method, noise_bound = evaluate.method, evaluate.noise_bound
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        x = torch.cat([clouds, estimate_normals(clouds)], -1)
+        if not evaluate.flip_hypotheses:
+            feats = model(x)
+            return register_pair(src, dst, feats[:b], feats[b:], method, noise_bound)[0]
+        feats = flip_features(model, x, b)
+        f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
+        i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
+                                          tau=2.0 * noise_bound)
+        return register_pair_from_matches(src, dst, i1, i2, mask, method, noise_bound)[0]
+
+
+def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | None = None,
+                          ckpt_dir: str | None = None, ckpt_name: str | None = None,
+                          device: str | torch.device | None = None) -> dict:
+    """Registration evaluation of `config.evaluate` on one device (the card
+    unless `device` says otherwise): per batch of `batch_pairs` pairs, the
+    tail padded with copies of the first pair, `register_eval_batch` then
+    `pair_errors` of the real pairs. One untimed warm-up batch goes first
+    (the kernel build, cuDNN's choice of algorithm); `reg_time` is a
+    batch's wall time, ended by a synchronize, times its share of real
+    pairs. Returns the means over pairs of rre, rte, rmse, succ,
+    rmse_succ and reg_time. The extractor comes from `resolve_extractor`."""
+    device = resolve_device(device)
+    log = get_logger(config.name)
+    ev = config.evaluate
+    check_method(ev.method)
+    pairs = get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode, ev.num_pairs)
+    model = resolve_extractor(config, model, ckpt_dir, ckpt_name, device, log)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    meter = MeterRegistration()
+    batch_pairs = max(min(int(ev.batch_pairs), len(pairs)), 1)
+    warmed = False
+    for batch in pairs.batches(batch_pairs):
+        n_real = batch.source.shape[0]
+        src = torch.as_tensor(batch.source, device=device)
+        dst = torch.as_tensor(batch.target, device=device)
+        gt = torch.as_tensor(batch.transform, device=device)
+        if n_real < batch_pairs:  # pad the tail to the batch's shape
+            pad = batch_pairs - n_real
+            src = torch.cat([src, src[:1].expand(pad, -1, -1)], 0)
+            dst = torch.cat([dst, dst[:1].expand(pad, -1, -1)], 0)
+        if not warmed:
+            register_eval_batch(model, src, dst, ev)
+            sync()
+            warmed = True
+        t0 = time.perf_counter()
+        est = register_eval_batch(model, src, dst, ev)
+        sync()
+        reg_time = time.perf_counter() - t0
+        errors = pair_errors(src[:n_real], gt, est[:n_real])
+        meter.update({k: v.cpu().numpy() for k, v in errors.items()},
+                     reg_time * n_real / src.shape[0])
+    results = meter.compute()
+    log.info("registration eval [%s/%s]: %s", ev.pairs_mode, ev.method, results)
+    return results

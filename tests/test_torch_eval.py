@@ -1,0 +1,253 @@
+"""rift_tpu_torch's registration evaluation against rift_tpu's: the
+`evaluate` section of the flagship preset, `evaluate_registration` end to
+end on the flagship checkpoint converted to a port checkpoint (flip
+hypotheses and canonical voxels on) and on tiny_smoke widths without the
+flips, and the checkpoint resolution of `resolve_extractor`."""
+import dataclasses
+import json
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rift_tpu.train.loop as j_loop
+import rift_tpu_torch.train.loop as t_loop
+from rift_tpu.train import get_config as j_get_config
+from rift_tpu.train.checkpoint import CheckpointManager as JaxCheckpoints
+from rift_tpu.train.config import EvalConfig as JaxEvalConfig
+from rift_tpu.train.config import ModelConfig as JaxModelConfig
+from rift_tpu.train.steps import TrainState as JaxTrainState
+from rift_tpu_torch.train import (EvalConfig, evaluate_registration, extractor_from_snapshot,
+                                  get_config, resolve_extractor, train)
+from rift_tpu_torch.train.checkpoint import CheckpointManager
+from rift_tpu_torch.train.config import ModelConfig
+from rift_tpu_torch.weights import from_flax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP_DIR = os.path.join(ROOT, "checkpoints", "mn40_sph_pt_r4")
+# Per pair, where both runs recover the pose (RRE under RECOVERED degrees):
+# RRE within RRE_TOL degrees and RTE within RTE_TOL. On the flagship's 3
+# pairs the port and the reference pick the same hypotheses, masks and
+# kept sets; one pair ends GNC-TLS's polish on 5 inliers, where rounding
+# moves the fixed point by 7.5e-4 (0.015 degrees, RTE 1.4e-4; ROADMAP §3).
+RECOVERED, RRE_TOL, RTE_TOL = 15.0, 0.1, 1e-3
+EVAL_SMALL = dict(num_points=256, num_pairs=3, batch_pairs=2)  # a padded tail
+
+
+def _recording(module, sink):
+    """A MeterRegistration of `module` that also keeps each batch's
+    per-pair errors in `sink`."""
+    class Recording(module.MeterRegistration):
+        def update(self, errors, reg_time=0.0):
+            sink.append({k: np.asarray(v) for k, v in errors.items()})
+            super().update(errors, reg_time)
+    return Recording
+
+
+def _per_pair(batches):
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+
+
+def _run_both(monkeypatch, t_args, j_args):
+    """evaluate_registration of the port (device='cpu') and of the
+    reference: (results, per-pair errors) of each."""
+    got, want = [], []
+    monkeypatch.setattr(t_loop, "MeterRegistration", _recording(t_loop, got))
+    monkeypatch.setattr(j_loop, "MeterRegistration", _recording(j_loop, want))
+    t_res = evaluate_registration(*t_args[0], **t_args[1], device="cpu")
+    j_res = j_loop.evaluate_registration(*j_args[0], **j_args[1])
+    return t_res, _per_pair(got), j_res, _per_pair(want)
+
+
+def _hold(t_res, got, j_res, want, num_pairs):
+    assert set(t_res) == set(j_res) == {"rre", "rte", "rmse", "succ", "rmse_succ", "reg_time"}
+    assert all(np.isfinite(v) for v in t_res.values())
+    assert got["rre"].shape == want["rre"].shape == (num_pairs,)
+    np.testing.assert_array_equal(got["succ"], want["succ"])
+    both = (got["rre"] < RECOVERED) & (want["rre"] < RECOVERED)
+    np.testing.assert_allclose(got["rre"][both], want["rre"][both], rtol=0, atol=RRE_TOL)
+    np.testing.assert_allclose(got["rte"][both], want["rte"][both], rtol=0, atol=RTE_TOL)
+    assert t_res["succ"] == j_res["succ"]
+    return both
+
+
+def test_flagship_preset_evaluate_section_equals_the_meta_file():
+    with open(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json")) as f:
+        meta = json.load(f)["config"]["evaluate"]
+    ours = dataclasses.asdict(get_config("mn40_sph_pt_r4").evaluate)
+    assert ours == meta
+    assert ours["method"] == "teaserpp" and ours["pairs_mode"] == "noise"
+    assert (ours["num_pairs"], ours["num_points"], ours["batch_pairs"]) == (100, 1024, 64)
+    assert ours["canonical_voxel"] and ours["flip_hypotheses"]
+    # Every field of the reference's EvalConfig, with its default.
+    assert dataclasses.asdict(EvalConfig()) == dataclasses.asdict(JaxEvalConfig())
+
+
+@pytest.fixture(scope="module")
+def flagship_ckpt(tmp_path_factory):
+    """The flagship checkpoint (orbax, restored here only) written as a port
+    checkpoint: `best_acc.pt` (the classifier's state dict, head included)
+    beside a copy of its meta file."""
+    raw = JaxCheckpoints(FLAGSHIP_DIR).restore_raw("best_acc")
+    with open(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json")) as f:
+        snapshot = json.load(f)["config"]
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    mcfg = ModelConfig(**{k: v for k, v in snapshot["model"].items() if k in known})
+    classifier = t_loop.build_model(dataclasses.replace(get_config("mn40_sph_pt_r4"),
+                                                        model=mcfg))
+    assert classifier.head is not None
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    classifier.load_state_dict(from_flax(to_np(raw["params"]), to_np(raw["batch_stats"])))
+    out = tmp_path_factory.mktemp("flagship_port")
+    torch.save({"model": classifier.state_dict(), "optimizer": {},
+                "step": int(np.asarray(raw["step"])), "best": {}}, out / "best_acc.pt")
+    shutil.copy(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json"), out / "best_acc.meta.json")
+    return str(out), snapshot
+
+
+def test_extractor_from_the_converted_flagship(flagship_ckpt):
+    ckpt_dir, snapshot = flagship_ckpt
+    cfg = get_config("mn40_sph_pt_r4")
+    cfg.model.dim_k = 999  # the snapshot's architecture wins
+    model = resolve_extractor(cfg, ckpt_dir=ckpt_dir, ckpt_name="best_acc", device="cpu")
+    assert model.head is None and model.use_new_coords_for_voxel
+    assert model.out_channels == 512 and model.lrf_kind == "pca"
+    assert not model.training
+    cfg.evaluate.canonical_voxel = False
+    assert not extractor_from_snapshot(cfg, snapshot).use_new_coords_for_voxel
+
+
+def test_evaluate_registration_matches_reference_on_the_flagship(flagship_ckpt, monkeypatch):
+    """The flagship's evaluation (teaserpp, flip hypotheses, canonical
+    voxels) on 3 noise pairs of 256 points, 2 a batch: per pair equal
+    `succ`, and RRE/RTE within RRE_TOL/RTE_TOL where both recover."""
+    ckpt_dir, _ = flagship_ckpt
+    cfg = get_config("mn40_sph_pt_r4")
+    jcfg = j_get_config("mn40_sph_pt")
+    for c in (cfg, jcfg):
+        for k, v in EVAL_SMALL.items():
+            setattr(c.evaluate, k, v)
+    t_res, got, j_res, want = _run_both(
+        monkeypatch, ((cfg,), dict(ckpt_dir=ckpt_dir, ckpt_name="best_acc")),
+        ((jcfg,), dict(ckpt_dir=FLAGSHIP_DIR, ckpt_name="best_acc")))
+    both = _hold(t_res, got, j_res, want, 3)
+    assert both.all(), (got["rre"], want["rre"])  # the trained flagship recovers all 3
+    for k in ("rre", "rte"):
+        assert abs(t_res[k] - j_res[k]) <= (RRE_TOL if k == "rre" else RTE_TOL)
+
+
+def test_chip_smoke_staged_batch_is_register_eval_batch(flagship_ckpt):
+    """chip_smoke.py's staged evaluation batch calls the shipped functions
+    in register_eval_batch's order: on the CPU its pose is bit-equal to
+    register_eval_batch's, its stages are the ones it reports, and its
+    hypothesis is the argmax of the scores it reads."""
+    import importlib.util
+
+    from rift_tpu_torch.data import get_pairs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ckpt_dir, _ = flagship_ckpt
+    cfg = get_config("mn40_sph_pt_r4")
+    ev = cfg.evaluate
+    model = resolve_extractor(cfg, ckpt_dir=ckpt_dir, ckpt_name="best_acc", device="cpu")
+    batch = next(get_pairs(ev.pairs_path, 256, ev.pairs_mode, 2).batches(2))
+    src, dst = torch.as_tensor(batch.source), torch.as_tensor(batch.target)
+    split = {}
+    stages = chip_smoke.eval_stages(model, src, dst, ev.noise_bound, timed=split)
+    est = t_loop.register_eval_batch(model, src, dst, ev)
+    assert torch.equal(stages["transform"], est)
+    assert list(split) == ["normals", "forward 5b", "consensus", "TEASER core",
+                           "TEASER rotation", "TEASER polish"]
+    assert stages["feats"].shape == (5 * 2, 256, model.out_channels)
+    assert torch.equal(stages["h"], torch.argmax(stages["scores"], -1))
+
+
+def test_evaluate_registration_matches_reference_at_tiny_smoke_without_flips(rng, monkeypatch):
+    """tiny_smoke widths (pointnet, PCA frame), `flip_hypotheses=False`:
+    one 2b forward and `register_pair` per batch, the same seeded weights
+    on both sides given as an explicit model."""
+    cfg = get_config("tiny_smoke")
+    cfg.model.is_classify = False
+    cfg.evaluate.flip_hypotheses = False
+    for k, v in EVAL_SMALL.items():
+        setattr(cfg.evaluate, k, v)
+    jcfg = j_get_config("tiny_smoke")
+    jcfg.model = JaxModelConfig(**dataclasses.asdict(cfg.model))
+    jcfg.evaluate = JaxEvalConfig(**dataclasses.asdict(cfg.evaluate))
+    jax_model = j_loop.build_model(jcfg)
+    variables = jax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 6)), train=False)
+    perturb = lambda tree, lo, hi: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: (np.asarray(a) + rng.uniform(lo, hi, np.shape(a))).astype(np.float32), tree)
+    params = perturb(variables["params"], -0.05, 0.05)
+    stats = perturb(variables["batch_stats"], 0.1, 0.5)
+    model = t_loop.build_model(cfg)
+    model.load_state_dict(from_flax(params, stats))
+    state = JaxTrainState(step=0, params=params, batch_stats=stats, opt_state=None)
+    t_res, got, j_res, want = _run_both(monkeypatch, ((cfg,), dict(model=model)),
+                                        ((jcfg,), dict(state=state, model=jax_model)))
+    # Random weights: one of the 3 pairs is recovered (4.45 degrees); the
+    # others are undetermined and held only by `succ`.
+    assert _hold(t_res, got, j_res, want, 3).any(), (got["rre"], want["rre"])
+
+
+def test_resolve_extractor_picks_the_common_checkpoint_of_train(tmp_path):
+    """train() of the port writes `common` into train.ckpt_dir; with no
+    ckpt_dir given, evaluation restores it (trunk only, canonical voxels);
+    an explicit ckpt_dir wins over it, an explicit model over both; with
+    no checkpoint at all a seeded init of config.model is evaluated."""
+    cfg = get_config("tiny_smoke")
+    cfg.train.ckpt_dir = str(tmp_path / "trained")
+    cfg.optim.num_epochs = 1
+    cfg.train.steps_per_epoch = 2
+    out = train(cfg, device="cpu")
+    cfg.evaluate.num_points, cfg.evaluate.num_pairs = 128, 2
+    model = resolve_extractor(cfg, device="cpu")
+    assert model.head is None and model.use_new_coords_for_voxel
+    trained = out["state"].model.state_dict()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, trained[k], rtol=0, atol=0)
+    results = evaluate_registration(cfg, device="cpu")
+    assert all(np.isfinite(v) for v in results.values())
+
+    # An explicit ckpt_dir wins: another run's best checkpoint.
+    other = get_config("tiny_smoke")
+    other.seed = 5
+    other.train.ckpt_dir = str(tmp_path / "other")
+    other.optim.num_epochs, other.train.steps_per_epoch = 1, 1
+    other_state = train(other, device="cpu")["state"].model.state_dict()
+    picked = resolve_extractor(cfg, ckpt_dir=other.train.ckpt_dir, ckpt_name="best_acc",
+                               device="cpu").state_dict()
+    key = "layers.PVConv_0.convs.0.weight"
+    torch.testing.assert_close(picked[key], other_state[key], rtol=0, atol=0)
+    assert not torch.equal(picked[key], trained[key])
+    assert resolve_extractor(cfg, model=model, device="cpu") is model
+    with pytest.raises(FileNotFoundError):
+        resolve_extractor(cfg, ckpt_dir=str(tmp_path / "empty"), device="cpu")
+
+    # No checkpoint: a seeded init of config.model, which must not be a
+    # classifier to register.
+    cfg.train.ckpt_dir = str(tmp_path / "none")
+    with pytest.raises(ValueError, match="feature extractor"):
+        evaluate_registration(cfg, device="cpu")
+    cfg.model.is_classify = False
+    untrained = resolve_extractor(cfg, device="cpu")
+    assert untrained.head is None and not untrained.use_new_coords_for_voxel
+    assert all(np.isfinite(v) for v in evaluate_registration(cfg, device="cpu").values())
+    cfg.evaluate.method = "ransac"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        evaluate_registration(cfg, device="cpu")
+
+
+def test_checkpoint_restore_raw_round_trip(tmp_path):
+    ckpt = CheckpointManager(str(tmp_path))
+    assert ckpt.restore_raw("common") is None
+    torch.save({"model": {"w": torch.ones(2)}, "step": 3}, tmp_path / "common.pt")
+    raw = ckpt.restore_raw("common")
+    assert raw["step"] == 3 and torch.equal(raw["model"]["w"], torch.ones(2))

@@ -87,6 +87,45 @@ def test_small_model_matches_reference(rng):
     _compare(got, want)
 
 
+def test_small_model_with_lrf_and_canonical_voxels_matches_reference(rng):
+    """The evaluation's forward: `use_new_coords_for_voxel=True` and the
+    basis given as `lrf` (a random sign flip of each cloud's PCA frame, and
+    a random rotation), under the tolerance of the small-model test."""
+    from rift_tpu.ops.lrf import lrf_basis as j_lrf_basis
+    from rift_tpu.ops.lrf import lrf_flip_hypotheses as j_flips
+
+    cfg = dict(blocks=((16, 1, 8), (32, 1, None)), dim_k=32, is_classify=False,
+               point_kernel_formal="pointnet_kernel", voxel_shape="spherical",
+               lrf_kind="pca", local_neighbors=16, with_coeff=True, with_se=True,
+               use_new_coords_for_voxel=True)
+    x = _inputs(rng, 3, 192)
+    centred = x[..., :3] - x[..., :3].mean(-2, keepdims=True)
+    basis = np.asarray(j_flips(j_lrf_basis(jnp.asarray(centred), "pca")))
+    lrf = basis[np.arange(3), [1, 3, 2]]
+    q, _ = np.linalg.qr(rng.randn(3, 3))
+    lrf[2] = (q * np.sign(np.linalg.det(q))).astype(np.float32)
+    jax_model = JaxPVCNN(**cfg)
+    variables = jax_model.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    params = _perturb(variables["params"], rng, -0.05, 0.05)
+    stats = {"batch_stats": _perturb(variables["batch_stats"], rng, 0.1, 0.5)}
+    want = np.asarray(jax_model.apply({"params": params, **stats}, jnp.asarray(x), train=False,
+                                      lrf=jnp.asarray(lrf)))
+    model = PVCNNClassifier(**cfg)
+    model.load_state_dict(from_flax(params, stats["batch_stats"]))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x), lrf=torch.from_numpy(lrf)).numpy()
+        default = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (3, 192, 32)
+    _compare(got, want)
+    # The basis and the voxel frame both count: another basis, or the raw
+    # frame for the voxels, gives other features.
+    assert np.abs(default - got).max() > 1e-2 * np.abs(want).max()
+    model.use_new_coords_for_voxel = False
+    with torch.no_grad():
+        raw_voxels = model(torch.from_numpy(x), lrf=torch.from_numpy(lrf)).numpy()
+    assert np.abs(raw_voxels - got).max() > 1e-2 * np.abs(want).max()
+
+
 def test_from_flax_rejects_unmapped_keys(rng):
     cfg = dict(blocks=((8, 1, 4),), dim_k=8, is_classify=False,
                point_kernel_formal="pointnet_kernel", local_neighbors=8)

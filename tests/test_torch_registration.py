@@ -200,3 +200,299 @@ def _register_against_reference(rng, cfg):
     assert np.isfinite(got_t).all() and got_t.shape == (2, 4, 4)
     return (src, gt, got_t, np.stack(want_t), got_idx.numpy(), got_mask.numpy(),
             np.stack(want_idx), np.stack(want_mask))
+
+
+# --- The flagship's evaluation solvers: flip hypotheses, consensus, TEASER.
+
+def test_lrf_flip_hypotheses_bit_equal(rng):
+    from rift_tpu.ops.lrf import lrf_flip_hypotheses as j_flips
+    from rift_tpu_torch.ops.lrf import lrf_flip_hypotheses
+
+    basis = rng.randn(5, 3, 3).astype(np.float32)
+    got = lrf_flip_hypotheses(torch.from_numpy(basis)).numpy()
+    want = np.asarray(j_flips(jnp.asarray(basis)))
+    assert got.shape == want.shape == (5, 4, 3, 3)
+    np.testing.assert_array_equal(got, want)
+    # Each hypothesis of a rotation is a rotation.
+    rot = np.stack([_rot(rng) for _ in range(2)]).astype(np.float32)
+    dets = np.linalg.det(lrf_flip_hypotheses(torch.from_numpy(rot)).numpy().astype(np.float64))
+    np.testing.assert_allclose(dets, 1.0, atol=1e-5)
+
+
+def _rigid_set(rng, b, n, inliers, noise=0.003):
+    """b pairs of n matched points, the first `inliers` a rigid motion of
+    the source plus noise, the rest uniform outliers; (src, dst, gt)."""
+    src = rng.randn(b, n, 3).astype(np.float32)
+    gt = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    dst = np.empty_like(src)
+    for i in range(b):
+        gt[i, :3, :3] = _rot(rng)
+        gt[i, :3, 3] = rng.uniform(-0.5, 0.5, 3)
+        dst[i] = src[i] @ gt[i, :3, :3].T + gt[i, :3, 3] + noise * rng.randn(n, 3)
+        dst[i, inliers:] = rng.uniform(-2.5, 2.5, (n - inliers, 3))
+    return src, dst.astype(np.float32), gt
+
+
+SEPARATED = 1e-6
+
+
+def _boundary_margin(src, dst, bound):
+    """Smallest |‖s_i − s_j‖ − ‖d_i − d_j‖ − bound| over all pairs, in f64:
+    how far every compatibility decision is from its threshold. The tests
+    ask for SEPARATED = 1e-6, about 8 f32 ulps of a distance of 4, well
+    above the rounding of either framework's distances."""
+    def pd(x):
+        x = x.astype(np.float64)
+        return np.linalg.norm(x[..., :, None, :] - x[..., None, :, :], axis=-1)
+    return float(np.abs(np.abs(pd(src) - pd(dst)) - bound).min())
+
+
+def test_rigidity_score_matches_reference(rng):
+    from rift_tpu.registration.consensus import rigidity_score as j_score
+    from rift_tpu_torch.registration import rigidity_score
+
+    b, n, tau = 3, 96, 0.04
+    src, dst, _ = _rigid_set(rng, b, n, 60)
+    i1 = np.stack([rng.permutation(n) for _ in range(b)])
+    i2 = np.stack([rng.permutation(n) for _ in range(b)])
+    i2[:, :48] = i1[:, :48]  # half the matches true
+    mask = rng.rand(b, n) > 0.2
+    p = np.take_along_axis(src, i1[..., None], 1)
+    q = np.take_along_axis(dst, i2[..., None], 1)
+    # No pair sits within SEPARATED of tau: the counts are decided away
+    # from rounding, so they must be equal.
+    assert _boundary_margin(p, q, tau) > SEPARATED
+    got = rigidity_score(*map(torch.from_numpy, (src, dst, i1, i2, mask)), tau)
+    want = [int(j_score(jnp.asarray(src[i]), jnp.asarray(dst[i]), jnp.asarray(i1[i]),
+                        jnp.asarray(i2[i]), jnp.asarray(mask[i]), tau)) for i in range(b)]
+    assert got.tolist() == want and min(want) > 0
+
+
+def test_consensus_match_matches_reference(rng):
+    """Features of 4 hypotheses of which one (a different one per pair)
+    matches the target: the same matches, masks and hypothesis."""
+    from rift_tpu.registration.consensus import consensus_match as j_consensus
+    from rift_tpu_torch.registration import consensus_match
+
+    b, n, c, tau = 3, 80, 16, 0.04
+    src, dst, _ = _rigid_set(rng, b, n, n)
+    feat_dst = rng.randn(b, n, c).astype(np.float32)
+    feat_src_h = rng.randn(b, 4, n, c).astype(np.float32)
+    for i, h in enumerate((2, 0, 3)):
+        feat_src_h[i, h] = feat_dst[i] + 0.3 * rng.randn(n, c)
+        # Another hypothesis with half the true matches.
+        feat_src_h[i, (h + 1) % 4, : n // 2] = feat_dst[i, : n // 2] + 0.3 * rng.randn(n // 2, c)
+    got = consensus_match(*map(torch.from_numpy, (src, dst, feat_src_h, feat_dst)), tau=tau)
+    for i, h in enumerate((2, 0, 3)):
+        want = j_consensus(jnp.asarray(src[i]), jnp.asarray(dst[i]),
+                           jnp.asarray(feat_src_h[i]), jnp.asarray(feat_dst[i]), tau=tau)
+        assert int(want[3]) == int(got[3][i]) == h
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        consensus_match(*map(torch.from_numpy, (src, dst, feat_src_h, feat_dst)),
+                        spatial_valid=torch.ones(b, n, n, dtype=torch.bool))
+
+
+def test_hypothesis_matches_scores_every_hypothesis_as_the_reference(rng):
+    """The matches and rigidity score of each of 4 hypotheses, against the
+    reference's mutual NN and rigidity_score on that hypothesis: equal;
+    consensus_match is choose_hypothesis of them."""
+    from rift_tpu.registration.consensus import rigidity_score as j_score
+    from rift_tpu_torch.registration import (choose_hypothesis, consensus_match,
+                                             hypothesis_matches)
+
+    b, n, c, tau = 2, 64, 8, 0.04
+    src, dst, _ = _rigid_set(rng, b, n, n)
+    feat_dst = rng.randn(b, n, c).astype(np.float32)
+    feat_src_h = (feat_dst[:, None] + rng.uniform(0.1, 2.0, (b, 4, 1, 1))
+                  * rng.randn(b, 4, n, c)).astype(np.float32)
+    args = tuple(map(torch.from_numpy, (src, dst, feat_src_h, feat_dst)))
+    i1s, i2s, masks, scores = hypothesis_matches(*args, tau=tau)
+    assert scores.shape == (b, 4) and scores.dtype == torch.int64
+    for i in range(b):
+        for h in range(4):
+            w1, w2, wm = j_mnn(jnp.asarray(feat_src_h[i, h]), jnp.asarray(feat_dst[i]))
+            np.testing.assert_array_equal(i2s[i, h].numpy(), np.asarray(w2))
+            np.testing.assert_array_equal(masks[i, h].numpy(), np.asarray(wm))
+            assert int(scores[i, h]) == int(j_score(jnp.asarray(src[i]), jnp.asarray(dst[i]),
+                                                     w1, w2, wm, tau))
+    for g, w in zip(consensus_match(*args, tau=tau),
+                    choose_hypothesis(i1s, i2s, masks, scores)):
+        assert torch.equal(g, w)
+
+
+def test_consensus_ties_go_to_the_first_hypothesis(rng):
+    from rift_tpu_torch.registration import consensus_match
+
+    src, dst, _ = _rigid_set(rng, 1, 32, 32)
+    feat = rng.randn(1, 32, 8).astype(np.float32)
+    same = np.repeat(feat[:, None], 4, 1)  # 4 equal hypotheses: equal scores
+    _, _, mask, h = consensus_match(*map(torch.from_numpy, (src, dst, same, feat)))
+    assert int(h[0]) == 0 and bool(mask.all())
+
+
+@pytest.mark.parametrize("outliers", [0.3, 0.9])
+def test_compatibility_core_matches_reference(rng, outliers):
+    from rift_tpu.registration.gnc import compatibility_core as j_core
+    from rift_tpu_torch.registration import compatibility_core
+
+    b, n, nb = 3, 200, 0.02
+    src, dst, _ = _rigid_set(rng, b, n, int(round(n * (1 - outliers))))
+    valid = rng.rand(b, n) > 0.05
+    # Separated data: every |Δ distance| at least SEPARATED from 2·noise_bound.
+    assert _boundary_margin(src, dst, 2 * nb) > SEPARATED
+    keep, deg = compatibility_core(*map(torch.from_numpy, (src, dst, valid)), nb)
+    for i in range(b):
+        wk, wd = j_core(jnp.asarray(src[i]), jnp.asarray(dst[i]), jnp.asarray(valid[i]), nb)
+        np.testing.assert_array_equal(keep[i].numpy(), np.asarray(wk))
+        np.testing.assert_array_equal(deg[i].numpy(), np.asarray(wd))
+    inl = int(round(n * (1 - outliers)))
+    assert keep[:, :inl][torch.from_numpy(valid[:, :inl])].float().mean() > 0.8
+
+
+def test_rotation_gnc_tls_and_masked_median_match_reference(rng):
+    from rift_tpu.registration.gnc import _masked_component_median as j_median
+    from rift_tpu.registration.gnc import _rotation_gnc_tls as j_rot_gnc
+    from rift_tpu_torch.registration.gnc import _masked_component_median, _rotation_gnc_tls
+
+    b, n = 3, 120
+    src, dst, gt = _rigid_set(rng, b, n, 80)
+    v = src - src[:, :1]
+    w = dst - dst[:, :1]
+    valid = rng.rand(b, n) > 0.1
+    valid[:, 0] = False  # the anchor itself
+    got = _rotation_gnc_tls(torch.from_numpy(v), torch.from_numpy(w),
+                            torch.from_numpy(valid), 0.04).numpy()
+    for i in range(b):
+        want = np.asarray(j_rot_gnc(jnp.asarray(v[i]), jnp.asarray(w[i]),
+                                    jnp.asarray(valid[i]), 0.04))
+        # 40 iterations of the same weights from the same start: f32 rounding.
+        np.testing.assert_allclose(got[i], want, atol=1e-5)
+        np.testing.assert_allclose(got[i], gt[i, :3, :3], atol=2e-2)
+    # The median: exact (a sort and a pick), with all, some and no rows valid.
+    x = rng.randn(4, 37, 3).astype(np.float32)
+    mask = rng.rand(4, 37) > 0.5
+    mask[1] = True
+    mask[2] = False
+    mask[3] = False
+    mask[3, 5] = True
+    got = _masked_component_median(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    want = np.stack([np.asarray(j_median(jnp.asarray(x[i]), jnp.asarray(mask[i])))
+                     for i in range(4)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[3], x[3, 5])
+
+
+@pytest.mark.parametrize("polish", [True, False])
+@pytest.mark.parametrize("outliers", [0.3, 0.9])
+def test_teaser_pose_matches_reference(rng, outliers, polish):
+    """The TEASER-style pose on well-determined sets (tens of inliers, 30%
+    and 90% outliers, as tests/test_registration.py's TEASER tests): the
+    same inliers and the pose recovered on both. With the polish, GNC-TLS
+    ends at the same weights (all 0 or 1 here): transforms within 1e-5.
+    Without it the pose is the TIM rotation's 40 fixed GNC iterations,
+    whose band weights amplify rounding as μ grows by 1.4⁴⁰ (differences
+    up to 1.04e-4 seen): within 3e-4, under a fifth of that pose's own
+    error to the truth (1.6e-3 or more here)."""
+    from rift_tpu.registration.gnc import teaser_pose as j_teaser
+    from rift_tpu_torch.registration import teaser_pose
+
+    b, n, nb = 3, 256, 0.02
+    inl = int(round(n * (1 - outliers)))
+    src, dst, gt = _rigid_set(rng, b, n, inl)
+    valid = np.ones((b, n), bool)
+    assert _boundary_margin(src, dst, 2 * nb) > SEPARATED
+    t, w = teaser_pose(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                       noise_bound=nb, polish=polish)
+    wt, ww = jax.vmap(lambda s, d, v: j_teaser(s, d, v, noise_bound=nb, polish=polish))(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid))
+    np.testing.assert_allclose(t.numpy(), np.asarray(wt), atol=1e-5 if polish else 3e-4)
+    np.testing.assert_array_equal(w.numpy() > 0.5, np.asarray(ww) > 0.5)
+    errs = pair_errors(torch.from_numpy(src), torch.from_numpy(gt), t)
+    assert float(errs["rre"].max()) < 2.0 and float(errs["rte"].max()) < 0.05, errs
+    assert (w[:, :inl] > 0.5).float().mean() > 0.8
+
+
+def test_gnc_pose_from_init_transform_matches_reference(rng):
+    src, dst, valid = _matches(rng, 3, 128, 0.3)
+    init = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    init[:, :3, 3] = rng.uniform(-0.1, 0.1, (3, 3))
+    t, w = gnc_pose(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                    noise_bound=0.02, init_transform=torch.from_numpy(init))
+    wt, ww = jax.vmap(lambda s, d, v, i: j_gnc(s, d, v, noise_bound=0.02, init_transform=i))(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), jnp.asarray(init))
+    np.testing.assert_allclose(t.numpy(), np.asarray(wt), atol=1e-4)
+    np.testing.assert_allclose(w.numpy(), np.asarray(ww), atol=1e-4)
+    # The seed matters: from the identity, a different start than Kabsch.
+    t0, _ = gnc_pose(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                     noise_bound=0.02, max_iterations=1,
+                     init_transform=torch.from_numpy(init))
+    t1, _ = gnc_pose(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                     noise_bound=0.02, max_iterations=1)
+    assert float((t0 - t1).abs().max()) > 1e-3
+
+
+def test_register_pair_from_matches_matches_reference(rng):
+    from rift_tpu.registration.pipeline import register_pair_from_matches as j_from_matches
+    from rift_tpu_torch.registration import register_pair, register_pair_from_matches
+
+    b, n = 2, 160
+    src, dst, gt = _rigid_set(rng, b, n, 100)
+    idx1 = np.stack([rng.permutation(n) for _ in range(b)])
+    idx2 = idx1.copy()
+    idx2[:, 120:] = rng.randint(0, n, (b, n - 120))
+    mask = rng.rand(b, n) > 0.1
+    t, inl = register_pair_from_matches(*map(torch.from_numpy, (src, dst, idx1, idx2, mask)))
+    for i in range(b):
+        wt, winl = j_from_matches(*map(jnp.asarray, (src[i], dst[i], idx1[i], idx2[i], mask[i])),
+                                  method="teaserpp")
+        np.testing.assert_allclose(t[i].numpy(), np.asarray(wt), atol=1e-4)
+        np.testing.assert_array_equal(inl[i].numpy(), np.asarray(winl))
+    for method, item in (("ransac", "8"), ("fgr", "8"), ("icp", "8"), ("teaserpp+icp", "8"),
+                         ("ransac+picp", "8"), ("fgr+pl", "8")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            register_pair_from_matches(*map(torch.from_numpy, (src, dst, idx1, idx2, mask)),
+                                       method=method)
+    with pytest.raises(NotImplementedError, match="'svd' is not ported"):
+        register_pair(*map(torch.from_numpy, (src, dst, src, dst)), method="svd")
+
+
+def test_meter_registration_matches_reference(rng):
+    from rift_tpu.train.meters import MeterRegistration as JMeter
+    from rift_tpu_torch.train.meters import MeterRegistration
+
+    ours, ref = MeterRegistration(), JMeter()
+    for b in (3, 1, 2):
+        errors = {k: rng.rand(b).astype(np.float32)
+                  for k in ("rre", "rte", "rmse", "succ", "rmse_succ")}
+        t = float(rng.rand())
+        ours.update(errors, t)
+        ref.update(errors, t)
+    assert ours.compute() == ref.compute() and ours.num == ref.num == 6
+
+
+@pytest.mark.parametrize("mode", ["noise", "clean"])
+def test_get_pairs_and_batches_give_the_reference_arrays(mode, tmp_path):
+    from rift_tpu.data.registration_pairs import get_pairs as j_get_pairs
+    from rift_tpu_torch.data import PairBatch, get_pairs
+
+    missing = str(tmp_path / "no_such_file.h5")  # not a file: synthetic pairs
+    ours = list(get_pairs(missing, 64, mode, 5).batches(2))
+    ref = list(j_get_pairs(missing, 64, mode, 5).batches(2))
+    assert [b.source.shape[0] for b in ours] == [2, 2, 1]
+    for a, b in zip(ours, ref):
+        assert isinstance(a, PairBatch)
+        for field in ("source", "target", "transform"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+
+
+def test_get_pairs_refuses_what_is_not_ported(tmp_path):
+    from rift_tpu_torch.data import get_pairs
+
+    h5 = tmp_path / "pairs.h5"
+    h5.write_bytes(b"")
+    for args in ((str(h5), 64, "noise"), (None, 64, "icl_nuim"), (None, 64, "partial"),
+                 (None, 64, "partial0.5")):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+            get_pairs(*args, num_pairs=2)
