@@ -2,8 +2,9 @@
 against its plain PyTorch version, register 16 scan pairs of 1024 points at
 the flagship width and with bench.py's headline model in bf16, train the
 flagship classifier on batches of 16 clouds of 1024 points, run the
-flagship's registration evaluation (100 pairs, flip hypotheses, TEASER),
-and compare every path with its CPU run.
+flagship's registration evaluation (100 pairs, flip hypotheses, TEASER) and
+the reference's recommended reg_noise preset (cube trunk, RANSAC and
+point-to-plane ICP), and compare every path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -61,6 +62,19 @@ Phases (each prints one line with its wall time):
                5b forward, consensus, TEASER core, rotation, polish,
                metrics), 4 of its pairs against the CPU (EVAL_PARITY), and
                K2 and K3 at the 5b forward's shapes.
+ 11. evaluate reg_noise — evaluate_registration of the reg_noise preset
+               unchanged (cube trunk, dgcnn_kernel, global PPF, reference
+               LRF; ransac+picp with 1000 hypotheses; 100 noise pairs x
+               1024 points, 64 a batch, flips, canonical voxels) from a
+               seeded checkpoint: K1, K2, K3 launched 2, 2, 2 times a batch,
+               finite results, pairs/s, peak memory; a 64-pair batch timed,
+               profiled and staged (normals, the 5b forward, consensus, RANSAC
+               sampling, RANSAC scoring + refit + IRLS, ICP point-to-point,
+               normals of the targets, ICP point-to-plane, errors; the
+               consensus, RANSAC and both ICPs under sync debug mode
+               "error"), 4 of its pairs against the CPU on the same RANSAC
+               samples (reg_parity), every method name on 16 pairs
+               (SWEEP), and K1, K2 and K3 at this path's cube shapes.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -231,6 +245,47 @@ EVALUATE_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2
 # most TLS_COST_SLACK above the CPU pose's.
 EVAL_PARITY_PAIRS = 4
 SCORE_MARGIN = 0.05
+# The reference's recommended registration preset, run unchanged by
+# evaluate_registration: reg_noise (cube trunk, dgcnn_kernel, 4 global-PPF
+# channels, reference LRF; 'ransac+picp' with 1000 hypotheses, inlier
+# threshold 0.08, 3 IRLS steps; 100 noise pairs of 1024 points, 64 a batch;
+# flips and canonical voxels). Kernel launches per batch: K1 on the 2b
+# clouds and on the b targets ('+picp's normals), K2 and K3 twice.
+REG_PRESET = "reg_noise"
+REG_LAUNCHES = {"normals_moments": 2, "scatter_mean": 2, "corner_gather": 2}
+# Card vs CPU on the first EVAL_PARITY_PAIRS pairs of a staged reg_noise
+# batch (reg_parity), on the card's RANSAC samples: features, hypotheses
+# and mutual-NN agreement by the EVAL_PARITY rules; where the matches are
+# the same, RANSAC's scores on the same samples, and its winner equal
+# wherever the scores are (the first maximum; a residual on the 0.08
+# threshold may round a score apart, and then the card's winner scores
+# within one inlier of the CPU's best on the CPU). Poses, RANSAC's and the
+# '+picp' pose after it, each: the solver on the CPU run's matches and
+# samples on the card within TRANSFORM_TOL of the CPU's, and end to end
+# where the matches and the winner are the same, on every pair whose CPU
+# pose a NUDGE of the targets leaves within TRANSFORM_TOL (REG_NUDGE_TRIES
+# tries). RANSAC's pose must be determined on at least half of the pairs;
+# the '+picp' pose need not be: with random weights the matches are noise,
+# RANSAC's start is arbitrary, and from it ICP's nearest neighbours flip
+# under the nudge (by 1.7 on a pair of a CPU run at 256 points).
+REG_NUDGE_TRIES = 2
+# The method sweep (SWEEP): all 13 names on SWEEP_PAIRS pairs' consensus
+# matches, each finite; on the first SWEEP_CPU_PAIRS of them, card vs CPU
+# within TRANSFORM_TOL where SWEEP_NUDGE_TRIES nudges leave the CPU pose in
+# place, with at least SWEEP_MIN_DETERMINED of the pairs determined: 'fgr'
+# on the same matches (64 fixed smooth iterations), 'icp' from the
+# identity (pairs turned by up to 360 degrees land in arbitrary local
+# minima: no minimum), and refine_pose's '+icp', '+picp' and '+pl' from one
+# init, the ground truth turned by SWEEP_INIT_DEG degrees and shifted by
+# SWEEP_INIT_SHIFT, as a recovered RANSAC start. The point-to-plane step is
+# no contraction along a surface's free directions (the reference's too,
+# tests/test_torch_solvers.py), so '+picp' and '+pl' need one pair only
+# (2 of 4 were determined in a CPU run at 256 points). The CPU's
+# solvers are slow at 1024 points (seconds an ICP of 4 pairs), hence the
+# few pairs and nudges.
+SWEEP_PAIRS, SWEEP_CPU_PAIRS, SWEEP_NUDGE_TRIES = 16, 4, 1
+SWEEP_INIT_DEG, SWEEP_INIT_SHIFT = 2.0, 0.02
+SWEEP_MIN_DETERMINED = {"fgr": 0.5, "icp": 0.0, "+icp": 0.5, "+picp": 0.25, "+pl": 0.25}
 # Card vs CPU, one step on PARITY_CLOUDS clouds from the same weights:
 # loss within 1e-3 relative; BN running statistics within 1e-3 of each
 # buffer's largest value; per parameter, the gradients' cosine >= 0.999
@@ -1239,22 +1294,52 @@ def stage_split(model, src, dst) -> dict:
 # --- The flagship's registration evaluation (train/loop.py) ---------------
 
 
-def eval_checkpoint(ckpt_dir: str, seed: int = 0):
-    """The mn40_sph_pt_r4 preset's classifier with seeded weights, saved by
-    the port's CheckpointManager as `common` in `ckpt_dir` (with the preset
-    as its config snapshot): the checkpoint evaluate_registration restores
-    from train.ckpt_dir. Returns the preset with that train.ckpt_dir."""
+def eval_checkpoint(ckpt_dir: str, preset: str = "mn40_sph_pt_r4", seed: int = 0):
+    """The preset's model (the flagship's classifier by default) with seeded
+    weights, saved by the port's CheckpointManager as `common` in
+    `ckpt_dir` (with the preset as its config snapshot): the checkpoint
+    evaluate_registration restores from train.ckpt_dir. Returns the preset
+    with that train.ckpt_dir."""
     import torch
 
     from rift_tpu_torch.train import build_model, create_state, get_config
     from rift_tpu_torch.train.checkpoint import CheckpointManager
 
-    cfg = get_config("mn40_sph_pt_r4")
+    cfg = get_config(preset)
     cfg.train.ckpt_dir = ckpt_dir
     state = create_state(build_model(cfg), cfg, 1, torch.device("cpu"), seed=seed)
     seeded_model(seed, state.model)
     CheckpointManager(ckpt_dir).save_common(state, {}, cfg)
     return cfg
+
+
+def run_stage(name: str, fn, cuda: bool, timed: dict | None, sync_free: bool = False):
+    """fn() as one stage of a staged batch: on the card, ended by a
+    synchronize (and begun after one), and, when `sync_free`, run under sync
+    debug mode "error", where a host sync inside it (an .item(), a bool() of
+    a tensor, a copy of constants from the host) fails the run. Its wall ms
+    is added to `timed` under `name` when given."""
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if cuda and sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        result = fn()
+    except RuntimeError as e:
+        if cuda and sync_free and "synchroniz" in str(e):
+            fail(f"the {name} stage synchronized with the host: {e}")
+        raise
+    finally:
+        if cuda and sync_free:
+            torch.cuda.set_sync_debug_mode("default")
+    if cuda:
+        torch.cuda.synchronize()
+    if timed is not None:
+        timed[name] = timed.get(name, 0.0) + (time.perf_counter() - t1) * 1e3
+    return result
 
 
 def eval_stages(model, src, dst, noise_bound: float, timed: dict | None = None) -> dict:
@@ -1276,31 +1361,8 @@ def eval_stages(model, src, dst, noise_bound: float, timed: dict | None = None) 
     from rift_tpu_torch.registration.gnc import _tim_pose
     from rift_tpu_torch.train.loop import flip_features
 
-    cuda = src.device.type == "cuda"
-
     def stage(name, fn, sync_free=False):
-        """On the card, a `sync_free` stage runs under sync debug mode
-        "error": a host sync inside it (an .item(), a bool() of a tensor, a
-        copy of constants from the host) fails the run."""
-        if cuda:
-            torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        if cuda and sync_free:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            result = fn()
-        except RuntimeError as e:
-            if cuda and sync_free and "synchroniz" in str(e):
-                fail(f"the {name} stage synchronized with the host: {e}")
-            raise
-        finally:
-            if cuda and sync_free:
-                torch.cuda.set_sync_debug_mode("default")
-        if cuda:
-            torch.cuda.synchronize()
-        if timed is not None:
-            timed[name] = timed.get(name, 0.0) + (time.perf_counter() - t1) * 1e3
-        return result
+        return run_stage(name, fn, src.device.type == "cuda", timed, sync_free)
 
     b, n = src.shape[:2]
     with torch.no_grad(), f32_geometry():
@@ -1475,24 +1537,14 @@ def eval_parity(model, src, dst, stages: dict, noise_bound: float,
     return msg
 
 
-def eval_kernel_times(model, src, dst) -> dict:
-    """K1, K2 and K3 at this path's shapes, against their plain versions
-    (TOL), timed per call and on the device alone, with their bounds. K1 on
-    the [2b, n, 3] clouds as estimate_normals calls it (k = 16, r² = 0.1²);
-    K2 and K3 on the canonical coordinates of the [5b, n] clouds (each
-    source under its 4 flips), K2 at the two blocks' input widths and K3 at
-    their output widths."""
+def k1_row(clouds) -> dict:
+    """K1 on `clouds` [B, n, 3] as estimate_normals calls it (k = 16,
+    r² = 0.1²) against its plain version (neighbour counts equal, TOL),
+    timed per call and on the device alone, with its bound."""
     import torch
 
     from rift_tpu_torch.ops.cuda import normals_kernel as nk
-    from rift_tpu_torch.ops.cuda import onehot_ops as oh
-    from rift_tpu_torch.ops.lrf import change_coords, lrf_basis, lrf_flip_hypotheses
-    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
-                                              spherical_corner_weights,
-                                              spherical_voxel_indices)
 
-    b = src.shape[0]
-    clouds = torch.cat([src, dst], 0)
     k, r2 = 16, 0.1 * 0.1
     got = nk.neighborhood_moments(clouds, k, r2)
     want = nk.neighborhood_moments_plain(clouds, k, r2)
@@ -1508,14 +1560,36 @@ def eval_kernel_times(model, src, dst) -> dict:
     # neighbour for the 13 moments; the points read and the moments written.
     bound_ops = (cb * n * n * (9 + 1 + 1) + 22 * float(want[2].sum())) / PEAK_F32_FLOP_PER_S
     bound_bytes = (cb * n * 3 * 4 + cb * n * 13 * 4) / PEAK_BYTES_PER_S
-    rows = {"normals_moments": [dict(
+    return dict(
         shape=f"points [{cb},{n},3] k={k}", max_rel_err=err,
         ms=cuda_time_ms(lambda: nk.neighborhood_moments(clouds, k, r2), reps=5),
         dev_ms=dev_ms(lambda: nk.neighborhood_moments(clouds, k, r2), calls=5),
         bound_ms=max(bound_ops, bound_bytes) * 1e3,
-        bound_by="operations" if bound_ops > bound_bytes else "bytes")],
-        "scatter_mean": [], "corner_gather": []}
-    del got, want
+        bound_by="operations" if bound_ops > bound_bytes else "bytes")
+
+
+def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
+    """K1, K2 and K3 at this path's shapes, against their plain versions
+    (TOL), timed per call and on the device alone, with their bounds. K1 on
+    the [2b, n, 3] clouds (`k1_row`), and with `targets_k1` also on the
+    [b, n, 3] targets ('+picp's normals); K2 and K3 on the canonical
+    coordinates of the [5b, n] clouds (each source under its 4 flips) in
+    the model's voxel grid, spherical or cube, K2 at the two blocks' input
+    widths and K3 at their output widths."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+    from rift_tpu_torch.ops.lrf import change_coords, lrf_basis, lrf_flip_hypotheses
+    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
+                                              spherical_corner_weights,
+                                              spherical_voxel_indices)
+    from rift_tpu_torch.ops.voxelize import (cube_corner_weights, cube_voxel_indices,
+                                             normalize_coords_cube)
+
+    b = src.shape[0]
+    clouds = torch.cat([src, dst], 0)
+    rows = {"normals_moments": [k1_row(clouds)] + ([k1_row(dst)] if targets_k1 else []),
+            "scatter_mean": [], "corner_gather": []}
     blocks = [model.layers[name] for name in model._backbone if name.startswith("PVConv")]
     r = blocks[0].resolution
     s = r ** 3
@@ -1524,9 +1598,15 @@ def eval_kernel_times(model, src, dst) -> dict:
         basis = lrf_basis(centred, model.lrf_kind)
         lrf_all = torch.cat([lrf_flip_hypotheses(basis[:b]).reshape(-1, 3, 3), basis[b:]], 0)
         pts = torch.cat([centred[:b].repeat_interleave(4, dim=0), centred[b:]], 0)
-        norm = normalize_coords_sphere(change_coords(pts, lrf_all))
-        inds, _ = spherical_voxel_indices(norm, r)
-        idx, w = spherical_corner_weights(norm, inds, r)
+        canonical = change_coords(pts, lrf_all)
+        if blocks[0].cube:
+            grid_coords = normalize_coords_cube(canonical, r, normalize=blocks[0].normalize)
+            inds = cube_voxel_indices(grid_coords, r)
+            idx, w = cube_corner_weights(grid_coords, r)
+        else:
+            norm = normalize_coords_sphere(canonical)
+            inds, _ = spherical_voxel_indices(norm, r)
+            idx, w = spherical_corner_weights(norm, inds, r)
     bb, n = inds.shape
     gen = torch.Generator(device=src.device).manual_seed(5)
     touched = int(torch.unique((idx + torch.arange(bb, device=src.device)[:, None, None] * s)
@@ -1571,6 +1651,319 @@ def eval_kernel_times(model, src, dst) -> dict:
                   f"call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}), share {row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
     return rows
+
+
+def reg_stages(model, src, dst, ev, generator=None, samples=None,
+               timed: dict | None = None) -> dict:
+    """register_eval_batch with a 'ransac+picp' evaluate section (the
+    reg_noise preset's), split at its stages: the shipped functions it
+    composes, in its order, each stage ended by a synchronize and its wall
+    ms added to `timed` when given: normals, flip_features, consensus, then
+    register_pair_from_matches' RANSAC (ransac_samples from `generator`,
+    or the given `samples` [b, K, 3]; ransac_from_samples), and
+    refine_pose's '+picp' (icp_pose, estimate_normals of the targets,
+    icp_plane_pose with the 0.05 gate). On the card, the consensus, RANSAC
+    and both ICPs run under sync debug mode "error". The metrics are the
+    caller's. Returns the intermediate tensors."""
+    import torch
+
+    from rift_tpu_torch.ops.neighbors import gather_rows
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import (choose_hypothesis, hypothesis_matches, icp_plane_pose,
+                                             icp_pose, ransac_from_samples, ransac_samples)
+    from rift_tpu_torch.train.loop import flip_features
+
+    def stage(name, fn, sync_free=False):
+        return run_stage(name, fn, src.device.type == "cuda", timed, sync_free)
+
+    b, n = src.shape[:2]
+    nb = ev.noise_bound
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        normals = stage("normals", lambda: estimate_normals(clouds))
+        x = torch.cat([clouds, normals], -1)
+        feats = stage("forward 5b", lambda: flip_features(model, x, b))
+        f_src_h, f_dst = feats[:4 * b].reshape(b, 4, n, -1), feats[4 * b:]
+
+        def consensus():
+            hyp = hypothesis_matches(src, dst, f_src_h, f_dst, tau=2.0 * nb)
+            return hyp[3], choose_hypothesis(*hyp)
+
+        scores, (i1, i2, mask, h) = stage("consensus", consensus, sync_free=True)
+        s_src, s_dst = gather_rows(src, i1), gather_rows(dst, i2)
+        if samples is None:
+            samples = stage("RANSAC sampling",
+                            lambda: ransac_samples(mask, ev.num_hypotheses, generator),
+                            sync_free=True)
+        t_ransac, inliers, rscore = stage(
+            "RANSAC scoring, refit, IRLS",
+            lambda: ransac_from_samples(s_src, s_dst, mask, samples, ev.inlier_threshold,
+                                        irls_iterations=ev.ransac_irls,
+                                        irls_shrink=ev.ransac_irls_shrink), sync_free=True)
+        t_icp = stage("ICP point-to-point", lambda: icp_pose(src, dst, init_transform=t_ransac),
+                      sync_free=True)
+        dst_normals = stage("normals of the targets", lambda: estimate_normals(dst))
+        transform = stage("ICP point-to-plane", lambda: icp_plane_pose(
+            src, dst, dst_normals, init_transform=t_icp, max_correspondence_distance=0.05),
+            sync_free=True)
+    return dict(feats=feats, scores=scores, h=h, i1=i1, i2=i2, mask=mask, samples=samples,
+                rscore=rscore, t_ransac=t_ransac, t_icp=t_icp, transform=transform)
+
+
+def reg_phase(wrappers: dict) -> dict:
+    """evaluate_registration of the reg_noise preset unchanged (cube trunk,
+    dgcnn_kernel, global PPF, reference LRF; ransac+picp; 100 noise pairs of
+    1024 points, 64 a batch; flips, canonical voxels) on the card from a
+    seeded checkpoint; then one batch timed (median of TIMED_BATCHES),
+    profiled, staged (reg_stages: pose bit-equal to register_eval_batch's from the
+    same generator state; per-batch launches checked), its parity with the
+    CPU (reg_parity), every method name on 16 of its pairs (method_sweep),
+    and K1, K2 and K3 at this path's shapes."""
+    import torch
+
+    from rift_tpu_torch.data import get_pairs
+    from rift_tpu_torch.ops.neighbors import gather_rows
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import pair_errors, ransac_from_samples
+    from rift_tpu_torch.train import evaluate_registration, resolve_extractor
+    from rift_tpu_torch.train.loop import register_eval_batch
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = eval_checkpoint(ckpt_dir, REG_PRESET)
+        ev = cfg.evaluate
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        results = evaluate_registration(cfg)  # device=None: the card
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_counts(wrappers)
+        batches = 1 + -(-ev.num_pairs // ev.batch_pairs)  # the warm-up and the timed ones
+        for name in wrappers:
+            want = REG_LAUNCHES.get(name, 0) * batches
+            if launches[name] != want:
+                fail(f"evaluate {REG_PRESET}: {name} launched {launches[name]} times in "
+                     f"{batches} batches, expected {want}")
+        if not all(math.isfinite(v) for v in results.values()):
+            fail(f"evaluate {REG_PRESET} gave non-finite results {results}")
+        model = resolve_extractor(cfg)
+    first = model.layers["PVConv_0"]
+    if not (model.use_new_coords_for_voxel and first.cube and first.dgcnn and model.global_ppf):
+        fail(f"the {REG_PRESET} extractor is not the cube dgcnn trunk with global PPF and "
+             "canonical voxels")
+
+    dev = torch.device("cuda")
+    batch = next(get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode,
+                           ev.num_pairs).batches(ev.batch_pairs))
+    src, dst, gt = (torch.as_tensor(a, device=dev)
+                    for a in (batch.source, batch.target, batch.transform))
+    gen = torch.Generator(device=dev)
+    times = []
+    for _ in range(TIMED_BATCHES):
+        gen.manual_seed(cfg.seed)
+        t1 = time.perf_counter()
+        est = register_eval_batch(model, src, dst, ev, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = sorted(times)[len(times) // 2] * 1e3
+    profile = profile_step(lambda: register_eval_batch(model, src, dst, ev,
+                                                       gen.manual_seed(cfg.seed)))
+    split: dict = {}
+    before = read_counts(wrappers)
+    stages = reg_stages(model, src, dst, ev, gen.manual_seed(cfg.seed), timed=split)
+    after = read_counts(wrappers)
+    per_batch = {k: after[k] - before[k] for k in after}
+    if any(per_batch[k] != REG_LAUNCHES.get(k, 0) for k in per_batch):
+        fail(f"staged {REG_PRESET} batch: launches {per_batch}, expected {REG_LAUNCHES}")
+    # RANSAC's own peak over what is allocated before it.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), f32_geometry():
+        ransac_from_samples(gather_rows(src, stages["i1"]), gather_rows(dst, stages["i2"]),
+                            stages["mask"], stages["samples"], ev.inlier_threshold,
+                            irls_iterations=ev.ransac_irls, irls_shrink=ev.ransac_irls_shrink)
+    ransac_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t1 = time.perf_counter()
+    errs = pair_errors(src, gt, stages["transform"])
+    torch.cuda.synchronize()
+    split["errors"] = (time.perf_counter() - t1) * 1e3
+    split["total"] = sum(split.values())
+    staged_diff = float((stages["transform"] - est).abs().max())
+    if not torch.equal(stages["transform"], est):
+        fail(f"the staged {REG_PRESET} batch's poses differ from register_eval_batch's by "
+             f"{staged_diff:.3e}")
+    parity_msg = reg_parity(model, src, dst, stages, ev)
+    sweep_msg = method_sweep(src, dst, gt, stages, ev)
+    kernels = eval_kernel_times(model, src, dst, targets_k1=True)
+    return dict(results=results, run_s=run_s, peak_gb=peak_gb, ransac_gb=ransac_gb,
+                launches=launches, batches=batches, ms_per_batch=ms,
+                batch_pairs=ev.batch_pairs, hypotheses=ev.num_hypotheses, split=split,
+                profile=profile, per_batch=per_batch, parity=parity_msg, sweep=sweep_msg,
+                kernels=kernels,
+                median_rre=float(errs["rre"].median()))
+
+
+def ransac_picp(src, dst, i1, i2, mask, samples, ev):
+    """RANSAC on the given samples, then '+picp' from its pose: both poses,
+    stacked [2, b, 4, 4]."""
+    import torch
+
+    from rift_tpu_torch.ops.neighbors import gather_rows
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import ransac_from_samples
+    from rift_tpu_torch.registration.pipeline import refine_pose
+
+    with torch.no_grad(), f32_geometry():
+        t, _, _ = ransac_from_samples(gather_rows(src, i1), gather_rows(dst, i2), mask, samples,
+                                      ev.inlier_threshold, irls_iterations=ev.ransac_irls,
+                                      irls_shrink=ev.ransac_irls_shrink)
+        return torch.stack([t, refine_pose(src, dst, t, "+picp", ev.noise_bound)])
+
+
+def nudge_spread(fn, dst, tries: int, seed: int):
+    """The largest change (max abs entry of each [4, 4] pose) of fn(dst')
+    from fn(dst) over `tries` copies dst' of the CPU targets moved by NUDGE
+    noise: (fn(dst), spread)."""
+    import torch
+
+    base = fn(dst)
+    gen = torch.Generator().manual_seed(seed)
+    spread = torch.zeros(base.shape[:-2])
+    for _ in range(tries):
+        moved = fn(dst + NUDGE * torch.randn(dst.shape, generator=gen))
+        spread = torch.maximum(spread, (moved - base).abs().amax((-2, -1)))
+    return base, spread
+
+
+def reg_parity(model, src, dst, stages: dict, ev, pairs: int = EVAL_PARITY_PAIRS) -> str:
+    """The first `pairs` pairs of the staged reg_noise batch against
+    reg_stages on the CPU (a copy of the model) on the card's RANSAC
+    samples, under the rules at the top (reg_parity)."""
+    import torch
+
+    p, b = pairs, src.shape[0]
+    cpu_model = copy.deepcopy(model).cpu()
+    src_c, dst_c = src[:p].cpu(), dst[:p].cpu()
+    samples = stages["samples"][:p].cpu()
+    c = reg_stages(cpu_model, src_c, dst_c, ev, samples=samples)
+    clouds = torch.cat([torch.arange(4 * p), 4 * b + torch.arange(p)]).to(src.device)
+    f_g = stages["feats"][clouds].cpu()
+    g = {k: stages[k][:p].cpu() for k in ("scores", "h", "i1", "i2", "mask", "rscore",
+                                          "t_ransac", "transform")}
+    point_err = (f_g - c["feats"]).abs().amax(-1) / float(c["feats"].abs().max())
+    bad_share = float((point_err > FEAT_POINT_TOL).float().mean())
+    top2 = torch.topk(c["scores"].double(), 2, dim=-1).values
+    lead = (top2[:, 0] - top2[:, 1]) / top2[:, 0].clamp(min=1.0)
+    decided = lead > SCORE_MARGIN
+    same_h = g["h"] == c["h"]
+    same = same_h & (g["mask"] == c["mask"]).all(-1) & (g["i2"] == c["i2"]).all(-1)
+    agree = float((g["mask"] == c["mask"])[same_h].float().mean()) if bool(same_h.any()) else 1.0
+    # RANSAC on the same matches and samples: the scores, and the winner.
+    score_off = (g["rscore"] != c["rscore"]).sum(-1)
+    win_g, win_c = g["rscore"].argmax(-1), c["rscore"].argmax(-1)
+    # On equal scores the winner must be equal (the first maximum); where a
+    # residual on the threshold rounded a score apart, the card's winner
+    # must score within one inlier of the CPU's best on the CPU.
+    win_ok = (win_g == win_c) | ((score_off > 0) & (
+        torch.gather(c["rscore"], 1, win_g[:, None])[:, 0] >= c["rscore"].amax(-1) - 1))
+    # The poses of RANSAC and of '+picp' after it, on the CPU run's matches
+    # and samples, on the card and on the CPU with the targets nudged.
+    base, spread = nudge_spread(
+        lambda d: ransac_picp(src_c, d, c["i1"], c["i2"], c["mask"], samples, ev),
+        dst_c, REG_NUDGE_TRIES, 3)
+    t_solver = ransac_picp(src[:p], dst[:p], c["i1"].to(src.device), c["i2"].to(src.device),
+                           c["mask"].to(src.device), samples.to(src.device), ev).cpu()
+    determined = spread <= TRANSFORM_TOL  # [2, p]: RANSAC, then '+picp'
+    solver_diff = (t_solver - base).abs().amax((-2, -1))
+    t_diff = torch.stack([(g[k] - c[k]).abs().amax((-2, -1)) for k in ("t_ransac", "transform")])
+    held = determined & (same & (win_g == win_c))[None]
+    msg = (f"{p} pairs ({5 * p} clouds): features, share of points off by > "
+           f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}), median point err "
+           f"{float(point_err.median()):.3e}; hypothesis card {g['h'].tolist()} CPU "
+           f"{c['h'].tolist()} (lead {short(lead)}, decided above {SCORE_MARGIN}: "
+           f"{decided.tolist()}); mutual-NN agreement {agree:.4f} (tol {MASK_AGREE}), same "
+           f"matches {same.tolist()}; RANSAC on the same samples: hypotheses scored apart "
+           f"{score_off.tolist()} of {g['rscore'].shape[1]}, winner card {win_g.tolist()} CPU "
+           f"{win_c.tolist()} (best score {c['rscore'].amax(-1).tolist()}); on the CPU's "
+           f"matches, RANSAC's pose max abs diff {short(solver_diff[0])} and after +picp "
+           f"{short(solver_diff[1])}; end to end {short(t_diff[0])} and {short(t_diff[1])} "
+           f"(tol {TRANSFORM_TOL}; CPU pose spread under a {NUDGE:g} nudge of the targets "
+           f"{short(spread[0])} and {short(spread[1])}, determined {determined.tolist()})")
+    if bad_share > FEAT_POINT_SHARE or bool((~same_h & decided).any()) or agree < MASK_AGREE \
+            or not bool(torch.isfinite(c["transform"]).all()):
+        fail(f"{REG_PRESET} parity: " + msg)
+    if bool((~win_ok & same).any()) or int(determined[0].sum()) * 2 < p \
+            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((t_diff[held] > TRANSFORM_TOL).any()):
+        fail(f"{REG_PRESET} parity: " + msg)
+    return msg
+
+
+def method_sweep(src, dst, gt, stages: dict, ev, pairs: int = SWEEP_PAIRS,
+                 cpu_pairs: int = SWEEP_CPU_PAIRS) -> str:
+    """Every method name once on the card, through
+    register_pair_from_matches on the staged batch's consensus matches of
+    `pairs` pairs: each transform finite. The deterministic ones are held
+    against the CPU on the first `cpu_pairs` of them, under SWEEP."""
+    import torch
+
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.ops.se3 import exp_so3
+    from rift_tpu_torch.registration import METHODS, register_pair_from_matches
+    from rift_tpu_torch.registration.pipeline import refine_pose
+
+    s, d = src[:pairs], dst[:pairs]
+    i1, i2, mask = (stages[k][:pairs] for k in ("i1", "i2", "mask"))
+    gen = torch.Generator(device=src.device).manual_seed(0)
+    kw = dict(noise_bound=ev.noise_bound, inlier_threshold=ev.inlier_threshold,
+              num_hypotheses=ev.num_hypotheses, irls_iterations=ev.ransac_irls,
+              irls_shrink=ev.ransac_irls_shrink)
+    finite = {}
+    with torch.no_grad():
+        for method in METHODS:
+            t, inl = register_pair_from_matches(s, d, i1, i2, mask, method, generator=gen, **kw)
+            finite[method] = bool(torch.isfinite(t).all()) and t.shape == (pairs, 4, 4) \
+                and inl.shape == mask.shape
+    if not all(finite.values()):
+        fail(f"method sweep: non-finite or misshapen results {finite}")
+
+    p = cpu_pairs
+    axis = torch.tensor([0.3, -0.5, 0.8])
+    tilt = exp_so3(axis / axis.norm() * math.radians(SWEEP_INIT_DEG))
+    init = gt[:p].cpu().clone()
+    init[:, :3, :3] = init[:, :3, :3] @ tilt
+    init[:, :3, 3] += SWEEP_INIT_SHIFT
+    cpu = [x[:p].cpu() for x in (s, i1, i2, mask)]
+    card = [x[:p] for x in (s, i1, i2, mask)]
+
+    def solve(name, src_, dst_, i1_, i2_, mask_, init_):
+        with torch.no_grad(), f32_geometry():
+            if name in ("fgr", "icp"):
+                return register_pair_from_matches(src_, dst_, i1_, i2_, mask_, name, **kw)[0]
+            return refine_pose(src_, dst_, init_, name, ev.noise_bound)
+
+    parts, bad = [], []
+    for name in ("fgr", "icp", "+icp", "+picp", "+pl"):
+        base, spread = nudge_spread(lambda d_: solve(name, cpu[0], d_, *cpu[1:], init),
+                                    d[:p].cpu(), SWEEP_NUDGE_TRIES, 4)
+        got = solve(name, card[0], d[:p], *card[1:], init.to(src.device)).cpu()
+        determined = spread <= TRANSFORM_TOL
+        diff = (got - base).abs().amax((-2, -1))
+        worst = float(diff[determined].max()) if bool(determined.any()) else float("nan")
+        parts.append(f"{name} determined {int(determined.sum())}/{p}, max diff there "
+                     f"{worst:.3e}")
+        few = int(determined.sum()) < SWEEP_MIN_DETERMINED[name] * p
+        if few or bool((diff[determined] > TRANSFORM_TOL).any()):
+            bad.append(name)
+    msg = (f"{len(METHODS)} methods finite on {pairs} pairs; card vs CPU on {p} (tol "
+           f"{TRANSFORM_TOL}, {SWEEP_NUDGE_TRIES} nudge(s) of {NUDGE:g}): " + "; ".join(parts))
+    if bad:
+        fail(f"method sweep: {bad}: " + msg)
+    return msg
 
 
 def train_config():
@@ -1887,9 +2280,34 @@ def main() -> int:
                           + ev["parity"])
     for name, rows in ev["kernels"].items():
         report[name]["eval_5b"] = rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rg = reg_phase(wrappers)
+    res = rg["results"]
+    print(f"evaluate {REG_PRESET}: {smi}: ransac+picp ({rg['hypotheses']} hypotheses), cube "
+          f"trunk (dgcnn, global PPF, reference LRF), flips, canonical voxels, "
+          f"{rg['batch_pairs']} pairs a batch: {1.0 / res['reg_time']:.2f} pairs/s by reg_time "
+          f"({res['reg_time'] * 1e3:.2f} ms a pair), {rg['ms_per_batch']:.2f} ms per "
+          f"{rg['batch_pairs']}-pair batch (median of {TIMED_BATCHES}), "
+          f"{rg['batch_pairs'] / rg['ms_per_batch'] * 1e3:.2f} pairs/s; whole call "
+          f"{rg['run_s']:.2f} s for {rg['batches']} batches with the warm-up; peak "
+          f"{rg['peak_gb']:.2f} GB (RANSAC alone {rg['ransac_gb']:.2f} GB); staged batch: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in rg["split"].items())
+          + f"; result (seeded weights: information only) "
+          f"{json.dumps({k: round(v, 6) for k, v in res.items()})}", flush=True)
+    print(f"evaluate {REG_PRESET} profile (one batch): {json.dumps(rg['profile'])}", flush=True)
+    phase(f"evaluate {REG_PRESET}", t0,
+          f"launches {rg['launches']} in {rg['batches']} batches, {rg['per_batch']} in the "
+          f"staged one; staged pose bit-equal to register_eval_batch's; median RRE of the "
+          f"staged batch {rg['median_rre']:.3f} deg; parity: {rg['parity']}; methods: "
+          f"{rg['sweep']}")
+    for name, rows in rg["kernels"].items():
+        report[name]["eval_cube"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
-             "train": tr["launches"], "evaluate": ev["launches"]}
+             "train": tr["launches"], "evaluate": ev["launches"],
+             "evaluate_reg_noise": rg["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -1908,7 +2326,7 @@ def main() -> int:
                                    "library_steps", "per_shape", "other_shapes", "large",
                                    "degenerate", "other_r", "bisection_bound_ms",
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
-                                   "eval_5b")
+                                   "eval_5b", "eval_cube")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,10 @@
 """rift_tpu_torch — the PyTorch/CUDA twin of `rift_tpu`.
 
 Registers point-cloud pairs on an NVIDIA H100 (normals, the PVCNN
-rotation-invariant feature extractor, mutual-NN matching and a GNC-TLS
-robust pose), and trains the PVCNN classifier (`train/`). The layout mirrors `rift_tpu/` module by module. Every kernel
+rotation-invariant feature extractor on a spherical or cube voxel grid,
+mutual-NN or flip-hypothesis consensus matching, and the robust solvers:
+GNC-TLS/TEASER, RANSAC, FGR and ICP), and trains the PVCNN classifier
+(`train/`). The layout mirrors `rift_tpu/` module by module. Every kernel
 that `rift_tpu` wrote in Pallas for the TPU is a CUDA C++ kernel under
 `csrc/`, built with `nvcc` at its first CUDA launch (`ops/cuda/build.py`),
 so importing this package needs no compiler and no JAX.

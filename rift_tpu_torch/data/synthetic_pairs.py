@@ -1,10 +1,10 @@
 """Synthetic registration pairs, a numpy copy of
 `rift_tpu.data.registration_pairs` (`PairBatch`, `SyntheticPairs` in its
-'clean' and 'noise' modes, `get_pairs`), with the procedural shapes of
-`rift_tpu/data/synthetic.py` and the transforms of
-`rift_tpu/data/transforms.py` it needs. The same seed gives the same
-arrays as the original. The h5 test pairs, the 'partial' modes and the
-'icl_nuim' sequence pairs wait for their slice (ROADMAP item 8).
+'clean', 'noise', 'partial' and 'partialK' modes, `get_pairs`), with the
+procedural shapes of `rift_tpu/data/synthetic.py` and the transforms and
+crops of `rift_tpu/data/transforms.py` it needs. The same seed gives the
+same arrays as the original. The h5 test pairs and the 'icl_nuim'
+sequence pairs wait for their slice (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -215,6 +215,37 @@ def jitter(pcd: np.ndarray, sigma: float = 0.01, clip: float | None = 0.05,
     return out
 
 
+def zbuffer_crop(pcd: np.ndarray, grid_num: int = 200) -> np.ndarray:
+    """2.5-D visibility crop: keep the min-z point of each occupied xy cell
+    (ref: deepgmr_partial.py project()). pcd [n, >=3] -> [m, k] subset."""
+    pts = pcd[:, :3]
+    centered = pts - pts.mean(0, keepdims=True)
+    lo = centered.min(0)
+    hi = centered.max(0)
+    bound = 2 * (centered - lo) / np.maximum(hi - lo, 1e-9)
+    gxy = np.floor(bound[:, :2] / (2.0 / grid_num)).astype(np.int64)
+    gid = gxy[:, 0] + gxy[:, 1] * grid_num
+    order = np.argsort(bound[:, 2], kind="stable")  # nearest (min z) first
+    _, first = np.unique(gid[order], return_index=True)
+    keep = np.sort(order[first])
+    return pcd[keep]
+
+
+def quantile_band_crop(pcd: np.ndarray, lo: float, hi: float,
+                       direction: np.ndarray) -> np.ndarray:
+    """Keep points whose projection onto `direction` lies in the [lo, hi]
+    quantile band of this cloud (the partialK modes' controlled-overlap
+    crop); a band of fewer than 8 points keeps the whole cloud."""
+    pts = pcd[:, :3] - pcd[:, :3].mean(0, keepdims=True)
+    dist = pts @ np.asarray(direction, pcd.dtype)
+    lo_t = np.percentile(dist, max(lo, 0.0) * 100.0)
+    hi_t = np.percentile(dist, min(hi, 1.0) * 100.0)
+    keep = (dist >= lo_t) & (dist <= hi_t)
+    if keep.sum() < 8:  # degenerate band: fall back to the whole cloud
+        return pcd
+    return pcd[keep]
+
+
 @dataclass
 class PairBatch:
     source: np.ndarray      # [b, n, 3]
@@ -223,17 +254,27 @@ class PairBatch:
 
 
 class SyntheticPairs:
-    """Registration pairs from procedural shapes: mode 'clean' (full clouds)
-    or 'noise' (+ clipped Gaussian noise on both clouds). Item i is
-    (source [n, 3], target [n, 3], ground-truth transform [4, 4]), all f32."""
+    """Registration pairs from procedural shapes. Modes: 'clean' (full
+    clouds); 'noise' (+ clipped Gaussian noise on both clouds); 'partial'
+    (independent 2.5-D z-buffer crops of both clouds before resampling,
+    then the noise); 'partialK', e.g. 'partial0.5' (on top of the z-buffer
+    crops, quantile-band crops along a common world direction: the source
+    keeps a 0.5-wide band, the target a 0.65-wide one placed so that a
+    fraction K of the source's band has a counterpart). Item i is (source
+    [n, 3], target [n, 3], ground-truth transform [4, 4]), all f32."""
 
     def __init__(self, num_pairs: int = 100, num_points: int = 1024,
                  mode: str = "noise", max_degree: float = 360.0,
                  max_amp: float = 0.5, noise_sigma: float = 0.01,
                  noise_clip: float = 0.05, seed: int = 0):
-        if mode not in ("clean", "noise"):
-            raise NotImplementedError(f"pair mode {mode!r} is not ported yet "
-                                      "(ROADMAP item 8)")
+        self.keep = None
+        if mode.startswith("partial") and mode != "partial":
+            self.keep = float(mode[len("partial"):])
+            if not 0.1 <= self.keep <= 1.0:
+                raise ValueError(f"pair mode {mode!r}: the overlap must be in [0.1, 1]")
+            mode = "partial"
+        if mode not in ("clean", "noise", "partial"):
+            raise ValueError(f"unknown pair mode {mode!r}")
         self.num_pairs = num_pairs
         self.num_points = num_points
         self.mode = mode
@@ -252,9 +293,21 @@ class SyntheticPairs:
         cloud = make_cloud(label, 4096, seed=index + 17, with_normals=False)
         trans, moved = random_rotation(cloud, None, self.max_degree,
                                        self.max_amp, rs=rs)
-        src = cloud[randchoice(rs, cloud.shape[0], self.num_points)]
-        dst = moved[randchoice(rs, moved.shape[0], self.num_points)]
-        if self.mode == "noise":
+        src, dst = cloud, moved
+        if self.mode == "partial":
+            src = zbuffer_crop(src)
+            dst = zbuffer_crop(dst)
+            if self.keep is not None:
+                k, ws, wd = self.keep, 0.5, 0.65
+                u = rs.randn(3)
+                u = (u / np.linalg.norm(u)).astype(np.float32)
+                # The target's frame sees the world direction u as R·u.
+                src = quantile_band_crop(src, 1.0 - ws, 1.0, u)
+                dst = quantile_band_crop(dst, 1.0 - ws - wd + k * ws, 1.0 - ws + k * ws,
+                                         trans[:3, :3] @ u)
+        src = src[randchoice(rs, src.shape[0], self.num_points)]
+        dst = dst[randchoice(rs, dst.shape[0], self.num_points)]
+        if self.mode in ("noise", "partial"):
             src = jitter(src, self.noise_sigma, self.noise_clip, rs)
             dst = jitter(dst, self.noise_sigma, self.noise_clip, rs)
         return (src.astype(np.float32), dst.astype(np.float32),
@@ -278,8 +331,8 @@ class SyntheticPairs:
 def get_pairs(path: str | None, num_points: int = 1024, mode: str = "noise",
               num_pairs: int = 100) -> SyntheticPairs:
     """The evaluation's pairs: synthetic ones of `mode` when `path` is None
-    or not a file, as in the reference. An h5 file and the 'icl_nuim' and
-    'partial' modes are not ported yet."""
+    or not a file, as in the reference. An h5 file and the 'icl_nuim' mode
+    are not ported yet."""
     if path and os.path.isfile(path):
         raise NotImplementedError(f"h5 test pairs ({path}) are not ported yet "
                                   "(ROADMAP item 8)")

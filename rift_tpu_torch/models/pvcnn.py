@@ -10,8 +10,9 @@ instead of the centred raw ones (the local-PPF branch stays in the raw
 frame, as in the reference); the local-PPF
 branch in both modes (eval: ball-query grouping with masked empty slots;
 train: `ball_query` with its duplicate padding, so BatchNorm sees the
-reference's rows); the backbone of spherical PVConv blocks (`pointnet_kernel`
-or `dgcnn_kernel` point branch) and SharedMLP blocks; and, with
+reference's rows); the backbone of spherical or cube PVConv blocks
+(`pointnet_kernel` or `dgcnn_kernel` point branch; the cube grid with
+`normalize=False`, as the reference builds it) and SharedMLP blocks; and, with
 `is_classify=True`, the head max-pool -> Dense 512 -> BN -> ReLU ->
 Dropout 0.2 -> Dense 256 -> BN -> ReLU -> Dense num_classes. The other
 branches raise NotImplementedError until a later slice ports them.
@@ -84,6 +85,7 @@ class PVCNNClassifier(nn.Module):
         if with_local_feat not in ("ppf", None):
             raise NotImplementedError(f"local feature {with_local_feat!r} is not ported yet")
         del dim_k  # the last block's width is the feature width, as in the reference
+        self.rot_invariant_preprocess = rot_invariant_preprocess
         self.lrf_kind = lrf_kind
         self.use_new_coords_for_voxel = use_new_coords_for_voxel
         self.global_ppf = extra_feature_channels == 4
@@ -114,7 +116,9 @@ class PVCNNClassifier(nn.Module):
                         in_ch, out_ch, point_kernel_formal=point_kernel_formal,
                         voxel_shape=voxel_shape,
                         resolution=int(resolution * voxel_resolution_multiplier),
-                        with_coeff=with_coeff, with_se=with_se, dtype=self.dtype)
+                        with_coeff=with_coeff, with_se=with_se,
+                        normalize=False,  # as the reference's model builds its blocks
+                        dtype=self.dtype)
                     n_pv += 1
                 self._backbone.append(name)
                 in_ch = out_ch

@@ -1,17 +1,19 @@
-"""PVConv and SE3d, twin of `rift_tpu/nn/pvconv.py` with the spherical
-voxel grid and both point branches.
+"""PVConv and SE3d, twin of `rift_tpu/nn/pvconv.py` with both voxel grids
+and both point branches.
 
-Voxel branch: spherical scatter-mean (K2) -> 2 × [Conv3d k=3 padding 1 +
-BatchNorm (eps 1e-4) + LeakyReLU 0.1] -> SE3d -> spherical trilinear
-devoxelize (K3; its backward is K4). Point branch: `pointnet_kernel` is a
-SharedMLP on the features; `dgcnn_kernel` is a SharedMLP(2·c_in) on
-[features − the mean of the point's own voxel, features], with an edge of 0
-for undefined points. Output coefficient·voxel + point. BatchNorm has
-flax's semantics (`nn/batch_norm.py`).
+Voxel branch: scatter-mean (K2) into the spherical or the cube grid -> 2 ×
+[Conv3d k=3 padding 1 + BatchNorm (eps 1e-4) + LeakyReLU 0.1] -> SE3d ->
+the grid's trilinear devoxelize (K3; its backward is K4). The cube grid
+takes `normalize` and `eps` as the reference's block does (the model
+passes `normalize=False`). Point branch: `pointnet_kernel` is a SharedMLP
+on the features; `dgcnn_kernel` is a SharedMLP(2·c_in) on [features − the
+mean of the point's own voxel, features], with an edge of 0 for undefined
+(spherical) points. Output coefficient·voxel + point. BatchNorm has flax's
+semantics (`nn/batch_norm.py`).
 
 Features are channels-last [b, n, c] at the boundary. In f32 the grid is
 permuted to [b, c, r, r, r] around the convolutions (cuDNN), with axes
-(γ, α, β). With `dtype=torch.bfloat16` the block computes as the
+(γ, α, β) or (x, y, z). With `dtype=torch.bfloat16` the block computes as the
 reference's `PVConv(dtype=bfloat16)`: features are cast to bf16 at the
 entry, K2 sums them in f32, the grid is cast to bf16 for the convolutions,
 and the voxel branch stays channels-last and bf16 up to the devoxelize,
@@ -28,10 +30,12 @@ from torch.nn import functional as F
 
 from ..ops.cuda.conv3d import conv3d_same, padded_bf16
 from ..ops.spherical import spherical_avg_voxelize, spherical_trilinear_devoxelize
+from ..ops.voxelize import avg_voxelize, trilinear_devoxelize
 from .batch_norm import BatchNorm
 from .shared_mlp import SharedMLP, dense
 
 POINT_KERNELS = ("pointnet_kernel", "dgcnn_kernel")
+VOXEL_SHAPES = ("spherical", "cube")
 
 
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -67,17 +71,21 @@ class PVConv(nn.Module):
                  point_kernel_formal: str = "pointnet_kernel",
                  voxel_shape: str = "spherical", resolution: int = 32,
                  kernel_size: int = 3, with_coeff: bool = True, with_se: bool = True,
+                 normalize: bool = True, eps: float = 0.0,
                  dtype: torch.dtype | None = None):
         super().__init__()
         if point_kernel_formal not in POINT_KERNELS:
             raise ValueError(f"unknown point kernel {point_kernel_formal!r}")
-        if voxel_shape != "spherical":
-            raise NotImplementedError(f"voxel shape {voxel_shape!r} is not ported yet")
+        if voxel_shape not in VOXEL_SHAPES:
+            raise ValueError(f"unknown voxel shape {voxel_shape!r}")
         if dtype not in (None, torch.bfloat16):
             raise ValueError(f"PVConv computes in f32 or bf16, not {dtype}")
         if dtype is not None and kernel_size != 3:
             raise NotImplementedError("the bf16 voxel branch takes 3x3x3 convolutions")
         self.resolution = resolution
+        self.cube = voxel_shape == "cube"
+        self.normalize = normalize
+        self.eps = eps
         self.dtype = dtype
         self.dgcnn = point_kernel_formal == "dgcnn_kernel"
         self.convs = nn.ModuleList([
@@ -93,13 +101,19 @@ class PVConv(nn.Module):
         r = self.resolution
         if self.dtype is not None:
             features = features.to(self.dtype)
-        grid, inds, norm_coords = spherical_avg_voxelize(features, coords, r)
+        if self.cube:
+            grid, inds, grid_coords = avg_voxelize(features, coords, r, self.normalize, self.eps)
+        else:
+            grid, inds, norm_coords = spherical_avg_voxelize(features, coords, r)
         v = self._voxel_branch(grid) if self.dtype is None else self._voxel_branch_low(grid)
-        voxel_features = spherical_trilinear_devoxelize(v, norm_coords, inds, r)
+        if self.cube:
+            voxel_features = trilinear_devoxelize(v, grid_coords, r)
+        else:
+            voxel_features = spherical_trilinear_devoxelize(v, norm_coords, inds, r)
         point_in = features
         if self.dgcnn:
             b, n, c = features.shape
-            undefined = inds < 0  # spherical points off the grid get an edge of 0
+            undefined = inds < 0  # spherical points off the grid get an edge of 0 (cube: none)
             safe = torch.where(undefined, torch.zeros_like(inds), inds)
             # The mean of the point's own voxel, in the features' type.
             center = torch.gather(grid.reshape(b, r * r * r, c), 1,

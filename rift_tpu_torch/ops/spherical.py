@@ -10,12 +10,10 @@ flat index gγ·r² + gα·r + gβ. The scatter-mean is K2 and the 8-corner
 gather K3 (`ops/cuda/onehot_ops.py`).
 
 Gradients, twins of the custom VJPs of
-`rift_tpu/ops/pallas/spherical_fast.py`: the scatter-mean's backward is the
-row gather dfeat[p] = g[ind[p]] / cnt[ind[p]] (0 for dropped points), plain
-PyTorch; the corner gather's backward for the grid is K4, its transpose.
-Coordinates, and so the voxel indices and corner weights, get no gradient.
-On CPU tensors the wrappers take their plain versions, forward and
-backward alike.
+`rift_tpu/ops/pallas/spherical_fast.py`, come from `ops/voxel_autograd.py`
+(shared with the cube grid): the scatter-mean's backward is a row gather,
+the corner gather's backward for the grid is K4. Coordinates, and so the
+voxel indices and corner weights, get no gradient.
 """
 from __future__ import annotations
 
@@ -23,48 +21,9 @@ import math
 
 import torch
 
-from .cuda.onehot_ops import corner_gather, corner_scatter, scatter_mean
+from .voxel_autograd import CornerGather, ScatterMean
 
 Tensor = torch.Tensor
-
-
-class ScatterMean(torch.autograd.Function):
-    """(features [b, n, c], inds [b, n], s) -> (out [b, s, c], cnt [b, s]);
-    forward K2, backward a row gather. `cnt` takes no gradient."""
-
-    @staticmethod
-    def forward(ctx, features, inds, num_segments):
-        out, cnt = scatter_mean(features, inds, num_segments)
-        ctx.save_for_backward(inds, cnt)
-        ctx.mark_non_differentiable(cnt)
-        return out, cnt
-
-    @staticmethod
-    def backward(ctx, g, _):
-        inds, cnt = ctx.saved_tensors
-        valid = (inds >= 0) & (inds < g.shape[1])
-        safe = torch.where(valid, inds.long(), torch.zeros_like(inds.long()))
-        g_rows = torch.gather(g, 1, safe[..., None].expand(-1, -1, g.shape[-1]))
-        inv = 1.0 / torch.clamp(torch.gather(cnt, 1, safe), min=1.0)
-        inv = torch.where(valid, inv, torch.zeros_like(inv))
-        return g_rows * inv[..., None], None, None
-
-
-class CornerGather(torch.autograd.Function):
-    """(grid [b, s, c], corner_idx [b, n, 8], corner_w [b, n, 8]) ->
-    [b, n, c]; forward K3, backward for the grid K4. The corners and their
-    weights take no gradient."""
-
-    @staticmethod
-    def forward(ctx, grid, corner_idx, corner_w):
-        ctx.save_for_backward(corner_idx, corner_w)
-        ctx.num_segments = grid.shape[1]
-        return corner_gather(grid, corner_idx, corner_w)
-
-    @staticmethod
-    def backward(ctx, g):
-        corner_idx, corner_w = ctx.saved_tensors
-        return corner_scatter(g.contiguous(), corner_idx, corner_w, ctx.num_segments), None, None
 
 
 def normalize_coords_sphere(coords: Tensor) -> Tensor:

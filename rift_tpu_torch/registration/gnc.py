@@ -1,15 +1,19 @@
-"""GNC-TLS robust pose and the TEASER-style pipeline, twins of
+"""GNC robust poses and the TEASER-style pipeline, twins of
 `rift_tpu/registration/gnc.py` (`gnc_pose` with `kind="tls",
-early_exit=True`, `compatibility_core`, `_rotation_gnc_tls`,
-`_masked_component_median`, `teaser_pose`), batched over pairs.
+early_exit=True` and with `kind="gm"`, `fgr_pose`, `compatibility_core`,
+`_rotation_gnc_tls`, `_masked_component_median`, `teaser_pose`), batched
+over pairs.
 
-`gnc_pose`: each iteration updates the TLS weights (Yang et al. 2020,
-eq. 14) from the residuals of the current transform, re-solves a weighted
-Kabsch, and grows μ by `gnc_factor`. A pair stops at its fixed point — the
-first iteration whose weights repeat the previous ones — or after
-`max_iterations`; a stopped pair keeps its carry while the others go on,
-as the reference's vmapped `lax.while_loop` does. Its loop tests on the
-host whether any pair is still active, once an iteration.
+`gnc_pose`, kind "tls": each iteration updates the TLS weights (Yang et
+al. 2020, eq. 14) from the residuals of the current transform, re-solves
+a weighted Kabsch, and grows μ by `gnc_factor`. A pair stops at its fixed
+point — the first iteration whose weights repeat the previous ones — or
+after `max_iterations`; a stopped pair keeps its carry while the others
+go on, as the reference's vmapped `lax.while_loop` does. Its loop tests on
+the host whether any pair is still active, once an iteration. Kind "gm"
+(FGR's graduated Geman-McClure, `fgr_pose`): `max_iterations` fixed
+iterations with w = (μc²/(μc² + r²))², μ from 64 down by `gnc_factor` to
+1; no early exit, so no host sync.
 
 `teaser_pose`: the degree core of the TIM compatibility graph, rotation
 GNC-TLS on translation-invariant measurements from the core's max-degree
@@ -53,16 +57,21 @@ def _mu0(r2_max: Tensor, c2: float) -> Tensor:
 
 
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
-             gnc_factor: float = 1.4, max_iterations: int = 100,
+             gnc_factor: float = 1.4, max_iterations: int = 100, kind: str = "tls",
              init_transform: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """src/dst [b, n, 3] putative matches, valid [b, n] bool ->
-    (transform [b, 4, 4], final weights [b, n]). `init_transform` [b, 4, 4]
-    seeds the iteration (and μ's start), by default the plain Kabsch on the
-    valid set. Strict f32 is the caller's to set
-    (`ops/precision.py:f32_geometry`, as `register_batch` does)."""
+    (transform [b, 4, 4], final weights [b, n]). `kind` is "tls" or "gm".
+    `init_transform` [b, 4, 4] seeds the iteration (and, for TLS, μ's
+    start), by default the plain Kabsch on the valid set. Strict f32 is the
+    caller's to set (`ops/precision.py:f32_geometry`, as `register_batch`
+    does)."""
+    if kind not in ("tls", "gm"):
+        raise ValueError(f"unknown GNC kind {kind!r}")
     c2 = noise_bound * noise_bound
     valid = valid.to(src.dtype)
     transform = weighted_kabsch(src, dst, valid) if init_transform is None else init_transform
+    if kind == "gm":
+        return _gm_loop(transform, src, dst, valid, c2, gnc_factor, max_iterations)
     r2 = _residuals(transform, src, dst) ** 2
     r2_max = torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1)
     mu = _mu0(r2_max, c2)
@@ -80,6 +89,28 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
         active = active & ~done
         it += 1
     return transform, w_prev
+
+
+def _gm_loop(transform: Tensor, src: Tensor, dst: Tensor, valid: Tensor, c2: float,
+             gnc_factor: float, iterations: int) -> tuple[Tensor, Tensor]:
+    """Graduated Geman-McClure: `iterations` fixed iterations from μ = 64,
+    μ ← max(μ/gnc_factor, 1) in f32 after each; returns the last transform
+    and the weights it was solved from."""
+    mu = torch.full((), 64.0, dtype=src.dtype, device=src.device)
+    w = valid
+    for _ in range(iterations):
+        r2 = _residuals(transform, src, dst) ** 2
+        w = (mu * c2 / (mu * c2 + r2)) ** 2 * valid
+        transform = weighted_kabsch(src, dst, w)
+        mu = torch.clamp(mu / gnc_factor, min=1.0)
+    return transform, w
+
+
+def fgr_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.04,
+             max_iterations: int = 64) -> tuple[Tensor, Tensor]:
+    """FGR-style pose: `gnc_pose(kind="gm")`."""
+    return gnc_pose(src, dst, valid, noise_bound=noise_bound, max_iterations=max_iterations,
+                    kind="gm")
 
 
 def compatibility_core(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,

@@ -4,9 +4,14 @@
   features -> mutual-NN matches -> GNC-TLS pose, for every pair.
 - `register_pair` and `register_pair_from_matches`, twins of
   `rift_tpu/registration/pipeline.py`, batched over pairs: features or
-  given matches -> the robust solver of `method`. Only 'teaserpp' is
-  ported (`gnc.teaser_pose`); 'ransac', 'fgr', 'icp' and the '+icp',
-  '+picp', '+pl' refiners wait for their slice (ROADMAP item 8).
+  given matches -> the robust solver of `method`, one of `METHODS`: the
+  base solver 'ransac', 'fgr', 'teaserpp' or 'icp' (dense point-to-point
+  ICP from the identity), and the first three with a dense refiner: '+icp'
+  (point-to-point ICP), '+picp' (point-to-point, then point-to-plane ICP
+  on the target's estimated normals with a 0.05 gate) or '+pl'
+  (point-to-plane alone, gate 3·noise_bound). RANSAC draws from an
+  explicit `torch.Generator` (one seeded with 0 on the points' device by
+  default, as the reference uses `PRNGKey(0)`).
 """
 from __future__ import annotations
 
@@ -16,42 +21,98 @@ from ..device import resolve_device
 from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
-from .gnc import gnc_pose, teaser_pose
+from .gnc import fgr_pose, gnc_pose, teaser_pose
+from .icp import icp_plane_pose, icp_pose
+from .ransac import ransac_pose
 
 Tensor = torch.Tensor
 
 
 NOISE_BOUND = 0.02  # GNC-TLS noise bound of bench.py and the reference
+METHODS = ("ransac", "fgr", "teaserpp", "icp",
+           "ransac+icp", "fgr+icp", "teaserpp+icp",
+           "ransac+picp", "fgr+picp", "teaserpp+picp",
+           "ransac+pl", "fgr+pl", "teaserpp+pl")
+REFINERS = ("+icp", "+picp", "+pl")
 
 
-def check_method(method: str) -> None:
-    """Raise unless `method` is the one that is ported ('teaserpp')."""
-    if method != "teaserpp":
-        raise NotImplementedError(f"method {method!r} is not ported yet; only 'teaserpp' "
-                                  "is (ROADMAP item 8)")
+def split_method(method: str) -> tuple[str, str | None]:
+    """'ransac+picp' -> ('ransac', '+picp'); raises on a name outside
+    METHODS."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    for suffix in REFINERS:
+        if method.endswith(suffix):
+            return method[: -len(suffix)], suffix
+    return method, None
 
 
 @f32_geometry()
 def register_pair_from_matches(pts1: Tensor, pts2: Tensor, idx1: Tensor, idx2: Tensor,
                                mask: Tensor, method: str = "teaserpp",
-                               noise_bound: float = NOISE_BOUND) -> tuple[Tensor, Tensor]:
+                               noise_bound: float = NOISE_BOUND, inlier_threshold: float = 0.08,
+                               num_hypotheses: int = 512, irls_iterations: int = 3,
+                               irls_shrink: float = 1.0,
+                               generator: torch.Generator | None = None
+                               ) -> tuple[Tensor, Tensor]:
     """Robust pose from given matches, for b pairs: pts1 [b, n, 3], pts2
     [b, m, 3], matches (idx1, idx2, mask) [b, k] -> (transform [b, 4, 4]
-    mapping pts1 onto pts2, inlier mask [b, k])."""
-    check_method(method)
-    transform, w = teaser_pose(gather_rows(pts1, idx1), gather_rows(pts2, idx2), mask,
-                               noise_bound=noise_bound)
-    return transform, w > 0.5
+    mapping pts1 onto pts2, inlier mask [b, k]; all ones for 'icp', which
+    ignores the matches)."""
+    base, refine = split_method(method)
+    if base == "icp":
+        return icp_pose(pts1, pts2), torch.ones_like(mask, dtype=torch.bool)
+    src, dst = gather_rows(pts1, idx1), gather_rows(pts2, idx2)
+    if base == "teaserpp":
+        transform, w = teaser_pose(src, dst, mask, noise_bound=noise_bound)
+        inliers = w > 0.5
+    elif base == "fgr":
+        transform, w = fgr_pose(src, dst, mask, noise_bound=2 * noise_bound)
+        inliers = w > 0.5
+    else:
+        if generator is None:
+            generator = torch.Generator(device=src.device).manual_seed(0)
+        transform, inliers = ransac_pose(src, dst, mask, generator, num_hypotheses=num_hypotheses,
+                                         inlier_threshold=inlier_threshold,
+                                         irls_iterations=irls_iterations, irls_shrink=irls_shrink)
+    return refine_pose(pts1, pts2, transform, refine, noise_bound), inliers
+
+
+def refine_pose(pts1: Tensor, pts2: Tensor, transform: Tensor, refiner: str | None,
+                noise_bound: float = NOISE_BOUND) -> Tensor:
+    """The dense refiner of a method name from `transform` [b, 4, 4]: None
+    (the transform as it is), '+icp', '+picp' or '+pl'. Strict f32 is the
+    caller's to set."""
+    if refiner == "+icp":
+        return icp_pose(pts1, pts2, init_transform=transform)
+    if refiner == "+picp":
+        # Point-to-point first (the wide 0.2 gate tolerates a coarse start),
+        # then point-to-plane with a tight gate near the optimum.
+        transform = icp_pose(pts1, pts2, init_transform=transform)
+        return icp_plane_pose(pts1, pts2, estimate_normals(pts2), init_transform=transform,
+                              max_correspondence_distance=0.05)
+    if refiner == "+pl":
+        return icp_plane_pose(pts1, pts2, estimate_normals(pts2), init_transform=transform,
+                              max_correspondence_distance=3.0 * noise_bound)
+    return transform
 
 
 def register_pair(pts1: Tensor, pts2: Tensor, feat1: Tensor, feat2: Tensor,
-                  method: str = "teaserpp", noise_bound: float = NOISE_BOUND
-                  ) -> tuple[Tensor, Tensor]:
+                  method: str = "teaserpp", noise_bound: float = NOISE_BOUND,
+                  inlier_threshold: float = 0.08, num_hypotheses: int = 512,
+                  irls_iterations: int = 3, irls_shrink: float = 1.0,
+                  generator: torch.Generator | None = None) -> tuple[Tensor, Tensor]:
     """Mutual-NN matches of the features [b, n, c] and [b, m, c], then
-    `register_pair_from_matches`: -> (transform [b, 4, 4], inliers [b, n])."""
+    `register_pair_from_matches`: -> (transform [b, 4, 4], inliers [b, n]);
+    'icp' skips the matching."""
+    if split_method(method)[0] == "icp":
+        with f32_geometry():
+            return icp_pose(pts1, pts2), torch.ones(pts1.shape[:2], dtype=torch.bool,
+                                                    device=pts1.device)
     idx1, idx2, mask = mutual_nearest_neighbors(feat1, feat2)
     return register_pair_from_matches(pts1, pts2, idx1.expand(idx2.shape), idx2, mask,
-                                      method, noise_bound)
+                                      method, noise_bound, inlier_threshold, num_hypotheses,
+                                      irls_iterations, irls_shrink, generator)
 
 
 def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:

@@ -1,7 +1,7 @@
 """Training and evaluation configuration: the dataclasses `train()` and
 `evaluate_registration()` read, copied from `rift_tpu/train/config.py`
 (`ModelConfig`, `OptimConfig`, `TrainConfig`, `EvalConfig`;
-`ModelNet40Config` is in `data/modelnet40.py`), and two presets:
+`ModelNet40Config` is in `data/modelnet40.py`), and presets:
 
 - `mn40_sph_pt_r4`: the flagship, the values of
   `checkpoints/mn40_sph_pt_r4/best_acc.meta.json` (kept in code: the chip
@@ -9,15 +9,20 @@
   which points beside the reference's checkpoint, never into it;
 - `tiny_smoke`: the reference's CPU smoke widths, with the flagship's
   `pointnet_kernel` and `lrf_kind='pca'` (the reference's preset keeps
-  the `dgcnn_kernel` default, which waits for its slice).
+  the `dgcnn_kernel` default);
+- the reference's cube presets, each equal to the reference's on every
+  field the port has: the classifiers `mn40_cu_dg` and `mn40_cu_pt`; the
+  registration sweep `reg_{clean,noise,partial}_{ransac,fgr,teaserpp}_cu_
+  {dg,pt}`; and the recommended `reg_clean`, `reg_noise` and
+  `reg_partial` (cube, `dgcnn_kernel`, 4 global-PPF channels, the
+  reference LRF, `ransac+picp`). The `icl_nuim` presets wait for their
+  pair source (ROADMAP item 8).
 
 Only the fields the port reads are here; the dataclasses have slots, so
 setting any other raises. The reference's other training fields change
 nothing on one card with the probe off (`log_every`, `data_parallel`,
 `reg_probe_pairs`, `cache_npy`), and its sequence section waits for its
-slice. `EvalConfig` has every field of the reference's with its default;
-the ones only the unported solvers read (`inlier_threshold`,
-`num_hypotheses`, `ransac_irls`, `ransac_irls_shrink`) are carried unused.
+slice. `EvalConfig` has every field of the reference's with its default.
 """
 from __future__ import annotations
 
@@ -71,10 +76,16 @@ class TrainConfig:
 @dataclass(slots=True)
 class EvalConfig:
     """Registration evaluation (`train/loop.py:evaluate_registration`).
-    `method`: 'teaserpp' (the other solvers and the '+icp', '+picp', '+pl'
-    refiners wait for their slice). `pairs_path` None or not a file:
-    synthetic pairs of `pairs_mode` 'clean' or 'noise'. `batch_pairs`: pairs
-    per batch, the tail padded. `canonical_voxel`: voxelize in the LRF
+    `method`: one of `registration.METHODS` ('ransac', 'fgr', 'teaserpp',
+    'icp', the first three with a '+icp', '+picp' or '+pl' refiner).
+    `inlier_threshold`, `num_hypotheses`, `ransac_irls` and
+    `ransac_irls_shrink` set RANSAC (its inlier distance, hypotheses, Tukey
+    IRLS steps, and the scale of two tighter steps when not 1).
+    `noise_bound` sets TEASER and FGR (twice it), the consensus (tau = twice
+    it) and the '+pl' gate (three times it). `pairs_path` None or not a
+    file: synthetic pairs of `pairs_mode` 'clean', 'noise', 'partial' or
+    'partialK' (K the source's overlap fraction, e.g. 'partial0.5').
+    `batch_pairs`: pairs per batch, the tail padded. `canonical_voxel`: voxelize in the LRF
     frame (`use_new_coords_for_voxel` on a checkpoint's change_coords
     trunk). `flip_hypotheses`: source features under the 4 sign
     assignments of its LRF, the most rigid matching kept
@@ -107,6 +118,45 @@ class ExperimentConfig:
     evaluate: EvalConfig = field(default_factory=EvalConfig)
 
 
+def _classification(voxel_shape: str, kernel: str) -> ExperimentConfig:
+    cfg = ExperimentConfig(
+        name=f"mn40_{'sph' if voxel_shape == 'spherical' else 'cu'}_"
+             f"{'dg' if kernel == 'dgcnn_kernel' else 'pt'}")
+    cfg.model.voxel_shape = voxel_shape
+    cfg.model.point_kernel_formal = kernel
+    return cfg
+
+
+def _registration(method: str, mode: str, kernel: str = "dgcnn_kernel") -> ExperimentConfig:
+    """A registration preset on the cube trunk: feature-extractor mode with
+    4 global-PPF channels, `method` on `mode` pairs."""
+    cfg = _classification("cube", kernel)
+    cfg.name = f"reg_{mode}_{method}"
+    cfg.model.is_classify = False
+    cfg.model.extra_feature_channels = 4
+    cfg.evaluate.method = method
+    cfg.evaluate.pairs_mode = mode
+    return cfg
+
+
+def _cube_presets() -> dict[str, ExperimentConfig]:
+    out = {}
+    for kernel in ("dgcnn_kernel", "pointnet_kernel"):
+        cfg = _classification("cube", kernel)
+        out[cfg.name] = cfg
+    for mode in ("clean", "noise", "partial"):
+        for method in ("ransac", "fgr", "teaserpp"):
+            for kernel, suffix in (("dgcnn_kernel", "cu_dg"), ("pointnet_kernel", "cu_pt")):
+                cfg = _registration(method, mode, kernel)
+                cfg.name = f"reg_{mode}_{method}_{suffix}"
+                out[cfg.name] = cfg
+    for mode in ("clean", "noise", "partial"):
+        best = _registration("ransac+picp", mode)
+        best.name = f"reg_{mode}"
+        out[best.name] = best
+    return out
+
+
 def presets() -> dict[str, ExperimentConfig]:
     flagship = ExperimentConfig(name="mn40_sph_pt")
     flagship.model.point_kernel_formal = "pointnet_kernel"
@@ -125,7 +175,7 @@ def presets() -> dict[str, ExperimentConfig]:
     tiny.dataset.synthetic_items = {"train": 32, "valid": 16, "test": 16}
     tiny.train.batch_size = 4
     tiny.optim.num_epochs = 2
-    return {"mn40_sph_pt_r4": flagship, "tiny_smoke": tiny}
+    return {"mn40_sph_pt_r4": flagship, "tiny_smoke": tiny, **_cube_presets()}
 
 
 def get_config(name: str) -> ExperimentConfig:

@@ -2,8 +2,8 @@
 `rift_tpu/train/loop.py` on one card: `build_model`, `train`, `run_meters`,
 `update_best`, `_improved`, `evaluate_classification`, and
 `load_trained_state`, `extractor_from_snapshot`, `resolve_extractor`,
-`evaluate_registration` (method 'teaserpp', with or without the
-flip-hypothesis consensus).
+`evaluate_registration` (every method of `registration.METHODS`, with or
+without the flip-hypothesis consensus).
 
 Not ported yet (ROADMAP): the data-parallel step (`make_distributed_step`),
 the in-training registration probe, `train_segmentation`,
@@ -29,7 +29,7 @@ from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
 from ..registration import (consensus_match, pair_errors, register_pair,
                             register_pair_from_matches)
-from ..registration.pipeline import check_method
+from ..registration.pipeline import split_method
 from .checkpoint import CheckpointManager
 from .config import EvalConfig, ExperimentConfig, ModelConfig
 from .meters import MeterClassification, MeterRegistration
@@ -239,28 +239,39 @@ def flip_features(model: PVCNNClassifier, x: Tensor, b: int) -> Tensor:
     return model(torch.cat([x[:b].repeat_interleave(4, dim=0), x[b:]], 0), lrf=lrf_all)
 
 
+def uses_flips(model: PVCNNClassifier, evaluate: EvalConfig) -> bool:
+    """The flip hypotheses run when `evaluate.flip_hypotheses` asks for them
+    and the trunk's preprocess is 'change_coords', whose frame they flip."""
+    return evaluate.flip_hypotheses and model.rot_invariant_preprocess == "change_coords"
+
+
 def register_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor,
-                        evaluate: EvalConfig) -> Tensor:
+                        evaluate: EvalConfig, generator: torch.Generator | None = None
+                        ) -> Tensor:
     """Estimated transforms [b, 4, 4] of b pairs [b, n, 3] on the model's
-    device: normals of the 2b clouds; with `flip_hypotheses`,
+    device: normals of the 2b clouds; with the flips (`uses_flips`),
     `flip_features` (one [5b, n, 6] forward), `consensus_match` and
     `register_pair_from_matches`; without, one 2b forward and
-    `register_pair`."""
+    `register_pair`. `evaluate`'s method and its RANSAC fields go to the
+    solver, and RANSAC draws from `generator` (seeded with 0 when None)."""
     if model.head is not None:
         raise ValueError("registration needs a feature extractor (is_classify=False)")
     b, n = src.shape[:2]
-    method, noise_bound = evaluate.method, evaluate.noise_bound
+    kw = dict(method=evaluate.method, noise_bound=evaluate.noise_bound,
+              inlier_threshold=evaluate.inlier_threshold,
+              num_hypotheses=evaluate.num_hypotheses, irls_iterations=evaluate.ransac_irls,
+              irls_shrink=evaluate.ransac_irls_shrink, generator=generator)
     with torch.no_grad(), f32_geometry():
         clouds = torch.cat([src, dst], 0)
         x = torch.cat([clouds, estimate_normals(clouds)], -1)
-        if not evaluate.flip_hypotheses:
+        if not uses_flips(model, evaluate):
             feats = model(x)
-            return register_pair(src, dst, feats[:b], feats[b:], method, noise_bound)[0]
+            return register_pair(src, dst, feats[:b], feats[b:], **kw)[0]
         feats = flip_features(model, x, b)
         f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
         i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
-                                          tau=2.0 * noise_bound)
-        return register_pair_from_matches(src, dst, i1, i2, mask, method, noise_bound)[0]
+                                          tau=2.0 * evaluate.noise_bound)
+        return register_pair_from_matches(src, dst, i1, i2, mask, **kw)[0]
 
 
 def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | None = None,
@@ -272,12 +283,15 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
     `pair_errors` of the real pairs. One untimed warm-up batch goes first
     (the kernel build, cuDNN's choice of algorithm); `reg_time` is a
     batch's wall time, ended by a synchronize, times its share of real
-    pairs. Returns the means over pairs of rre, rte, rmse, succ,
-    rmse_succ and reg_time. The extractor comes from `resolve_extractor`."""
+    pairs. RANSAC's samples come from one generator on the device, seeded
+    with `config.seed`, each batch drawing from it in turn; the warm-up's
+    draws are given back, so no result depends on the warm-up. Returns the
+    means over pairs of rre, rte, rmse, succ, rmse_succ and reg_time. The
+    extractor comes from `resolve_extractor`."""
     device = resolve_device(device)
     log = get_logger(config.name)
     ev = config.evaluate
-    check_method(ev.method)
+    split_method(ev.method)  # an unknown method fails before the forward
     pairs = get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode, ev.num_pairs)
     model = resolve_extractor(config, model, ckpt_dir, ckpt_name, device, log)
 
@@ -286,6 +300,7 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
             torch.cuda.synchronize(device)
 
     meter = MeterRegistration()
+    generator = torch.Generator(device=device).manual_seed(config.seed)
     batch_pairs = max(min(int(ev.batch_pairs), len(pairs)), 1)
     warmed = False
     for batch in pairs.batches(batch_pairs):
@@ -298,11 +313,13 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
             src = torch.cat([src, src[:1].expand(pad, -1, -1)], 0)
             dst = torch.cat([dst, dst[:1].expand(pad, -1, -1)], 0)
         if not warmed:
-            register_eval_batch(model, src, dst, ev)
+            state = generator.get_state()
+            register_eval_batch(model, src, dst, ev, generator)
             sync()
+            generator.set_state(state)
             warmed = True
         t0 = time.perf_counter()
-        est = register_eval_batch(model, src, dst, ev)
+        est = register_eval_batch(model, src, dst, ev, generator)
         sync()
         reg_time = time.perf_counter() - t0
         errors = pair_errors(src[:n_real], gt, est[:n_real])

@@ -21,6 +21,7 @@ from rift_tpu.train.checkpoint import CheckpointManager as JaxCheckpoints
 from rift_tpu.train.config import EvalConfig as JaxEvalConfig
 from rift_tpu.train.config import ModelConfig as JaxModelConfig
 from rift_tpu.train.steps import TrainState as JaxTrainState
+from rift_tpu_torch.registration import register_pair
 from rift_tpu_torch.train import (EvalConfig, evaluate_registration, extractor_from_snapshot,
                                   get_config, resolve_extractor, train)
 from rift_tpu_torch.train.checkpoint import CheckpointManager
@@ -169,6 +170,40 @@ def test_chip_smoke_staged_batch_is_register_eval_batch(flagship_ckpt):
     assert torch.equal(stages["h"], torch.argmax(stages["scores"], -1))
 
 
+def test_chip_smoke_reg_stages_are_register_eval_batch():
+    """chip_smoke.py's staged reg_noise batch calls the shipped functions in
+    register_eval_batch's order for 'ransac+picp': on the CPU, from the same
+    generator state, its pose is bit-equal to register_eval_batch's, and its
+    stages are the ones it reports."""
+    import importlib.util
+
+    from rift_tpu_torch.data import get_pairs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cfg = get_config("reg_noise")
+    assert cfg.evaluate.method == "ransac+picp" and cfg.model.voxel_shape == "cube"
+    cfg.model.blocks = ((16, 1, 8), (32, 1, 8), (32, 1, None))
+    cfg.model.local_neighbors = 16
+    cfg.model.use_new_coords_for_voxel = True
+    cfg.evaluate.num_hypotheses = 64
+    model = chip_smoke.seeded_model(0, t_loop.build_model(cfg))
+    batch = next(get_pairs(None, 128, "noise", 2).batches(2))
+    src, dst = torch.as_tensor(batch.source), torch.as_tensor(batch.target)
+    split = {}
+    stages = chip_smoke.reg_stages(model, src, dst, cfg.evaluate,
+                                   torch.Generator().manual_seed(7), timed=split)
+    est = t_loop.register_eval_batch(model, src, dst, cfg.evaluate,
+                                     torch.Generator().manual_seed(7))
+    assert torch.equal(stages["transform"], est)
+    assert list(split) == ["normals", "forward 5b", "consensus", "RANSAC sampling",
+                           "RANSAC scoring, refit, IRLS", "ICP point-to-point",
+                           "normals of the targets", "ICP point-to-plane"]
+    assert stages["samples"].shape == (2, 64, 3) and stages["rscore"].shape == (2, 64)
+
+
 def test_evaluate_registration_matches_reference_at_tiny_smoke_without_flips(rng, monkeypatch):
     """tiny_smoke widths (pointnet, PCA frame), `flip_hypotheses=False`:
     one 2b forward and `register_pair` per batch, the same seeded weights
@@ -240,9 +275,82 @@ def test_resolve_extractor_picks_the_common_checkpoint_of_train(tmp_path):
     untrained = resolve_extractor(cfg, device="cpu")
     assert untrained.head is None and not untrained.use_new_coords_for_voxel
     assert all(np.isfinite(v) for v in evaluate_registration(cfg, device="cpu").values())
-    cfg.evaluate.method = "ransac"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    cfg.evaluate.method = "ransac+picp"
+    assert all(np.isfinite(v) for v in evaluate_registration(cfg, device="cpu").values())
+    cfg.evaluate.method = "svd"
+    with pytest.raises(ValueError, match="unknown method"):
         evaluate_registration(cfg, device="cpu")
+
+
+def _tiny_extractor(flips: bool):
+    cfg = get_config("tiny_smoke")
+    cfg.model.is_classify = False
+    cfg.evaluate.flip_hypotheses = flips
+    cfg.evaluate.method = "ransac"
+    cfg.evaluate.num_hypotheses = 64
+    for k, v in EVAL_SMALL.items():
+        setattr(cfg.evaluate, k, v)
+    model = t_loop.build_model(cfg)
+    t_loop.init_params(model, 0)
+    return cfg, model.eval()
+
+
+def test_flip_gate_needs_the_change_coords_preprocess(monkeypatch):
+    """register_eval_batch runs the flip hypotheses only when the evaluate
+    section asks for them and the trunk's preprocess is 'change_coords'
+    (the reference's gate, rift_tpu/train/loop.py:521-522); otherwise one
+    2b forward and register_pair."""
+    cfg, model = _tiny_extractor(flips=True)
+    batch = next(t_loop.get_pairs(None, 128, "noise", 2).batches(2))
+    src, dst = torch.as_tensor(batch.source), torch.as_tensor(batch.target)
+    seen, flip_features = [], t_loop.flip_features
+    monkeypatch.setattr(t_loop, "flip_features",
+                        lambda m, x, b: seen.append("5b") or flip_features(m, x, b))
+    monkeypatch.setattr(t_loop, "register_pair",
+                        lambda *a, **kw: seen.append("2b") or register_pair(*a, **kw))
+    for preprocess, path in (("change_coords", "5b"), ("pca", "2b"), (None, "2b")):
+        seen.clear()
+        model.rot_invariant_preprocess = preprocess
+        assert t_loop.uses_flips(model, cfg.evaluate) == (path == "5b")
+        est = t_loop.register_eval_batch(model, src, dst, cfg.evaluate)
+        assert seen == [path] and est.shape == (2, 4, 4)
+    cfg.evaluate.flip_hypotheses = False
+    model.rot_invariant_preprocess = "change_coords"
+    assert not t_loop.uses_flips(model, cfg.evaluate)
+
+
+def test_evaluation_result_does_not_depend_on_the_warm_up(monkeypatch):
+    """evaluate_registration gives the warm-up's RANSAC draws back: the
+    timed batches draw what a run without the warm-up would, so the
+    result equals the same batches registered from a fresh generator
+    seeded with config.seed."""
+    cfg, model = _tiny_extractor(flips=False)
+    cfg.seed = 3
+    got = []
+    monkeypatch.setattr(t_loop, "MeterRegistration", _recording(t_loop, got))
+    evaluate_registration(cfg, model=model, device="cpu")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    want = []
+    for batch in t_loop.get_pairs(None, EVAL_SMALL["num_points"], cfg.evaluate.pairs_mode,
+                                  EVAL_SMALL["num_pairs"]).batches(EVAL_SMALL["batch_pairs"]):
+        src, dst = torch.as_tensor(batch.source), torch.as_tensor(batch.target)
+        n_real = src.shape[0]
+        if n_real < EVAL_SMALL["batch_pairs"]:
+            pad = EVAL_SMALL["batch_pairs"] - n_real
+            src = torch.cat([src, src[:1].expand(pad, -1, -1)], 0)
+            dst = torch.cat([dst, dst[:1].expand(pad, -1, -1)], 0)
+        est = t_loop.register_eval_batch(model, src, dst, cfg.evaluate, gen)
+        want.append({k: v.numpy() for k, v in t_loop.pair_errors(
+            src[:n_real], torch.as_tensor(batch.transform), est[:n_real]).items()})
+    got, want = _per_pair(got), _per_pair(want)
+    for k in ("rre", "rte", "rmse", "succ"):
+        np.testing.assert_array_equal(got[k], want[k])
+    # Another seed draws other samples: the seed reaches RANSAC.
+    cfg.seed = 4
+    other = []
+    monkeypatch.setattr(t_loop, "MeterRegistration", _recording(t_loop, other))
+    evaluate_registration(cfg, model=model, device="cpu")
+    assert not np.array_equal(_per_pair(other)["rre"], got["rre"])
 
 
 def test_checkpoint_restore_raw_round_trip(tmp_path):

@@ -25,7 +25,7 @@ from rift_tpu_torch.ops.cuda.conv3d import conv3d_same_plain, padded_bf16
 from rift_tpu_torch.ops.cuda.normals_kernel import neighborhood_moments_plain, point_sqdist
 from rift_tpu_torch.ops.cuda.onehot_ops import (corner_gather_plain, corner_scatter_plain,
                                                 scatter_mean_plain)
-from rift_tpu_torch.ops.spherical import CornerGather, ScatterMean
+from rift_tpu_torch.ops.voxel_autograd import CornerGather, ScatterMean
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

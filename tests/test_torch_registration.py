@@ -449,12 +449,13 @@ def test_register_pair_from_matches_matches_reference(rng):
                                   method="teaserpp")
         np.testing.assert_allclose(t[i].numpy(), np.asarray(wt), atol=1e-4)
         np.testing.assert_array_equal(inl[i].numpy(), np.asarray(winl))
-    for method, item in (("ransac", "8"), ("fgr", "8"), ("icp", "8"), ("teaserpp+icp", "8"),
-                         ("ransac+picp", "8"), ("fgr+pl", "8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            register_pair_from_matches(*map(torch.from_numpy, (src, dst, idx1, idx2, mask)),
-                                       method=method)
-    with pytest.raises(NotImplementedError, match="'svd' is not ported"):
+    # The other solvers (held against the reference in
+    # tests/test_torch_solvers.py) run here too; an unknown name raises.
+    for method in ("ransac", "fgr", "icp", "teaserpp+icp", "ransac+picp", "fgr+pl"):
+        t, _ = register_pair_from_matches(*map(torch.from_numpy, (src, dst, idx1, idx2, mask)),
+                                          method=method, num_hypotheses=64)
+        assert t.shape == (b, 4, 4) and bool(torch.isfinite(t).all())
+    with pytest.raises(ValueError, match="unknown method 'svd'"):
         register_pair(*map(torch.from_numpy, (src, dst, src, dst)), method="svd")
 
 
@@ -472,7 +473,7 @@ def test_meter_registration_matches_reference(rng):
     assert ours.compute() == ref.compute() and ours.num == ref.num == 6
 
 
-@pytest.mark.parametrize("mode", ["noise", "clean"])
+@pytest.mark.parametrize("mode", ["noise", "clean", "partial", "partial0.5"])
 def test_get_pairs_and_batches_give_the_reference_arrays(mode, tmp_path):
     from rift_tpu.data.registration_pairs import get_pairs as j_get_pairs
     from rift_tpu_torch.data import PairBatch, get_pairs
@@ -492,7 +493,9 @@ def test_get_pairs_refuses_what_is_not_ported(tmp_path):
 
     h5 = tmp_path / "pairs.h5"
     h5.write_bytes(b"")
-    for args in ((str(h5), 64, "noise"), (None, 64, "icl_nuim"), (None, 64, "partial"),
-                 (None, 64, "partial0.5")):
+    for args in ((str(h5), 64, "noise"), (None, 64, "icl_nuim")):
         with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
             get_pairs(*args, num_pairs=2)
+    for mode in ("partial0.05", "occluded"):
+        with pytest.raises(ValueError, match="pair mode"):
+            get_pairs(None, 64, mode, num_pairs=2)

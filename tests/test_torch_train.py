@@ -195,6 +195,33 @@ def test_flagship_preset_equals_the_checkpoint_config():
         get_config("mn40_sph_pt_r4").train.log_every = 1
 
 
+CUBE_PRESETS = (["mn40_cu_dg", "mn40_cu_pt", "reg_clean", "reg_noise", "reg_partial"]
+                + [f"reg_{mode}_{method}_{suffix}" for mode in ("clean", "noise", "partial")
+                   for method in ("ransac", "fgr", "teaserpp") for suffix in ("cu_dg", "cu_pt")])
+
+
+@pytest.mark.parametrize("name", CUBE_PRESETS)
+def test_cube_preset_equals_the_reference(name):
+    """Each cube preset equals the reference's preset of the same name on
+    every field the port has (the fields it lacks are the ones
+    UNREAD_FIELDS names, and the sequence section)."""
+    import dataclasses
+
+    ours = json.loads(json.dumps(dataclasses.asdict(get_config(name))))
+    ref = json.loads(json.dumps(dataclasses.asdict(jax_config(name))))
+    for section, fields in UNREAD_FIELDS.items():
+        assert {k: ref[section].pop(k) for k in fields} == fields
+    assert set(ref) - set(ours) == {"sequence"}
+    assert ours == {k: ref[k] for k in ours}
+    assert ours["model"]["voxel_shape"] == "cube"
+
+
+def test_icl_nuim_presets_wait_for_their_pair_source():
+    for name in ("reg_icl_nuim", "reg_icl_nuim_ransac_cu_dg"):
+        with pytest.raises(KeyError):
+            get_config(name)
+
+
 @pytest.mark.parametrize("max_norm", [0.5, 50.0])
 def test_schedule_and_clip_match_optax(rng, max_norm):
     cfg = get_config("tiny_smoke")
