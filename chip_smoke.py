@@ -1,10 +1,12 @@
 """Smoke run of rift_tpu_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, register 16 scan pairs of 1024 points at
 the flagship width and with bench.py's headline model in bf16, train the
-flagship classifier on batches of 16 clouds of 1024 points, run the
-flagship's registration evaluation (100 pairs, flip hypotheses, TEASER) and
-the reference's recommended reg_noise preset (cube trunk, RANSAC and
-point-to-plane ICP), and compare every path with its CPU run.
+flagship classifier on batches of 16 clouds of 1024 points with the
+registration probe, run the flagship's registration evaluation (100 pairs,
+flip hypotheses, TEASER), the reference's recommended reg_noise preset
+(cube trunk, RANSAC and point-to-plane ICP) and, through the command
+line, its reg_icl_nuim preset on the indoor sequence's adjacent scans, and
+compare every path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -46,7 +48,9 @@ Phases (each prints one line with its wall time):
   7. stages  — one staged batch of each model (normals, features, mutual
                NN, GNC-TLS, each ended by a synchronize).
   8. train   — train() of the mn40_sph_pt_r4 preset on a small synthetic
-               ModelNet40 split (4 steps of 16 x 1024, one validation pass,
+               ModelNet40 split (4 steps of 16 x 1024, one validation pass
+               with the registration probe, reg_probe_interval 1: its
+               best_reg_* metrics finite and best_reg_rre.pt written;
                checkpoints), seeded weights; then 10 more steps on one
                fixed batch: finite losses, K2, K3 and K4 each launched twice
                per step, the last 3 losses below the first 3; ms/step,
@@ -75,6 +79,17 @@ Phases (each prints one line with its wall time):
                "error"), 4 of its pairs against the CPU on the same RANSAC
                samples (reg_parity), every method name on 16 pairs
                (SWEEP), and K1, K2 and K3 at this path's cube shapes.
+ 12. evaluate reg_icl_nuim — the same for the reg_icl_nuim preset
+               unchanged (ransac+picp with 4000 hypotheses, threshold 0.07,
+               noise bound 0.05; 100 adjacent-scan pairs of the synthetic
+               indoor sequence x 1024 points, 64 a batch), run through the
+               command line in this process (cli.main(["evaluate",
+               "--preset", "reg_icl_nuim", "--ckpt", DIR]) on a seeded
+               checkpoint): launches, results, pairs/s, peak memory and
+               RANSAC's own, the staged and profiled batch, 4 scan pairs
+               against the CPU (reg_parity), and K1 (with its neighbours per
+               query on the room's scans), K2 and K3 at its shapes; no
+               method sweep.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -209,8 +224,10 @@ NUDGE, NUDGE_TRIES = 1e-6, 4
 TLS_COST_SLACK = 1.0
 
 # Training: the mn40_sph_pt_r4 preset on a small split. train() takes
-# TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds and one validation pass;
-# then TRAIN_STEPS steps on one fixed batch.
+# TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds and one validation pass with
+# the registration probe (reg_probe_interval 1: the preset's 16 noise
+# pairs of 1024 points, PROBE_LAUNCHES); then TRAIN_STEPS steps on one
+# fixed batch.
 TRAIN_BATCH = 16
 TRAIN_ITEMS = {"train": 64, "valid": 16, "test": 16}
 TRAIN_LOOP_STEPS = 4
@@ -221,6 +238,7 @@ TRAIN_STEPS = 10
 STEP_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2, "corner_scatter": 2}
 EVAL_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2}
 REGISTER_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2}
+PROBE_LAUNCHES = REGISTER_LAUNCHES  # the probe: normals, one 2b forward, mutual NN, GNC-TLS
 BENCH_LAUNCHES = {"normals_moments": 1, "scatter_mean": 2, "corner_gather": 2,
                   "conv3d_same": 4}
 # The flagship's registration evaluation (train/loop.py:evaluate_registration)
@@ -269,6 +287,15 @@ REG_LAUNCHES = {"normals_moments": 2, "scatter_mean": 2, "corner_gather": 2}
 # RANSAC's start is arbitrary, and from it ICP's nearest neighbours flip
 # under the nudge (by 1.7 on a pair of a CPU run at 256 points).
 REG_NUDGE_TRIES = 2
+# The recommended ICL-NUIM preset, run unchanged through the command line
+# (`cli.main(["evaluate", "--preset", ICL_PRESET, "--ckpt", DIR])`):
+# reg_icl_nuim (the trunk of reg_noise; 'ransac+picp' with 4000
+# hypotheses, inlier threshold 0.07, noise bound 0.05; 100 adjacent-scan
+# pairs of the synthetic indoor sequence, 1024 points, 64 a batch; flips,
+# canonical voxels). The same launches per batch as reg_noise, the same
+# staged batch and parity rules (reg_parity on 4 scan pairs); no method
+# sweep.
+ICL_PRESET = "reg_icl_nuim"
 # The method sweep (SWEEP): all 13 names on SWEEP_PAIRS pairs' consensus
 # matches, each finite; on the first SWEEP_CPU_PAIRS of them, card vs CPU
 # within TRANSFORM_TOL where SWEEP_NUDGE_TRIES nudges leave the CPU pose in
@@ -1562,6 +1589,7 @@ def k1_row(clouds) -> dict:
     bound_bytes = (cb * n * 3 * 4 + cb * n * 13 * 4) / PEAK_BYTES_PER_S
     return dict(
         shape=f"points [{cb},{n},3] k={k}", max_rel_err=err,
+        neighbours_per_query=float(want[2].float().mean()),
         ms=cuda_time_ms(lambda: nk.neighborhood_moments(clouds, k, r2), reps=5),
         dev_ms=dev_ms(lambda: nk.neighborhood_moments(clouds, k, r2), calls=5),
         bound_ms=max(bound_ops, bound_bytes) * 1e3,
@@ -1646,6 +1674,9 @@ def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
         del grid
     for name, rs in rows.items():
         for row in rs:
+            if "neighbours_per_query" in row:
+                print(f"    normals_moments at {row['shape']}: "
+                      f"{row['neighbours_per_query']:.2f} neighbours per query", flush=True)
             print(f"    {name} at the evaluate shape {row['shape']}: rel err "
                   f"{row['max_rel_err']:.3e} (tol {TOL[name]:g}); kernel {row['ms']:.4f} ms per "
                   f"call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms "
@@ -1711,15 +1742,36 @@ def reg_stages(model, src, dst, ev, generator=None, samples=None,
                 rscore=rscore, t_ransac=t_ransac, t_icp=t_icp, transform=transform)
 
 
-def reg_phase(wrappers: dict) -> dict:
-    """evaluate_registration of the reg_noise preset unchanged (cube trunk,
-    dgcnn_kernel, global PPF, reference LRF; ransac+picp; 100 noise pairs of
-    1024 points, 64 a batch; flips, canonical voxels) on the card from a
-    seeded checkpoint; then one batch timed (median of TIMED_BATCHES),
-    profiled, staged (reg_stages: pose bit-equal to register_eval_batch's from the
-    same generator state; per-batch launches checked), its parity with the
-    CPU (reg_parity), every method name on 16 of its pairs (method_sweep),
-    and K1, K2 and K3 at this path's shapes."""
+def run_cli_evaluate(preset: str, ckpt_dir: str) -> dict:
+    """`python -m rift_tpu_torch.cli evaluate --preset P --ckpt DIR` in this
+    process (device: the card, the CLI's default): its `key: value` lines
+    as a dict."""
+    import contextlib
+    import io
+
+    from rift_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["evaluate", "--preset", preset, "--ckpt", ckpt_dir])
+    if code != 0:
+        fail(f"cli evaluate --preset {preset} exited {code}: {out.getvalue()}")
+    print(out.getvalue(), end="", flush=True)
+    return {k: float(v) for k, v in (line.split(": ") for line in out.getvalue().splitlines())}
+
+
+def reg_phase(wrappers: dict, preset: str = REG_PRESET, through_cli: bool = False,
+              sweep: bool = True) -> dict:
+    """evaluate_registration of a cube-trunk 'ransac+picp' preset unchanged
+    (reg_noise by default: dgcnn_kernel, global PPF, reference LRF; 100
+    noise pairs of 1024 points, 64 a batch; flips, canonical voxels) on the
+    card from a seeded checkpoint, called directly or, `through_cli`, as
+    the command line's `evaluate --ckpt`; then one batch timed (median of
+    TIMED_BATCHES), profiled, staged (reg_stages: pose bit-equal to
+    register_eval_batch's from the same generator state; per-batch launches
+    checked), its parity with the CPU (reg_parity), with `sweep` every
+    method name on 16 of its pairs (method_sweep), and K1, K2 and K3 at
+    this path's shapes."""
     import torch
 
     from rift_tpu_torch.data import get_pairs
@@ -1730,13 +1782,15 @@ def reg_phase(wrappers: dict) -> dict:
     from rift_tpu_torch.train.loop import register_eval_batch
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        cfg = eval_checkpoint(ckpt_dir, REG_PRESET)
+        cfg = eval_checkpoint(ckpt_dir, preset)
         ev = cfg.evaluate
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        results = evaluate_registration(cfg)  # device=None: the card
+        # device=None / the CLI's default: the card
+        results = (run_cli_evaluate(preset, ckpt_dir) if through_cli
+                   else evaluate_registration(cfg))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1745,14 +1799,14 @@ def reg_phase(wrappers: dict) -> dict:
         for name in wrappers:
             want = REG_LAUNCHES.get(name, 0) * batches
             if launches[name] != want:
-                fail(f"evaluate {REG_PRESET}: {name} launched {launches[name]} times in "
+                fail(f"evaluate {preset}: {name} launched {launches[name]} times in "
                      f"{batches} batches, expected {want}")
         if not all(math.isfinite(v) for v in results.values()):
-            fail(f"evaluate {REG_PRESET} gave non-finite results {results}")
+            fail(f"evaluate {preset} gave non-finite results {results}")
         model = resolve_extractor(cfg)
     first = model.layers["PVConv_0"]
     if not (model.use_new_coords_for_voxel and first.cube and first.dgcnn and model.global_ppf):
-        fail(f"the {REG_PRESET} extractor is not the cube dgcnn trunk with global PPF and "
+        fail(f"the {preset} extractor is not the cube dgcnn trunk with global PPF and "
              "canonical voxels")
 
     dev = torch.device("cuda")
@@ -1777,7 +1831,7 @@ def reg_phase(wrappers: dict) -> dict:
     after = read_counts(wrappers)
     per_batch = {k: after[k] - before[k] for k in after}
     if any(per_batch[k] != REG_LAUNCHES.get(k, 0) for k in per_batch):
-        fail(f"staged {REG_PRESET} batch: launches {per_batch}, expected {REG_LAUNCHES}")
+        fail(f"staged {preset} batch: launches {per_batch}, expected {REG_LAUNCHES}")
     # RANSAC's own peak over what is allocated before it.
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1794,16 +1848,15 @@ def reg_phase(wrappers: dict) -> dict:
     split["total"] = sum(split.values())
     staged_diff = float((stages["transform"] - est).abs().max())
     if not torch.equal(stages["transform"], est):
-        fail(f"the staged {REG_PRESET} batch's poses differ from register_eval_batch's by "
+        fail(f"the staged {preset} batch's poses differ from register_eval_batch's by "
              f"{staged_diff:.3e}")
-    parity_msg = reg_parity(model, src, dst, stages, ev)
-    sweep_msg = method_sweep(src, dst, gt, stages, ev)
+    parity_msg = reg_parity(model, src, dst, stages, ev, preset)
+    sweep_msg = method_sweep(src, dst, gt, stages, ev) if sweep else "not run"
     kernels = eval_kernel_times(model, src, dst, targets_k1=True)
     return dict(results=results, run_s=run_s, peak_gb=peak_gb, ransac_gb=ransac_gb,
-                launches=launches, batches=batches, ms_per_batch=ms,
-                batch_pairs=ev.batch_pairs, hypotheses=ev.num_hypotheses, split=split,
+                launches=launches, batches=batches, ms_per_batch=ms, split=split,
                 profile=profile, per_batch=per_batch, parity=parity_msg, sweep=sweep_msg,
-                kernels=kernels,
+                kernels=kernels, evaluate=ev,
                 median_rre=float(errs["rre"].median()))
 
 
@@ -1839,8 +1892,9 @@ def nudge_spread(fn, dst, tries: int, seed: int):
     return base, spread
 
 
-def reg_parity(model, src, dst, stages: dict, ev, pairs: int = EVAL_PARITY_PAIRS) -> str:
-    """The first `pairs` pairs of the staged reg_noise batch against
+def reg_parity(model, src, dst, stages: dict, ev, name: str,
+               pairs: int = EVAL_PARITY_PAIRS) -> str:
+    """The first `pairs` pairs of the staged batch of preset `name` against
     reg_stages on the CPU (a copy of the model) on the card's RANSAC
     samples, under the rules at the top (reg_parity)."""
     import torch
@@ -1895,11 +1949,11 @@ def reg_parity(model, src, dst, stages: dict, ev, pairs: int = EVAL_PARITY_PAIRS
            f"{short(spread[0])} and {short(spread[1])}, determined {determined.tolist()})")
     if bad_share > FEAT_POINT_SHARE or bool((~same_h & decided).any()) or agree < MASK_AGREE \
             or not bool(torch.isfinite(c["transform"]).all()):
-        fail(f"{REG_PRESET} parity: " + msg)
+        fail(f"{name} parity: " + msg)
     if bool((~win_ok & same).any()) or int(determined[0].sum()) * 2 < p \
             or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
             or bool((t_diff[held] > TRANSFORM_TOL).any()):
-        fail(f"{REG_PRESET} parity: " + msg)
+        fail(f"{name} parity: " + msg)
     return msg
 
 
@@ -1995,6 +2049,7 @@ def train_phase(wrappers: dict) -> dict:
     with tempfile.TemporaryDirectory() as ckpt_dir:
         cfg = train_config()
         cfg.train.ckpt_dir = ckpt_dir
+        cfg.train.reg_probe_interval = 1
         for fn in wrappers.values():
             fn.launches = 0
         t1 = time.perf_counter()
@@ -2005,12 +2060,15 @@ def train_phase(wrappers: dict) -> dict:
         eval_batches = -(-TRAIN_ITEMS["valid"] // cfg.train.eval_batch_size)
         for name in wrappers:
             want = (STEP_LAUNCHES.get(name, 0) * TRAIN_LOOP_STEPS
-                    + EVAL_LAUNCHES.get(name, 0) * eval_batches)
+                    + EVAL_LAUNCHES.get(name, 0) * eval_batches + PROBE_LAUNCHES.get(name, 0))
             if launches[name] != want:
                 fail(f"train(): {name} launched {launches[name]} times, expected {want}")
+        probe = {k: v for k, v in out["best"].items() if k.startswith("reg_")}
         if out["state"].step != TRAIN_LOOP_STEPS or not math.isfinite(out["loss"]) \
-                or "acc" not in out["best"] \
-                or not os.path.isfile(os.path.join(ckpt_dir, "common.pt")):
+                or "acc" not in out["best"] or len(probe) != 6 \
+                or not all(math.isfinite(v) for v in probe.values()) \
+                or not os.path.isfile(os.path.join(ckpt_dir, "common.pt")) \
+                or not os.path.isfile(os.path.join(ckpt_dir, "best_reg_rre.pt")):
             fail(f"train(): step {out['state'].step}, loss {out['loss']}, best {out['best']}, "
                  f"files {sorted(os.listdir(ckpt_dir))}")
 
@@ -2153,6 +2211,29 @@ def train_parity() -> str:
     return msg
 
 
+def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
+    """The result lines of a reg_phase run of `preset`."""
+    res, ev = rg["results"], rg["evaluate"]
+    print(f"evaluate {preset}: {smi}: {ev.method} ({ev.num_hypotheses} hypotheses, inlier "
+          f"threshold {ev.inlier_threshold}, noise bound {ev.noise_bound}), cube trunk (dgcnn, "
+          f"global PPF, reference LRF), {ev.num_pairs} {ev.pairs_mode} pairs x "
+          f"{ev.num_points} points, flips, canonical voxels, {ev.batch_pairs} pairs a batch: "
+          f"{1.0 / res['reg_time']:.2f} pairs/s by reg_time ({res['reg_time'] * 1e3:.2f} ms a "
+          f"pair), {rg['ms_per_batch']:.2f} ms per {ev.batch_pairs}-pair batch (median of "
+          f"{TIMED_BATCHES}), {ev.batch_pairs / rg['ms_per_batch'] * 1e3:.2f} pairs/s; whole "
+          f"call {rg['run_s']:.2f} s for {rg['batches']} batches with the warm-up; peak "
+          f"{rg['peak_gb']:.2f} GB (RANSAC alone {rg['ransac_gb']:.2f} GB); staged batch: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in rg["split"].items())
+          + f"; result (seeded weights: information only) "
+          f"{json.dumps({k: round(v, 6) for k, v in res.items()})}", flush=True)
+    print(f"evaluate {preset} profile (one batch): {json.dumps(rg['profile'])}", flush=True)
+    phase(f"evaluate {preset}", t0,
+          f"launches {rg['launches']} in {rg['batches']} batches, {rg['per_batch']} in the "
+          f"staged one; staged pose bit-equal to register_eval_batch's; median RRE of the "
+          f"staged batch {rg['median_rre']:.3f} deg; parity: {rg['parity']}; methods: "
+          f"{rg['sweep']}")
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2284,30 +2365,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rg = reg_phase(wrappers)
-    res = rg["results"]
-    print(f"evaluate {REG_PRESET}: {smi}: ransac+picp ({rg['hypotheses']} hypotheses), cube "
-          f"trunk (dgcnn, global PPF, reference LRF), flips, canonical voxels, "
-          f"{rg['batch_pairs']} pairs a batch: {1.0 / res['reg_time']:.2f} pairs/s by reg_time "
-          f"({res['reg_time'] * 1e3:.2f} ms a pair), {rg['ms_per_batch']:.2f} ms per "
-          f"{rg['batch_pairs']}-pair batch (median of {TIMED_BATCHES}), "
-          f"{rg['batch_pairs'] / rg['ms_per_batch'] * 1e3:.2f} pairs/s; whole call "
-          f"{rg['run_s']:.2f} s for {rg['batches']} batches with the warm-up; peak "
-          f"{rg['peak_gb']:.2f} GB (RANSAC alone {rg['ransac_gb']:.2f} GB); staged batch: "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in rg["split"].items())
-          + f"; result (seeded weights: information only) "
-          f"{json.dumps({k: round(v, 6) for k, v in res.items()})}", flush=True)
-    print(f"evaluate {REG_PRESET} profile (one batch): {json.dumps(rg['profile'])}", flush=True)
-    phase(f"evaluate {REG_PRESET}", t0,
-          f"launches {rg['launches']} in {rg['batches']} batches, {rg['per_batch']} in the "
-          f"staged one; staged pose bit-equal to register_eval_batch's; median RRE of the "
-          f"staged batch {rg['median_rre']:.3f} deg; parity: {rg['parity']}; methods: "
-          f"{rg['sweep']}")
+    reg_lines(REG_PRESET, rg, smi, t0)
     for name, rows in rg["kernels"].items():
         report[name]["eval_cube"] = rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    icl = reg_phase(wrappers, ICL_PRESET, through_cli=True, sweep=False)
+    reg_lines(ICL_PRESET, icl, smi, t0)
+    for name, rows in icl["kernels"].items():
+        report[name]["eval_icl"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
-             "evaluate_reg_noise": rg["launches"]}
+             "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -2326,7 +2397,7 @@ def main() -> int:
                                    "library_steps", "per_shape", "other_shapes", "large",
                                    "degenerate", "other_r", "bisection_bound_ms",
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
-                                   "eval_5b", "eval_cube")
+                                   "eval_5b", "eval_cube", "eval_icl")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

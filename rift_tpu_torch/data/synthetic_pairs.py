@@ -1,10 +1,12 @@
-"""Synthetic registration pairs, a numpy copy of
-`rift_tpu.data.registration_pairs` (`PairBatch`, `SyntheticPairs` in its
-'clean', 'noise', 'partial' and 'partialK' modes, `get_pairs`), with the
-procedural shapes of `rift_tpu/data/synthetic.py` and the transforms and
-crops of `rift_tpu/data/transforms.py` it needs. The same seed gives the
-same arrays as the original. The h5 test pairs and the 'icl_nuim'
-sequence pairs wait for their slice (ROADMAP item 8).
+"""Registration pairs, a numpy copy of `rift_tpu.data.registration_pairs`:
+`PairBatch`; `SyntheticPairs` in its 'clean', 'noise', 'partial' and
+'partialK' modes; `SequencePairs`, the adjacent scans of the synthetic
+indoor trajectory (the 'icl_nuim' mode, `data/sequences.py`);
+`H5TestPairs`, the DeepGMR-format h5 test files (needs h5py); and
+`get_pairs`. With them, the procedural shapes of
+`rift_tpu/data/synthetic.py` and the transforms and crops of
+`rift_tpu/data/transforms.py` they need. The same seed or file gives the
+same arrays as the original.
 """
 from __future__ import annotations
 
@@ -253,7 +255,48 @@ class PairBatch:
     transform: np.ndarray   # [b, 4, 4] ground truth source -> target
 
 
-class SyntheticPairs:
+class _Pairs:
+    """`arrays` and `batches` of a pair source whose item i is (source
+    [n, 3], target [n, 3], ground-truth transform [4, 4])."""
+
+    def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All pairs stacked: (source [m, n, 3], target [m, n, 3], T [m, 4, 4])."""
+        items = [self[i] for i in range(len(self))]
+        return tuple(np.stack([it[j] for it in items]) for j in range(3))
+
+    def batches(self, batch_size: int = 1) -> Iterator[PairBatch]:
+        """Consecutive pairs, `batch_size` at a time (the last batch may be
+        shorter)."""
+        for start in range(0, len(self), batch_size):
+            items = [self[i] for i in range(start, min(start + batch_size, len(self)))]
+            yield PairBatch(source=np.stack([a for a, _, _ in items]),
+                            target=np.stack([b for _, b, _ in items]),
+                            transform=np.stack([t for _, _, t in items]))
+
+
+class H5TestPairs(_Pairs):
+    """A DeepGMR-format h5 file: datasets 'source', 'target' and
+    'transform'; item i keeps the first `num_points` points of each cloud.
+    Needs h5py, imported here only."""
+
+    def __init__(self, path: str, num_points: int = 1024):
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            self.source = f["source"][...].astype(np.float32)
+            self.target = f["target"][...].astype(np.float32)
+            self.transform = f["transform"][...].astype(np.float32)
+        self.num_points = num_points
+
+    def __len__(self) -> int:
+        return self.transform.shape[0]
+
+    def __getitem__(self, index: int):
+        n = self.num_points
+        return self.source[index][:n], self.target[index][:n], self.transform[index]
+
+
+class SyntheticPairs(_Pairs):
     """Registration pairs from procedural shapes. Modes: 'clean' (full
     clouds); 'noise' (+ clipped Gaussian noise on both clouds); 'partial'
     (independent 2.5-D z-buffer crops of both clouds before resampling,
@@ -313,30 +356,35 @@ class SyntheticPairs:
         return (src.astype(np.float32), dst.astype(np.float32),
                 trans.astype(np.float32))
 
-    def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """All pairs stacked: (source [m, n, 3], target [m, n, 3], T [m, 4, 4])."""
-        items = [self[i] for i in range(len(self))]
-        return tuple(np.stack([it[j] for it in items]) for j in range(3))
 
-    def batches(self, batch_size: int = 1) -> Iterator[PairBatch]:
-        """Consecutive pairs, `batch_size` at a time (the last batch may be
-        shorter)."""
-        for start in range(0, len(self), batch_size):
-            items = [self[i] for i in range(start, min(start + batch_size, len(self)))]
-            yield PairBatch(source=np.stack([a for a, _, _ in items]),
-                            target=np.stack([b for _, b, _ in items]),
-                            transform=np.stack([t for _, _, t in items]))
+class SequencePairs(_Pairs):
+    """Adjacent-scan pairs of the synthetic indoor trajectory
+    (`data/sequences.py`, the ICL-NUIM analog) of `num_pairs + 1` scans:
+    pair k is (scan_k, scan_{k+1}) with ground truth T_{k+1}⁻¹ T_k."""
+
+    def __init__(self, num_pairs: int = 100, num_points: int = 1024, seed: int = 0,
+                 crop: bool = False):
+        from .sequences import SequenceConfig, SyntheticSequence
+
+        self.seq = SyntheticSequence(SequenceConfig(num_scans=num_pairs + 1,
+                                                    num_points=num_points, seed=seed, crop=crop))
+        self.num_pairs = num_pairs
+
+    def __len__(self) -> int:
+        return self.num_pairs
+
+    def __getitem__(self, index: int):
+        return (self.seq.scans[index], self.seq.scans[index + 1],
+                self.seq.relative_gt(index, index + 1))
 
 
 def get_pairs(path: str | None, num_points: int = 1024, mode: str = "noise",
-              num_pairs: int = 100) -> SyntheticPairs:
-    """The evaluation's pairs: synthetic ones of `mode` when `path` is None
-    or not a file, as in the reference. An h5 file and the 'icl_nuim' mode
-    are not ported yet."""
+              num_pairs: int = 100) -> _Pairs:
+    """The evaluation's pairs, in the reference's order: the h5 test file
+    at `path` when it is a file; else the adjacent scans of the indoor
+    trajectory for mode 'icl_nuim'; else synthetic pairs of `mode`."""
     if path and os.path.isfile(path):
-        raise NotImplementedError(f"h5 test pairs ({path}) are not ported yet "
-                                  "(ROADMAP item 8)")
+        return H5TestPairs(path, num_points)
     if mode == "icl_nuim":
-        raise NotImplementedError("'icl_nuim' sequence pairs are not ported yet "
-                                  "(ROADMAP item 8)")
+        return SequencePairs(num_pairs=num_pairs, num_points=num_points)
     return SyntheticPairs(num_pairs=num_pairs, num_points=num_points, mode=mode)

@@ -1,7 +1,9 @@
 """Training and evaluation configuration: the dataclasses `train()` and
 `evaluate_registration()` read, copied from `rift_tpu/train/config.py`
-(`ModelConfig`, `OptimConfig`, `TrainConfig`, `EvalConfig`;
-`ModelNet40Config` is in `data/modelnet40.py`), and presets:
+(`ModelConfig`, `OptimConfig`, `TrainConfig`, `EvalConfig`,
+`ExperimentConfig`; `ModelNet40Config` is in `data/modelnet40.py`,
+`SequenceConfig` in `data/sequences.py`), the presets, and
+`apply_overrides` (the command line's `a.b=v`). The presets:
 
 - `mn40_sph_pt_r4`: the flagship, the values of
   `checkpoints/mn40_sph_pt_r4/best_acc.meta.json` (kept in code: the chip
@@ -10,25 +12,29 @@
 - `tiny_smoke`: the reference's CPU smoke widths, with the flagship's
   `pointnet_kernel` and `lrf_kind='pca'` (the reference's preset keeps
   the `dgcnn_kernel` default);
-- the reference's cube presets, each equal to the reference's on every
-  field the port has: the classifiers `mn40_cu_dg` and `mn40_cu_pt`; the
-  registration sweep `reg_{clean,noise,partial}_{ransac,fgr,teaserpp}_cu_
-  {dg,pt}`; and the recommended `reg_clean`, `reg_noise` and
-  `reg_partial` (cube, `dgcnn_kernel`, 4 global-PPF channels, the
-  reference LRF, `ransac+picp`). The `icl_nuim` presets wait for their
-  pair source (ROADMAP item 8).
+- the reference's presets, each equal to the reference's on every field
+  the port has: the classifiers `mn40_{sph,cu}_{dg,pt}`; the registration
+  sweep `reg_{clean,noise,partial,icl_nuim}_{ransac,fgr,teaserpp}_cu_
+  {dg,pt}`; and the recommended `reg_clean`, `reg_noise`, `reg_partial`
+  and `reg_icl_nuim` (cube, `dgcnn_kernel`, 4 global-PPF channels, the
+  reference LRF, `ransac+picp`; the `icl_nuim` ones with the scans'
+  solver settings). `shapenet_seg` waits for its trainer (ROADMAP item
+  10).
 
 Only the fields the port reads are here; the dataclasses have slots, so
 setting any other raises. The reference's other training fields change
-nothing on one card with the probe off (`log_every`, `data_parallel`,
-`reg_probe_pairs`, `cache_npy`), and its sequence section waits for its
-slice. `EvalConfig` has every field of the reference's with its default.
+nothing on one card (`log_every`, `data_parallel`, `cache_npy`).
+`EvalConfig` has every field of the reference's with its default.
 """
 from __future__ import annotations
 
+import ast
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any
 
 from ..data.modelnet40 import ModelNet40Config
+from ..data.sequences import SequenceConfig
 
 
 @dataclass(slots=True)
@@ -70,7 +76,12 @@ class TrainConfig:
     steps_per_epoch: int | None = None  # cap (useful for smoke runs)
     ckpt_dir: str = "checkpoints"
     half_precision: bool = False   # not ported yet: train() raises when set
-    reg_probe_interval: int = 0    # 0 = off; the registration probe is not ported yet
+    # At each validation epoch whose number (epoch + 1) K divides, register
+    # reg_probe_pairs synthetic noise pairs with the current trunk and track
+    # rre, rte, ... as best metrics (train/loop.py:registration_probe).
+    # 0 = off.
+    reg_probe_interval: int = 0
+    reg_probe_pairs: int = 16
 
 
 @dataclass(slots=True)
@@ -82,9 +93,10 @@ class EvalConfig:
     `ransac_irls_shrink` set RANSAC (its inlier distance, hypotheses, Tukey
     IRLS steps, and the scale of two tighter steps when not 1).
     `noise_bound` sets TEASER and FGR (twice it), the consensus (tau = twice
-    it) and the '+pl' gate (three times it). `pairs_path` None or not a
-    file: synthetic pairs of `pairs_mode` 'clean', 'noise', 'partial' or
-    'partialK' (K the source's overlap fraction, e.g. 'partial0.5').
+    it) and the '+pl' gate (three times it). `pairs_path`: an h5 test file;
+    when None or not a file, pairs of `pairs_mode`: synthetic 'clean',
+    'noise', 'partial' or 'partialK' (K the source's overlap fraction, e.g.
+    'partial0.5'), or 'icl_nuim', adjacent scans of the indoor sequence.
     `batch_pairs`: pairs per batch, the tail padded. `canonical_voxel`: voxelize in the LRF
     frame (`use_new_coords_for_voxel` on a checkpoint's change_coords
     trunk). `flip_hypotheses`: source features under the 4 sign
@@ -116,6 +128,7 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     dataset: ModelNet40Config = field(default_factory=ModelNet40Config)
     evaluate: EvalConfig = field(default_factory=EvalConfig)
+    sequence: SequenceConfig = field(default_factory=SequenceConfig)
 
 
 def _classification(voxel_shape: str, kernel: str) -> ExperimentConfig:
@@ -136,21 +149,28 @@ def _registration(method: str, mode: str, kernel: str = "dgcnn_kernel") -> Exper
     cfg.model.extra_feature_channels = 4
     cfg.evaluate.method = method
     cfg.evaluate.pairs_mode = mode
+    if mode == "icl_nuim":
+        # The reference's calibration on the adjacent-scan pairs, where the
+        # scans' resampling offsets set the noise.
+        cfg.evaluate.noise_bound = 0.05
+        cfg.evaluate.inlier_threshold = 0.07
+        cfg.evaluate.num_hypotheses = 4000
     return cfg
 
 
-def _cube_presets() -> dict[str, ExperimentConfig]:
+def _reference_presets() -> dict[str, ExperimentConfig]:
     out = {}
-    for kernel in ("dgcnn_kernel", "pointnet_kernel"):
-        cfg = _classification("cube", kernel)
-        out[cfg.name] = cfg
-    for mode in ("clean", "noise", "partial"):
+    for voxel_shape in ("spherical", "cube"):
+        for kernel in ("dgcnn_kernel", "pointnet_kernel"):
+            cfg = _classification(voxel_shape, kernel)
+            out[cfg.name] = cfg
+    for mode in ("clean", "noise", "partial", "icl_nuim"):
         for method in ("ransac", "fgr", "teaserpp"):
             for kernel, suffix in (("dgcnn_kernel", "cu_dg"), ("pointnet_kernel", "cu_pt")):
                 cfg = _registration(method, mode, kernel)
                 cfg.name = f"reg_{mode}_{method}_{suffix}"
                 out[cfg.name] = cfg
-    for mode in ("clean", "noise", "partial"):
+    for mode in ("clean", "noise", "partial", "icl_nuim"):
         best = _registration("ransac+picp", mode)
         best.name = f"reg_{mode}"
         out[best.name] = best
@@ -175,7 +195,7 @@ def presets() -> dict[str, ExperimentConfig]:
     tiny.dataset.synthetic_items = {"train": 32, "valid": 16, "test": 16}
     tiny.train.batch_size = 4
     tiny.optim.num_epochs = 2
-    return {"mn40_sph_pt_r4": flagship, "tiny_smoke": tiny, **_cube_presets()}
+    return {"mn40_sph_pt_r4": flagship, "tiny_smoke": tiny, **_reference_presets()}
 
 
 def get_config(name: str) -> ExperimentConfig:
@@ -183,3 +203,29 @@ def get_config(name: str) -> ExperimentConfig:
     if name not in table:
         raise KeyError(f"unknown preset {name!r}; available: {sorted(table)}")
     return table[name]
+
+
+def apply_overrides(cfg: Any, overrides: list[str]) -> Any:
+    """Set each dot path of `overrides` ('model.dim_k=256',
+    "evaluate.method='ransac'") on `cfg` in place, the value read by
+    `ast.literal_eval`, or kept as a bare string when it is no literal.
+    Raises ValueError on an item without '=' and AttributeError on a field
+    the dataclass lacks."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must look like a.b=value")
+        path, raw = item.split("=", 1)
+        keys = path.strip().lstrip("-").split(".")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        node = cfg
+        for key in keys[:-1]:
+            node = getattr(node, key)
+        leaf = keys[-1]
+        if dataclasses.is_dataclass(node) and leaf not in {
+                f.name for f in dataclasses.fields(node)}:
+            raise AttributeError(f"{type(node).__name__} has no field {leaf!r}")
+        setattr(node, leaf, value)
+    return cfg

@@ -1,14 +1,15 @@
 """Classification training and registration evaluation, twin of
-`rift_tpu/train/loop.py` on one card: `build_model`, `train`, `run_meters`,
-`update_best`, `_improved`, `evaluate_classification`, and
-`load_trained_state`, `extractor_from_snapshot`, `resolve_extractor`,
-`evaluate_registration` (every method of `registration.METHODS`, with or
-without the flip-hypothesis consensus).
+`rift_tpu/train/loop.py` on one card: `build_model`, `train` (with the
+in-training `registration_probe`), `run_meters`, `update_best`,
+`_improved`, `evaluate_classification`, and `load_trained_state`,
+`extractor_from_snapshot`, `resolve_extractor`, `evaluate_registration`
+(every method of `registration.METHODS`, with or without the
+flip-hypothesis consensus).
 
 Not ported yet (ROADMAP): the data-parallel step (`make_distributed_step`),
-the in-training registration probe, `train_segmentation`,
-`evaluate_classification_ckpt` and the evaluation extras (the method
-sweep, feature extraction, rotation consistency).
+bf16 training, `train_segmentation`, `evaluate_classification_ckpt` and
+the evaluation extras (the method sweep, feature extraction, rotation
+consistency).
 """
 from __future__ import annotations
 
@@ -20,14 +21,15 @@ import time
 import numpy as np
 import torch
 
-from ..data import get_pairs
+from ..data import SyntheticPairs, get_pairs
 from ..data.modelnet40 import get_datasets
 from ..device import resolve_device
 from ..models import PVCNNClassifier
 from ..ops.lrf import lrf_basis, lrf_flip_hypotheses
+from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
-from ..registration import (consensus_match, pair_errors, register_pair,
+from ..registration import (consensus_match, gnc_pose, pair_errors, register_pair,
                             register_pair_from_matches)
 from ..registration.pipeline import split_method
 from .checkpoint import CheckpointManager
@@ -62,20 +64,37 @@ def build_model(config: ExperimentConfig) -> PVCNNClassifier:
         use_new_coords_for_voxel=m.use_new_coords_for_voxel)
 
 
-def _improved(new: float, old: float | None) -> bool:
-    """Strict improvement of a higher-is-better metric: a tie does not
-    re-save the checkpoint."""
-    return old is None or new > old
+# Metric keys where smaller is better, the reference's set (registration
+# errors and times, losses, the RPM-Net meter's errors); every other key is
+# higher-is-better.
+_LOWER_BETTER = {
+    "rre", "rte", "rmse", "rmse_succ", "reg_time", "loss", "logit_drift",
+    "r_mse", "r_mae", "t_mse", "t_mae", "err_r_deg", "err_t", "chamfer",
+}
+
+
+def _improved(key: str, new: float, old: float | None) -> bool:
+    """Strict improvement of metric `key`: a tie (the probe's reg_time is
+    always 0.0) does not re-save the checkpoint."""
+    if old is None:
+        return True
+    return new < old if key in _LOWER_BETTER else new > old
 
 
 def update_best(best: dict, results: dict, ckpt: CheckpointManager, state: TrainState,
-                config: ExperimentConfig) -> None:
+                config: ExperimentConfig, log: logging.Logger | None = None) -> None:
     """Per-metric best tracking, saving a `best_{name}` checkpoint per
-    improved metric."""
+    improved metric; a dict-valued result (the probe's meter) saves
+    `best_{name}_{key}` per improved key."""
     for name, value in results.items():
-        if _improved(float(value), best.get(name)):
-            best[name] = float(value)
-            ckpt.save_best(name, state, best, config)
+        items = ({f"{name}_{k}": (k, v) for k, v in value.items()} if isinstance(value, dict)
+                 else {name: (name, value)})
+        for tag, (key, v) in items.items():
+            if _improved(key, float(v), best.get(tag)):
+                best[tag] = float(v)
+                ckpt.save_best(tag, state, best, config)
+                if log is not None and isinstance(value, dict):
+                    log.info("new best %s = %.4f", tag, float(v))
 
 
 def run_meters(state: TrainState, dataset, config: ExperimentConfig,
@@ -95,19 +114,49 @@ def evaluate_classification(state: TrainState, dataset, config: ExperimentConfig
     return run_meters(state, dataset, config, {"acc": MeterClassification})["acc"]
 
 
+def registration_probe(state: TrainState, config: ExperimentConfig, num_pairs: int = 16) -> dict:
+    """The in-training feature-quality probe: `num_pairs` synthetic noise
+    pairs of `dataset.num_points` points (seed `config.seed`), registered
+    by the current trunk as a feature extractor (the classifier head
+    unused): normals, one 2b forward, mutual-NN matches and GNC-TLS with
+    `evaluate.noise_bound`. Returns the MeterRegistration dict (reg_time
+    0.0), which `update_best` tracks as best_reg_rre etc."""
+    device = next(state.model.parameters()).device
+    model = build_model(dataclasses.replace(
+        config, model=dataclasses.replace(config.model, is_classify=False)))
+    model.load_state_dict({k: v for k, v in state.model.state_dict().items()
+                           if not k.startswith("head.")})
+    model = model.to(device).eval()
+    pairs = SyntheticPairs(num_pairs=num_pairs, num_points=config.dataset.num_points,
+                           mode="noise", seed=config.seed)
+    src, dst, gt = (torch.as_tensor(a, device=device) for a in pairs.arrays())
+    b = src.shape[0]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        feats = model(torch.cat([clouds, estimate_normals(clouds)], -1))
+        i1, i2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+        est, _ = gnc_pose(gather_rows(src, i1.expand(i2.shape)), gather_rows(dst, i2), mask,
+                          noise_bound=config.evaluate.noise_bound)
+        errors = pair_errors(src, gt, est)
+    meter = MeterRegistration()
+    meter.update({k: v.cpu().numpy() for k, v in errors.items()})
+    return meter.compute()
+
+
 def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = None,
           device: str | torch.device | None = None) -> dict:
     """Classification training on one device (the card unless `device` says
     otherwise): per epoch, `steps_per_epoch` updates, then every
-    `valid_interval` epochs the `meters` ({name: factory} of meters whose
-    scalar is higher-is-better; default {'acc': MeterClassification}) on
-    the valid split, best checkpoints per improved metric and the rolling
-    `common` checkpoint. With `resume`,
-    continues from `common` in `ckpt_dir`. Returns {'state', 'best',
-    'loss'} (loss: the last epoch's mean train loss)."""
-    if config.train.half_precision or config.train.reg_probe_interval:
-        raise NotImplementedError("half_precision and the registration probe are not "
-                                  "ported yet")
+    `valid_interval` epochs the `meters` ({name: factory}; default {'acc':
+    MeterClassification}) on the valid split, and, at those epochs that
+    `train.reg_probe_interval` also divides, `registration_probe` as
+    result 'reg'; best checkpoints per improved metric (`update_best`) and
+    the rolling `common` checkpoint. With `resume`, continues from
+    `common` in `ckpt_dir`. Returns {'state', 'best', 'loss'} (loss: the
+    last epoch's mean train loss)."""
+    if config.train.half_precision:
+        raise NotImplementedError("half_precision (bf16 training) is not ported yet "
+                                  "(ROADMAP item 9)")
     device = resolve_device(device)
     log = get_logger(config.name)
     writer = MetricWriter(config.train.ckpt_dir, config.name)
@@ -151,11 +200,19 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
         log.info("epoch %d: loss %.4f acc %.4f (%.1fs)", epoch, loss, acc, time.time() - t0)
 
         if (epoch + 1) % config.train.valid_interval == 0:
-            results = {k: float(v) for k, v in
-                       run_meters(state, datasets["valid"], config, meters).items()}
-            writer.write(step=state.step, epoch=epoch, split="valid", **results)
-            log.info("epoch %d: valid %s", epoch, results)
-            update_best(best, results, ckpt, state, config)
+            results = run_meters(state, datasets["valid"], config, meters)
+            probe_every = config.train.reg_probe_interval
+            if probe_every and (epoch + 1) % probe_every == 0:
+                results["reg"] = registration_probe(state, config, config.train.reg_probe_pairs)
+            flat = {}
+            for k, v in results.items():
+                if isinstance(v, dict):
+                    flat.update({f"{k}_{kk}": float(vv) for kk, vv in v.items()})
+                else:
+                    flat[k] = float(v)
+            writer.write(step=state.step, epoch=epoch, split="valid", **flat)
+            log.info("epoch %d: valid %s", epoch, flat)
+            update_best(best, results, ckpt, state, config, log)
             ckpt.save_common(state, best, config)
     return {"state": state, "best": best, "loss": loss}
 

@@ -1,0 +1,150 @@
+"""rift_tpu_torch's command line against rift_tpu's on the CPU: the preset
+table, `apply_overrides` on the same strings, `presets`, `train` and
+`evaluate` through `cli.main` with `--device cpu`, the card by default,
+the guard against scoring random weights, and the commands not ported
+yet."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rift_tpu.train.config import apply_overrides as j_apply_overrides
+from rift_tpu.train.config import get_config as j_get_config
+from rift_tpu.train.config import presets as j_presets
+from rift_tpu_torch import cli
+from rift_tpu_torch.train import apply_overrides, get_config, presets
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RESULT_KEYS = ["rre", "rte", "rmse", "succ", "rmse_succ", "reg_time"]
+# tiny_smoke's evaluation cut to 2 pairs of 128 points.
+TINY_EVAL = ["evaluate.num_points=128", "evaluate.num_pairs=2"]
+
+
+def test_preset_table_is_the_reference_s_but_shapenet_seg():
+    ours, ref = set(presets()), set(j_presets())
+    assert ref - ours == {"shapenet_seg"}  # its trainer waits (ROADMAP item 10)
+    assert ours - ref == {"mn40_sph_pt_r4"}  # the flagship checkpoint's config
+    assert {"reg_icl_nuim", "mn40_sph_dg", "mn40_sph_pt"} <= ours
+
+
+@pytest.mark.parametrize("overrides", [
+    ["model.dim_k=256", "train.steps_per_epoch=None"],
+    ["evaluate.method='ransac'", "evaluate.pairs_mode=icl_nuim"],  # quoted, and a bare string
+    ["model.blocks=((16, 1, 8), (32, 1, None))", "--evaluate.num_pairs=4"],
+    ["dataset.synthetic_items={'train': 8, 'valid': 4, 'test': 4}", "seed=3",
+     "evaluate.noise_bound=5e-2", "model.rot_invariant_preprocess=None"],
+    ["sequence.num_scans=7", "sequence.path=scans.h5", "train.reg_probe_interval=1"],
+])
+def test_apply_overrides_matches_reference(overrides):
+    ours = apply_overrides(get_config("reg_icl_nuim"), overrides)
+    ref = j_apply_overrides(j_get_config("reg_icl_nuim"), overrides)
+    ref_dict = json.loads(json.dumps(dataclasses.asdict(ref)))
+    ours_dict = json.loads(json.dumps(dataclasses.asdict(ours)))
+    for key in ("log_every", "data_parallel"):  # the fields the port leaves out
+        ref_dict["train"].pop(key)
+    ref_dict["dataset"].pop("cache_npy")
+    assert ours_dict == ref_dict
+    assert ours_dict != json.loads(json.dumps(dataclasses.asdict(get_config("reg_icl_nuim"))))
+
+
+@pytest.mark.parametrize("bad, error", [
+    ("model.no_such_field=1", AttributeError),
+    ("sequence.nope=2", AttributeError),
+    ("model.dim_k", ValueError),
+])
+def test_apply_overrides_refuses_like_reference(bad, error):
+    with pytest.raises(error):
+        apply_overrides(get_config("reg_noise"), [bad])
+    with pytest.raises(error):
+        j_apply_overrides(j_get_config("reg_noise"), [bad])
+
+
+def test_presets_prints_the_sorted_names(capsys):
+    assert cli.main(["presets"]) == 0
+    assert capsys.readouterr().out.split() == sorted(presets())
+
+
+def _results(out: str) -> dict:
+    lines = [line.split(": ") for line in out.strip().splitlines()]
+    return {k: float(v) for k, v in lines}
+
+
+def test_train_then_evaluate_through_the_cli(tmp_path, capsys):
+    """`train` of tiny_smoke with overrides writes its checkpoints; then
+    `evaluate --ckpt` (common), `--best acc` and the train.ckpt_dir
+    checkpoint found without --ckpt print the six result lines."""
+    ckpt = str(tmp_path / "run")
+    train_args = ["--device", "cpu", f"train.ckpt_dir={ckpt}", "optim.num_epochs=1",
+                  "train.steps_per_epoch=2"]
+    assert cli.main(["train", "--preset", "tiny_smoke", "--no-resume", *train_args]) == 0
+    assert {"common.pt", "best_acc.pt"} <= set(os.listdir(ckpt))
+    capsys.readouterr()
+    runs = (["--ckpt", ckpt], ["--ckpt", ckpt, "--best", "acc"], [f"train.ckpt_dir={ckpt}"])
+    for args in runs:
+        assert cli.main(["evaluate", "--preset", "tiny_smoke", "--device", "cpu", *args,
+                         *TINY_EVAL]) == 0
+        results = _results(capsys.readouterr().out)
+        assert list(results) == RESULT_KEYS and all(np.isfinite(list(results.values())))
+
+
+def test_evaluate_without_a_checkpoint_exits_and_names_the_probe(tmp_path, capsys):
+    empty = str(tmp_path / "empty")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["evaluate", "--preset", "tiny_smoke", "--device", "cpu",
+                  f"train.ckpt_dir={empty}", *TINY_EVAL])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert os.path.join(empty, "common.pt") in err and "--untrained" in err
+    with pytest.raises(SystemExit):
+        cli.main(["evaluate", "--preset", "tiny_smoke", "--best", "rre", "--device", "cpu",
+                  f"train.ckpt_dir={empty}"])
+    assert os.path.join(empty, "best_rre.pt") in capsys.readouterr().err
+
+
+def test_evaluate_untrained_reg_icl_nuim_on_the_cpu(capsys):
+    """The preset the README's CPU drive runs: seeded weights, narrow
+    blocks, 4 adjacent-scan pairs of 256 points, ransac+picp."""
+    assert cli.main(["evaluate", "--preset", "reg_icl_nuim", "--device", "cpu", "--untrained",
+                     "model.blocks=((16, 1, 8), (32, 1, 8), (32, 1, None))",
+                     "model.local_neighbors=16", "evaluate.num_points=256",
+                     "evaluate.num_pairs=4", "evaluate.num_hypotheses=500"]) == 0
+    results = _results(capsys.readouterr().out)
+    assert list(results) == RESULT_KEYS and all(np.isfinite(list(results.values())))
+
+
+def test_the_cli_takes_the_card_by_default(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parser = cli.build_parser()
+    assert parser.parse_args(["train"]).device == "cuda"
+    assert parser.parse_args(["train"]).preset == "mn40_sph_dg"
+    assert parser.parse_args(["evaluate"]).preset == "reg_noise_teaserpp_cu_dg"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--preset", "tiny_smoke", f"train.ckpt_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["evaluate", "--preset", "tiny_smoke", "--untrained", *TINY_EVAL])
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["evaluate-cls", "--rotations", "2"], 9),
+    (["map-sequence", "--loop-stride", "3"], 10),
+    (["train-seg"], 9),
+    (["evaluate", "--methods", "ransac,fgr", "--untrained"], 10),
+])
+def test_commands_not_ported_exit_with_their_roadmap_item(argv, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv)
+    assert exc.value.code == 2
+    assert f"ROADMAP item {item}" in capsys.readouterr().err
+
+
+def test_the_cli_runs_as_a_module():
+    out = subprocess.run([sys.executable, "-m", "rift_tpu_torch.cli", "presets"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "reg_icl_nuim" in out.stdout.split()

@@ -491,11 +491,6 @@ def test_get_pairs_and_batches_give_the_reference_arrays(mode, tmp_path):
 def test_get_pairs_refuses_what_is_not_ported(tmp_path):
     from rift_tpu_torch.data import get_pairs
 
-    h5 = tmp_path / "pairs.h5"
-    h5.write_bytes(b"")
-    for args in ((str(h5), 64, "noise"), (None, 64, "icl_nuim")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            get_pairs(*args, num_pairs=2)
     for mode in ("partial0.05", "occluded"):
         with pytest.raises(ValueError, match="pair mode"):
             get_pairs(None, 64, mode, num_pairs=2)

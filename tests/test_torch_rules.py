@@ -1,6 +1,7 @@
 """The port's ground rules: no JAX anywhere in rift_tpu_torch,
-chip_smoke.py or scatter_ab.py; entry points default to the card and
-raise without one; chip_smoke.py fails where there is no card or no
+chip_smoke.py or scatter_ab.py; h5py (not on the card's machine) only
+inside the two h5 readers; entry points default to the card and raise
+without one; chip_smoke.py fails where there is no card or no
 package."""
 import ast
 import os
@@ -41,6 +42,44 @@ def test_port_imports_no_jax_and_nothing_of_rift_tpu():
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_roots(p)
            if m in FORBIDDEN]
     assert not bad, bad
+
+
+def _h5py_imports(path):
+    """(enclosing class.function or '<module>') of each import of h5py."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, scope + [child.name])
+                continue
+            if isinstance(child, ast.Import) and any(a.name.split(".")[0] == "h5py"
+                                                     for a in child.names):
+                found.append(".".join(scope) or "<module>")
+            elif isinstance(child, ast.ImportFrom) and (child.module or "").startswith("h5py"):
+                found.append(".".join(scope) or "<module>")
+            visit(child, scope)
+
+    visit(tree, [])
+    return found
+
+
+def test_h5py_is_imported_only_inside_the_two_readers():
+    where = {(os.path.relpath(p, ROOT), scope) for p in _port_files() for scope in _h5py_imports(p)}
+    assert where == {("rift_tpu_torch/data/synthetic_pairs.py", "H5TestPairs.__init__"),
+                     ("rift_tpu_torch/data/sequences.py", "SyntheticSequence.__init__")}
+    # Without h5py the card's paths and the command line still run.
+    code = ("import sys\n"
+            "sys.modules['h5py'] = None\n"
+            "from rift_tpu_torch.cli import main\n"
+            "from rift_tpu_torch.data import get_pairs\n"
+            "print(len(get_pairs(None, 64, 'icl_nuim', 3)))\n"
+            "print(main(['presets']) == 0)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[:2] == ["3", "mn40_cu_dg"] and out.stdout.split()[-1] == "True"
 
 
 def _run(code, cwd=ROOT, env_extra=None):
@@ -85,6 +124,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train(get_config("tiny_smoke"))
+    from rift_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["evaluate", "--preset", "reg_icl_nuim", "--untrained"])
 
 
 def test_kernel_wrappers_never_fall_back_on_other_devices():

@@ -6,6 +6,8 @@ its checkpoints. Widths are the `tiny_smoke` preset's."""
 import json
 import os
 
+import dataclasses
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -18,8 +20,12 @@ from rift_tpu.data.modelnet40 import ModelNet40 as JaxModelNet40
 from rift_tpu.data.modelnet40 import ModelNet40Config as JaxModelNet40Config
 from rift_tpu.nn.shared_mlp import SharedMLP as JaxSharedMLP
 from rift_tpu.ops import spherical as j_sph
+import rift_tpu.train.loop as j_loop
+import rift_tpu_torch.train.loop as t_loop
+from rift_tpu.train.config import ModelConfig as JaxModelConfig
 from rift_tpu.train.config import get_config as jax_config
 from rift_tpu.train.loop import build_model as jax_build_model
+from rift_tpu.train.steps import TrainState as JaxTrainState
 from rift_tpu.train.steps import create_state as jax_create_state
 from rift_tpu.train.steps import cross_entropy as jax_cross_entropy
 from rift_tpu.train.steps import make_train_step
@@ -27,7 +33,8 @@ from rift_tpu_torch.data.modelnet40 import ModelNet40, ModelNet40Config
 from rift_tpu_torch.models import PVCNNClassifier
 from rift_tpu_torch.nn.shared_mlp import SharedMLP
 from rift_tpu_torch.ops import spherical
-from rift_tpu_torch.train import build_model, evaluate_classification, get_config, train
+from rift_tpu_torch.train import (build_model, evaluate_classification, get_config,
+                                  registration_probe, train)
 from rift_tpu_torch.train.checkpoint import CheckpointManager
 from rift_tpu_torch.train.steps import (TrainState, clip_by_global_norm, make_optimizer,
                                         train_step)
@@ -167,11 +174,10 @@ def test_synthetic_modelnet40_matches_reference():
 
 
 # Fields of the flagship's meta JSON the port does not have, each with the
-# value that makes it change nothing in a one-card run with the probe off.
+# value that makes it change nothing in a one-card run.
 UNREAD_FIELDS = {
     "train": {"log_every": 10,          # logging cadence only
-              "data_parallel": True,    # one card: the one step
-              "reg_probe_pairs": 16},   # read only with reg_probe_interval > 0
+              "data_parallel": True},   # one card: the one step
     "dataset": {"cache_npy": True},     # read only by the file loader (root set)
 }
 
@@ -188,38 +194,39 @@ def test_flagship_preset_equals_the_checkpoint_config():
     for section, fields in UNREAD_FIELDS.items():
         assert {k: meta[section].pop(k) for k in fields} == fields
     assert ours == {k: meta[k] for k in ours}
-    # The evaluate section is the meta file's (checked with the rest above);
-    # the sequence section waits for its slice.
-    assert "evaluate" in ours and set(meta) - set(ours) == {"sequence"}
+    # The evaluate and sequence sections are the meta file's (checked with
+    # the rest above).
+    assert "evaluate" in ours and set(meta) == set(ours)
     with pytest.raises(AttributeError):
         get_config("mn40_sph_pt_r4").train.log_every = 1
 
 
-CUBE_PRESETS = (["mn40_cu_dg", "mn40_cu_pt", "reg_clean", "reg_noise", "reg_partial"]
-                + [f"reg_{mode}_{method}_{suffix}" for mode in ("clean", "noise", "partial")
+CUBE_PRESETS = (["mn40_cu_dg", "mn40_cu_pt", "reg_clean", "reg_noise", "reg_partial",
+                 "reg_icl_nuim", "mn40_sph_dg", "mn40_sph_pt"]
+                + [f"reg_{mode}_{method}_{suffix}"
+                   for mode in ("clean", "noise", "partial", "icl_nuim")
                    for method in ("ransac", "fgr", "teaserpp") for suffix in ("cu_dg", "cu_pt")])
 
 
 @pytest.mark.parametrize("name", CUBE_PRESETS)
 def test_cube_preset_equals_the_reference(name):
-    """Each cube preset equals the reference's preset of the same name on
-    every field the port has (the fields it lacks are the ones
-    UNREAD_FIELDS names, and the sequence section)."""
+    """Each of the reference's presets (the cube ones, the icl_nuim ones
+    and the spherical classifiers) equals the reference's preset of the
+    same name on every field the port has (the fields it lacks are the
+    ones UNREAD_FIELDS names)."""
     import dataclasses
 
     ours = json.loads(json.dumps(dataclasses.asdict(get_config(name))))
     ref = json.loads(json.dumps(dataclasses.asdict(jax_config(name))))
     for section, fields in UNREAD_FIELDS.items():
         assert {k: ref[section].pop(k) for k in fields} == fields
-    assert set(ref) - set(ours) == {"sequence"}
-    assert ours == {k: ref[k] for k in ours}
-    assert ours["model"]["voxel_shape"] == "cube"
-
-
-def test_icl_nuim_presets_wait_for_their_pair_source():
-    for name in ("reg_icl_nuim", "reg_icl_nuim_ransac_cu_dg"):
-        with pytest.raises(KeyError):
-            get_config(name)
+    assert set(ref) == set(ours)
+    assert ours == ref
+    assert ours["model"]["voxel_shape"] == ("spherical" if "_sph_" in name else "cube")
+    if "icl_nuim" in name:
+        ev = ours["evaluate"]
+        assert (ev["pairs_mode"], ev["noise_bound"], ev["inlier_threshold"],
+                ev["num_hypotheses"]) == ("icl_nuim", 0.05, 0.07, 4000)
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 50.0])
@@ -386,3 +393,98 @@ def test_train_runs_checkpoints_and_resumes(tmp_path):
     # The final state's validation accuracy, as the last epoch logged it.
     acc = evaluate_classification(more["state"], ModelNet40(cfg.dataset, "valid"), cfg)
     assert acc == [r["acc"] for r in lines if r["split"] == "valid"][-1]
+
+
+# The probe on random weights: each pair's matches are mostly wrong, and
+# GNC-TLS ends on 1-3 of them. A pair that ends on exactly 2 has no unique
+# rotation (any turn about their line fits; ROADMAP §3), so rounding picks
+# one in each package and it is held by `succ` alone; every other pair by
+# RRE within RRE_TOL degrees and RTE within RTE_TOL, the evaluation's
+# tolerance (tests/test_torch_eval.py).
+RRE_TOL, RTE_TOL = 0.1, 1e-3
+
+
+def test_registration_probe_matches_reference(monkeypatch):
+    """registration_probe on a tiny_smoke state converted from the
+    reference's (its init, perturbed as in tests/test_torch_eval.py): the
+    meter over the probe's 16 noise pairs of 64 points against rift_tpu's
+    registration_probe, pair by pair, and reg_time 0.0."""
+    cfg, jcfg = _tiny_configs()
+    jcfg.model = JaxModelConfig(**dataclasses.asdict(cfg.model))
+    rng = np.random.RandomState(0)
+    jmodel = jax_build_model(jcfg)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 6)), train=False)
+    perturb = lambda tree, lo, hi: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: (np.asarray(a) + rng.uniform(lo, hi, np.shape(a))).astype(np.float32), tree)
+    params = perturb(variables["params"], -0.05, 0.05)
+    stats = perturb(variables["batch_stats"], 0.1, 0.5)
+    model = build_model(cfg)
+    model.load_state_dict(from_flax(params, stats))
+    state = TrainState(model, *make_optimizer(model, cfg, 1))
+
+    errors, kept = {}, []
+    for module, key in ((t_loop, "port"), (j_loop, "ref")):
+        class Recording(module.MeterRegistration):
+            def update(self, errs, reg_time=0.0, key=key):
+                errors[key] = {k: np.asarray(v) for k, v in errs.items()}
+                super().update(errs, reg_time)
+        monkeypatch.setattr(module, "MeterRegistration", Recording)
+    gnc_pose = t_loop.gnc_pose
+    monkeypatch.setattr(t_loop, "gnc_pose", lambda *a, **kw: kept.append(
+        gnc_pose(*a, **kw)) or kept[-1])
+    got = registration_probe(state, cfg, cfg.train.reg_probe_pairs)
+    want = j_loop.registration_probe(
+        JaxTrainState(step=0, params=params, batch_stats=stats, opt_state=None), jcfg,
+        jcfg.train.reg_probe_pairs)
+    assert set(got) == set(want) and got["reg_time"] == want["reg_time"] == 0.0
+    g, w = errors["port"], errors["ref"]
+    assert g["rre"].shape == w["rre"].shape == (16,)
+    for k, v in got.items():  # the meter reduces the recorded pairs
+        assert v == pytest.approx(float(np.mean(g[k])) if k != "reg_time" else 0.0)
+    np.testing.assert_array_equal(g["succ"], w["succ"])
+    held = (kept[0][1] > 0.5).sum(-1).numpy() != 2
+    assert held.sum() >= 8, held
+    np.testing.assert_allclose(g["rre"][held], w["rre"][held], rtol=0, atol=RRE_TOL)
+    np.testing.assert_allclose(g["rte"][held], w["rte"][held], rtol=0, atol=RTE_TOL)
+
+
+def test_update_best_tracks_registration_errors_as_lower_is_better(tmp_path):
+    """A dict-valued result saves best_{name}_{key}; a lower rre is an
+    improvement, a higher acc too, and a tie (the probe's reg_time of 0.0)
+    or a worse value saves nothing."""
+    ckpt = CheckpointManager(str(tmp_path))
+    saved = []
+    ckpt.save_best = lambda tag, *args: saved.append(tag)
+    best = {}
+    first = {"acc": 0.5, "reg": {"rre": 10.0, "rte": 0.1, "succ": 0.0, "reg_time": 0.0}}
+    t_loop.update_best(best, first, ckpt, None, None)
+    assert saved == ["acc", "reg_rre", "reg_rte", "reg_succ", "reg_reg_time"]
+    saved.clear()
+    t_loop.update_best(best, {"acc": 0.4, "reg": {"rre": 5.0, "rte": 0.2, "succ": 0.25,
+                                                  "reg_time": 0.0}}, ckpt, None, None)
+    assert saved == ["reg_rre", "reg_succ"]
+    assert best == {"acc": 0.5, "reg_rre": 5.0, "reg_rte": 0.1, "reg_succ": 0.25,
+                    "reg_reg_time": 0.0}
+
+
+def test_train_with_the_probe_saves_its_best_checkpoints(tmp_path):
+    """reg_probe_interval = 1: every validation epoch also runs the probe,
+    whose metrics are logged flat and tracked as best_reg_*; half_precision
+    still raises."""
+    cfg = get_config("tiny_smoke")
+    cfg.train.ckpt_dir = str(tmp_path)
+    cfg.train.steps_per_epoch = 1
+    cfg.train.reg_probe_interval = 1
+    cfg.train.reg_probe_pairs = 4
+    cfg.dataset.synthetic_items = {"train": 8, "valid": 4, "test": 4}
+    out = train(cfg, device="cpu")
+    assert {"acc", "reg_rre", "reg_rte", "reg_rmse", "reg_succ", "reg_rmse_succ",
+            "reg_reg_time"} == set(out["best"])
+    assert os.path.isfile(tmp_path / "best_reg_rre.pt")
+    with open(tmp_path / "tiny_smoke.metrics.jsonl") as f:
+        valid = [json.loads(line) for line in f if '"valid"' in line]
+    assert len(valid) == 2 and all(np.isfinite(r["reg_rre"]) for r in valid)
+    assert out["best"]["reg_rre"] == min(r["reg_rre"] for r in valid)
+    cfg.train.half_precision = True
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        train(cfg, device="cpu")
