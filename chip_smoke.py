@@ -5,7 +5,10 @@ flagship classifier on batches of 16 clouds of 1024 points with the
 registration probe, run the flagship's registration evaluation (100 pairs,
 flip hypotheses, TEASER), the reference's recommended reg_noise preset
 (cube trunk, RANSAC and point-to-plane ICP) and, through the command
-line, its reg_icl_nuim preset on the indoor sequence's adjacent scans, and
+line, its reg_icl_nuim preset on the indoor sequence's adjacent scans;
+then the classifier's own workflow: bf16 training of the reference's
+default preset through the command line, `evaluate-cls` of its
+checkpoint, and the data-parallel step on a one-rank NCCL group; and
 compare every path with its CPU run.
 
     python3 chip_smoke.py
@@ -90,6 +93,30 @@ Phases (each prints one line with its wall time):
                against the CPU (reg_parity), and K1 (with its neighbours per
                query on the room's scans), K2 and K3 at its shapes; no
                method sweep.
+ 13. train bf16 — `cli.main(["train", "--preset", "mn40_sph_dg", ...,
+               "model.dtype=bfloat16"])` (BF16_OVERRIDES: the split cut to
+               64/16/16, one epoch of 4 steps of 16 x 1024): K2, K3, K4
+               launched twice a step and K2, K3, K5 2, 2, 4 times a
+               validation batch, the checkpoint's snapshot bf16; then 10
+               steps of its model on one fixed batch as in 8 (ms/step,
+               clouds/s, the split, a profiled step, peak memory, the loss
+               falling); K2/K3 (bf16) and K4 at its training shapes
+               against their plain versions; furthest_point_sample at
+               [16, 1024, 3] -> 512 equal to the CPU's.
+ 14. train bf16 parity — one bf16 step on 4 clouds, card vs CPU, beside
+               the CPU's f32 step (BF16_PARITY rules).
+ 15. evaluate-cls — `cli.main(["evaluate-cls", "--ckpt", DIR, "--sweep"])`
+               on that checkpoint with the preset's 128-item test split:
+               the hard tier, the 6 sweep levels and 4 rotations; the whole
+               call's seconds, the forwards' clouds/s, peak memory, K2, K3,
+               K5 launched 2, 2, 4 times a forward; K2/K3 at its test and
+               hard-tier batches and K5 at its four convolutions (b = 32)
+               against their plain versions; 8 test clouds' logits against
+               the CPU's.
+ 16. train dp — make_sharded_train_step on a one-rank NCCL group against
+               train_step, one step of the f32 flagship at 16 x 1024:
+               loss, accuracy, parameters and BN statistics bit for bit;
+               both steps' ms; the group destroyed.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -326,6 +353,52 @@ SWEEP_MIN_DETERMINED = {"fgr": 0.5, "icp": 0.0, "+icp": 0.5, "+picp": 0.25, "+pl
 PARITY_CLOUDS = 4
 LOSS_RTOL, STATS_RTOL = 1e-3, 1e-3
 GRAD_COS, GRAD_NORM_FLOOR, GRAD_DIFF_TOL = 0.999, 1e-4, 1e-5
+# bf16 training: `cli train --preset mn40_sph_dg` (the reference's default
+# training preset: spherical, dgcnn_kernel, reference LRF, local PPF,
+# blocks 64/128/256/512) with the bf16 model, its synthetic split cut to
+# TRAIN_ITEMS, one epoch of TRAIN_LOOP_STEPS steps of TRAIN_BATCH clouds;
+# then TRAIN_STEPS steps on one fixed batch. Validation runs the bf16 eval
+# model: K5 for its 4 convolutions (BF16_EVAL_LAUNCHES a batch); training
+# runs cuDNN's bf16 Conv3d and K2/K3/K4 as STEP_LAUNCHES.
+BF16_PRESET = "mn40_sph_dg"
+BF16_OVERRIDES = ["model.dtype=bfloat16", f"train.batch_size={TRAIN_BATCH}",
+                  f"train.steps_per_epoch={TRAIN_LOOP_STEPS}", "optim.num_epochs=1",
+                  f"dataset.synthetic_items={TRAIN_ITEMS!r}"]
+BF16_EVAL_LAUNCHES = {"scatter_mean": 2, "corner_gather": 2, "conv3d_same": 4}
+# bf16 step, card vs CPU (BF16_PARITY), one step on PARITY_CLOUDS clouds
+# from the same weights, dropout off, beside the CPU's f32 step from those
+# weights, the function both bf16 steps approximate (tests/test_torch_train
+# .py's rule: bf16 gradients of this model miss the f32 ones by a large
+# share of their norm, so each is held to be as accurate as the other).
+# Per parameter whose f32 gradient has a norm of at least BF16_FLOOR of the
+# largest: |card - f32| within BF16_RATIO times |CPU bf16 - f32| plus
+# BF16_SLACK of |f32|; below the floor |card - f32| within BF16_ZERO_TOL of
+# the largest norm. The loss within BF16_LOSS_RTOL of the CPU's. Updated
+# parameters: Adam's first step moves an element by ±lr from the sign of
+# its gradient, so within 2.1 lr everywhere and within SETTLED_PARAM_TOL
+# where the two gradients agree within SETTLED of the CPU's.
+BF16_FLOOR, BF16_RATIO, BF16_SLACK, BF16_ZERO_TOL = 5e-2, 1.5, 0.05, 0.05
+BF16_LOSS_RTOL = 1e-2
+SETTLED, SETTLED_PARAM_TOL = 1e-2, 2e-5
+# ops/sampling.furthest_point_sample on the card, [TRAIN_BATCH, NUM_POINTS,
+# 3] -> FPS_SAMPLES indices, equal to the CPU's.
+FPS_SAMPLES = 512
+# `cli evaluate-cls --ckpt DIR --sweep` on the bf16 checkpoint, the test
+# split restored to the preset's 128 items: the test split, the hard tier
+# (512 points), the 6 sweep levels (32 clouds a batch), and CLS_ROTATIONS
+# (the command's default) forwards of 64 clouds for the rotation meter;
+# K2, K3, K5 as BF16_EVAL_LAUNCHES a forward. Parity: the logits of the
+# first CLS_PARITY_CLOUDS test clouds, card vs CPU (K5 against its plain
+# version at every layer: each bf16 output within one bf16 step), within
+# CLS_LOGIT_TOL of the largest logit; predictions equal wherever the CPU's
+# top-2 margin exceeds that.
+CLS_OVERRIDES = ["dataset.synthetic_items={'train': 16, 'valid': 16, 'test': 128}"]
+CLS_ROTATIONS = 4
+CLS_PARITY_CLOUDS = 8
+CLS_LOGIT_TOL = 5e-2
+# The data-parallel step on a one-rank NCCL group: bit-equal to the plain
+# step, then DP_STEPS of each in turns for their ms/step.
+DP_STEPS = 5
 
 
 def tls_cost(transform, src, dst, mask, noise_bound: float):
@@ -1073,6 +1146,32 @@ def check_other_r(report: dict) -> None:
                 fail(f"{name} at r={r}: {row}")
 
 
+def k5_held(gen, bx: int, rx: int, cin: int, cout: int):
+    """K5 on a seeded x [bx, rx, rx, rx, cin] (laid out by `padded_bf16`, as
+    the model gives it) and w [cout, cin, 3, 3, 3], against its plain
+    version: (x, w, plain output f32, bf16 step per output, max bf16
+    steps, bit-equal share, max abs error, max rel error)."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import conv3d as k5
+
+    dev = torch.device("cuda")
+    x = k5.padded_bf16(torch.randn((bx, rx, rx, rx, cin), generator=gen, device=dev))
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
+         * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
+    got = k5.conv3d_same(x, w)
+    want = k5.conv3d_same_plain(x, w)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or got.shape != want.shape:
+        fail(f"K5 gave {got.dtype} {tuple(got.shape)}, expected bf16 {tuple(want.shape)}")
+    want_f = want.float()
+    step = bf16_step(torch.clamp(want_f.abs(), min=K5_FLOOR * float(want_f.abs().max())))
+    steps = float(((got.float() - want_f).abs().double() / step).max())
+    equal = float((got == want).double().mean())
+    a, rel = rel_err(got.float(), want_f)
+    return x, w, want_f, step, steps, equal, a, rel
+
+
 def check_conv3d(report: dict) -> None:
     """K5 against its plain version at the bench model's four shapes, with
     cuDNN's bf16 Conv3d on channels_last_3d tensors as the yardstick, then
@@ -1096,21 +1195,7 @@ def check_conv3d(report: dict) -> None:
                per_shape=[], other_shapes=[])
 
     def held(bx, rx, cin, cout):
-        """(x, w, kernel output, max bf16 steps, bit-equal share, abs, rel)."""
-        x = k5.padded_bf16(torch.randn((bx, rx, rx, rx, cin), generator=gen, device=dev))
-        w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev)
-             * math.sqrt(2.0 / (27 * cin))).to(torch.bfloat16)
-        got = k5.conv3d_same(x, w)
-        want = k5.conv3d_same_plain(x, w)
-        torch.cuda.synchronize()
-        if got.dtype != torch.bfloat16 or got.shape != want.shape:
-            fail(f"K5 gave {got.dtype} {tuple(got.shape)}, expected bf16 {tuple(want.shape)}")
-        want_f = want.float()
-        step = bf16_step(torch.clamp(want_f.abs(), min=K5_FLOOR * float(want_f.abs().max())))
-        steps = float(((got.float() - want_f).abs().double() / step).max())
-        equal = float((got == want).double().mean())
-        a, rel = rel_err(got.float(), want_f)
-        return x, w, want_f, step, steps, equal, a, rel
+        return k5_held(gen, bx, rx, cin, cout)
 
     for cin, cout in K5_SHAPES:
         x, w, want_f, step, steps, equal, a, rel = held(b, r, cin, cout)
@@ -2041,10 +2126,7 @@ def train_phase(wrappers: dict) -> dict:
     """train() on the card, then TRAIN_STEPS steps on one fixed batch."""
     import torch
 
-    from rift_tpu_torch.data.modelnet40 import ModelNet40
-    from rift_tpu_torch.ops.precision import f32_geometry
-    from rift_tpu_torch.train import build_model, get_config, train
-    from rift_tpu_torch.train.steps import create_state, cross_entropy, train_step
+    from rift_tpu_torch.train import get_config, train
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         cfg = train_config()
@@ -2076,8 +2158,28 @@ def train_phase(wrappers: dict) -> dict:
     # own schedule (120 epochs of its 2048-item split), whose learning rate
     # stays near 1e-3 over these steps; train() above decayed to 0 in its
     # one epoch.
+    fixed = fixed_batch_steps(cfg, get_config("mn40_sph_pt_r4"), wrappers)
+    for name in wrappers:
+        launches[name] += fixed["launches"][name]
+    return dict(fixed, loop_s=loop_s, launches=launches, best=out["best"])
+
+
+def fixed_batch_steps(cfg, full, wrappers: dict) -> dict:
+    """TRAIN_STEPS train steps of `cfg`'s model from its seeded init, with
+    the optimizer and schedule of the preset `full` (its whole split), on
+    one fixed batch of TRAIN_BATCH clouds of cfg's train split: finite
+    losses, K2, K3 and K4 launched STEP_LAUNCHES times a step, the last 3
+    losses below the first 3; ms/step (median of steps 2-TRAIN_STEPS),
+    clouds/s, peak memory, one more step split by CUDA events into
+    forward, backward and optimizer, and a profiled step."""
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.train import build_model
+    from rift_tpu_torch.train.steps import create_state, cross_entropy, train_step
+
     dev = torch.device("cuda")
-    full = get_config("mn40_sph_pt_r4")
     steps_per_epoch = full.dataset.synthetic_items["train"] // full.train.batch_size
     state = create_state(build_model(cfg), full, steps_per_epoch, dev, seed=cfg.seed)
     clouds, labels = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
@@ -2097,12 +2199,13 @@ def train_phase(wrappers: dict) -> dict:
         after = read_counts(wrappers)
         per_step.append({k: after[k] - before[k] for k in after})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {}
     for name in wrappers:
         fixed = [d[name] for d in per_step]
         if any(d != STEP_LAUNCHES.get(name, 0) for d in fixed):
             fail(f"fixed-batch steps: {name} launched {fixed} times per step, expected "
                  f"{STEP_LAUNCHES.get(name, 0)}")
-        launches[name] += sum(fixed)
+        launches[name] = sum(fixed)
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         fail(f"training losses not finite: {losses}")
@@ -2112,7 +2215,7 @@ def train_phase(wrappers: dict) -> dict:
              f"last 3 {last:.4f} ({short(losses)})")
 
     # One more step, split by CUDA events into forward, backward and
-    # optimizer (the parts of train_step; the clip is off in this preset).
+    # optimizer (the parts of train_step; the clip is off in these presets).
     model = state.model
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with f32_geometry():
@@ -2128,15 +2231,21 @@ def train_phase(wrappers: dict) -> dict:
     split = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
     profile = profile_step(lambda: train_step(state, clouds, labels, gen))
     ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
-    return dict(ms_per_step=ms, clouds_per_s=TRAIN_BATCH / ms * 1e3, loop_s=loop_s,
-                losses=losses, split_ms=split, peak_gb=peak_gb, launches=launches,
-                best=out["best"], profile=profile)
+    return dict(ms_per_step=ms, clouds_per_s=TRAIN_BATCH / ms * 1e3, losses=losses,
+                split_ms=split, peak_gb=peak_gb, launches=launches, profile=profile)
+
+
+# Kernel names of cuDNN's convolutions (fprop, dgrad, wgrad: its own
+# engines and the xmma implicit GEMMs) and of its layout transforms.
+CONV_KERNEL_MARKS = ("conv", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop", "cudnn")
 
 
 def profile_step(step) -> dict:
     """One call of step() under torch.profiler: wall ms, device ms (kernel
     events only: an aten op also reports its kernels' time), the device's
-    busy share, and the 8 kernels with the most device time."""
+    busy share, cuDNN's convolution kernels' ms and share of the device
+    time (CONV_KERNEL_MARKS), and the 8 kernels with the most device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2150,7 +2259,11 @@ def profile_step(step) -> dict:
                    if "CUDA" in str(ev.device_type) and ev.self_device_time_total > 0),
                   reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
+    if device_ms <= 0.0:
+        fail("torch.profiler recorded no device time for a profiled step")
+    conv_ms = sum(r[0] for r in rows if any(m in r[1].lower() for m in CONV_KERNEL_MARKS)) / 1e3
     return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "conv_ms": conv_ms, "conv_share": conv_ms / device_ms,
             "top": [(k[:80], round(us / 1e3, 3), c) for us, k, c in rows[:8]]}
 
 
@@ -2209,6 +2322,441 @@ def train_parity() -> str:
             or worst_stat > STATS_RTOL:
         fail("train parity: " + msg)
     return msg
+
+
+def bf16_config(ckpt_dir: str | None = None):
+    """The BF16_PRESET preset with BF16_OVERRIDES applied (and a checkpoint
+    directory), as `cli train` builds it."""
+    from rift_tpu_torch.train import apply_overrides, get_config
+
+    cfg = apply_overrides(get_config(BF16_PRESET), BF16_OVERRIDES)
+    if ckpt_dir is not None:
+        cfg.train.ckpt_dir = ckpt_dir
+    return cfg
+
+
+def voxel_kernel_rows(model, coords, k4: bool) -> dict:
+    """K2 and K3 (and K4 with `k4`) at the shapes `model`'s PVConv blocks
+    give them on the clouds `coords` [b, n, 3] (spherical grid of the raw
+    centred coordinates, as training and classification run it), in the
+    model's compute type (bf16 features and grids for a bf16 model; K4's
+    cotangent is f32), against their plain versions (TOL), timed per call
+    and on the device alone, with their byte bounds."""
+    import torch
+
+    from rift_tpu_torch.ops.cuda import onehot_ops as oh
+    from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
+                                              spherical_corner_weights,
+                                              spherical_voxel_indices)
+
+    dtype = model.dtype or torch.float32
+    size = torch.tensor([], dtype=dtype).element_size()
+    blocks = [model.layers[name] for name in model._backbone if name.startswith("PVConv")]
+    r = blocks[0].resolution
+    s = r ** 3
+    with torch.no_grad():
+        norm = normalize_coords_sphere(coords - coords.mean(-2, keepdim=True))
+        inds, _ = spherical_voxel_indices(norm, r)
+        idx, w = spherical_corner_weights(norm, inds, r)
+    b, n = inds.shape
+    dev = coords.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    touched = int(torch.unique((idx + torch.arange(b, device=dev)[:, None, None] * s)
+                               [idx >= 0]).numel())
+    rows = {"scatter_mean": [], "corner_gather": [], "corner_scatter": []}
+    for block in blocks:
+        c_in, c_out = block.convs[0].in_channels, block.convs[0].out_channels
+        feat = torch.randn((b, n, c_in), generator=gen, device=dev).to(dtype)
+        out, cnt = oh.scatter_mean(feat, inds, s)
+        want, want_cnt = oh.scatter_mean_plain(feat, inds, s)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)[1]
+        if not torch.equal(cnt, want_cnt) or err > TOL["scatter_mean"]:
+            fail(f"K2 at [{b},{n},{c_in}] {dtype}: counts equal {torch.equal(cnt, want_cnt)}, "
+                 f"rel err {err:.3e}")
+        nbytes = b * n * c_in * size + b * n * 8 + b * s * c_in * 4 + b * s * 4
+        rows["scatter_mean"].append(dict(
+            shape=f"[{b},{n},{c_in}] {str(dtype)[6:]} -> [{b},{s},{c_in}]", max_rel_err=err,
+            ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds, s), reps=5),
+            dev_ms=dev_ms(lambda: oh.scatter_mean(feat, inds, s), calls=5),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+        grid = torch.randn((b, s, c_out), generator=gen, device=dev).to(dtype)
+        out = oh.corner_gather(grid, idx, w)
+        want = oh.corner_gather_plain(grid, idx, w)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)[1]
+        if err > TOL["corner_gather"]:
+            fail(f"K3 at [{b},{s},{c_out}] {dtype}: rel err {err:.3e}")
+        nbytes = touched * c_out * size + b * n * 8 * (idx.element_size() + 4) + b * n * c_out * 4
+        rows["corner_gather"].append(dict(
+            shape=f"[{b},{s},{c_out}] {str(dtype)[6:]} at [{b},{n},8] -> [{b},{n},{c_out}]",
+            max_rel_err=err,
+            ms=cuda_time_ms(lambda: oh.corner_gather(grid, idx, w), reps=5),
+            dev_ms=dev_ms(lambda: oh.corner_gather(grid, idx, w), calls=5),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+        if k4:
+            dout = torch.randn((b, n, c_out), generator=gen, device=dev)
+            out = oh.corner_scatter(dout, idx, w, s)
+            want = oh.corner_scatter_plain(dout, idx, w, s)
+            torch.cuda.synchronize()
+            err = rel_err(out, want)[1]
+            if err > TOL["corner_scatter"]:
+                fail(f"K4 at [{b},{n},{c_out}] -> [{b},{s},{c_out}]: rel err {err:.3e}")
+            nbytes = b * n * c_out * 4 + b * n * 8 * 8 + b * s * c_out * 4
+            rows["corner_scatter"].append(dict(
+                shape=f"[{b},{n},{c_out}] f32 at [{b},{n},8] -> [{b},{s},{c_out}]",
+                max_rel_err=err,
+                ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx, w, s), reps=5),
+                dev_ms=dev_ms(lambda: oh.corner_scatter(dout, idx, w, s), calls=5),
+                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+    rows = {k: v for k, v in rows.items() if v}
+    for name, rs in rows.items():
+        for row in rs:
+            print(f"    {name} at {row['shape']}: rel err {row['max_rel_err']:.3e} (tol "
+                  f"{TOL[name]:g}); kernel {row['ms']:.4f} ms per call, {row['dev_ms']:.4f} "
+                  f"device only, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+                  f"{row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
+    return rows
+
+
+def fps_check() -> str:
+    """ops/sampling.furthest_point_sample on the card at [TRAIN_BATCH,
+    NUM_POINTS, 3] -> FPS_SAMPLES: indices equal to the CPU's, timed."""
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.ops.sampling import furthest_point_sample
+
+    clouds, _ = next(ModelNet40(bf16_config().dataset, "train").batches(TRAIN_BATCH, seed=0))
+    pts = torch.as_tensor(clouds[..., :3], device="cuda")
+    got = furthest_point_sample(pts, FPS_SAMPLES)
+    want = furthest_point_sample(pts.cpu(), FPS_SAMPLES)
+    if not torch.equal(got.cpu(), want):
+        fail(f"furthest_point_sample: the card's indices differ from the CPU's at "
+             f"{int((got.cpu() != want).sum())} of {want.numel()}")
+    ms = cuda_time_ms(lambda: furthest_point_sample(pts, FPS_SAMPLES), reps=3)
+    return (f"furthest_point_sample [{TRAIN_BATCH},{NUM_POINTS},3] -> {FPS_SAMPLES}: indices "
+            f"equal to the CPU's; {ms:.2f} ms")
+
+
+def bf16_train_phase(wrappers: dict, ckpt_dir: str) -> dict:
+    """`cli train` of the BF16_PRESET preset in bf16 on the card, then the
+    fixed-batch steps of its model, K2/K3/K4 at its training shapes, and
+    furthest point sampling."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rift_tpu_torch import cli
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.train import build_model, get_config
+    from rift_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = bf16_config(ckpt_dir)
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["train", "--preset", BF16_PRESET, "--device", "cuda", "--no-resume",
+                         f"train.ckpt_dir={ckpt_dir}", *BF16_OVERRIDES])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    launches = read_counts(wrappers)
+    if code != 0:
+        fail(f"cli train --preset {BF16_PRESET} exited {code}")
+    eval_batches = -(-TRAIN_ITEMS["valid"] // cfg.train.eval_batch_size)
+    for name in wrappers:
+        want = (STEP_LAUNCHES.get(name, 0) * TRAIN_LOOP_STEPS
+                + BF16_EVAL_LAUNCHES.get(name, 0) * eval_batches)
+        if launches[name] != want:
+            fail(f"cli train bf16: {name} launched {launches[name]} times, expected {want}")
+    meta = CheckpointManager(ckpt_dir).load_meta()
+    with open(os.path.join(ckpt_dir, f"{BF16_PRESET}.metrics.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    train_loss = [r["loss"] for r in log if r["split"] == "train"]
+    if meta is None or meta["config"]["model"]["dtype"] != "bfloat16" \
+            or len(train_loss) != 1 or not math.isfinite(train_loss[0]) \
+            or not os.path.isfile(os.path.join(ckpt_dir, "best_acc.pt")):
+        fail(f"cli train bf16: meta {meta and meta['config']['model']}, log {log}, files "
+             f"{sorted(os.listdir(ckpt_dir))}")
+    full = get_config(BF16_PRESET)  # the preset's whole split sets the schedule
+    full.model.dtype = "bfloat16"
+    fixed = fixed_batch_steps(cfg, full, wrappers)
+    for name in wrappers:
+        launches[name] += fixed["launches"][name]
+    model = build_model(cfg).to("cuda")
+    clouds, _ = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
+    rows = voxel_kernel_rows(model, torch.as_tensor(clouds[..., :3], device="cuda"), k4=True)
+    return dict(fixed, loop_s=loop_s, launches=launches, train_loss=train_loss[0],
+                best=meta["best"], kernels=rows, fps=fps_check())
+
+
+def bf16_train_parity() -> str:
+    """One bf16 step on PARITY_CLOUDS clouds from the same weights, dropout
+    off, on the card and on the CPU, beside the CPU's f32 step as the
+    function both approximate (BF16_PARITY rules)."""
+    import dataclasses
+
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.train import build_model
+    from rift_tpu_torch.train.steps import (TrainState, create_state, forward_backward,
+                                            make_optimizer, train_step)
+
+    cfg = bf16_config()
+    clouds, labels = next(ModelNet40(cfg.dataset, "valid").batches(PARITY_CLOUDS, seed=1))
+    cpu = create_state(build_model(cfg), cfg, TRAIN_LOOP_STEPS, torch.device("cpu"),
+                       seed=cfg.seed + 1)
+    cpu.model.dropout = 0.0
+    card_model = copy.deepcopy(cpu.model).cuda()
+    card = TrainState(card_model, *make_optimizer(card_model, cfg, TRAIN_LOOP_STEPS))
+    f32 = build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=None)))
+    f32.load_state_dict(cpu.model.state_dict())
+    f32.dropout = 0.0
+    exact = TrainState(f32, *make_optimizer(f32, cfg, TRAIN_LOOP_STEPS))
+    out_g = train_step(card, torch.as_tensor(clouds, device="cuda"),
+                       torch.as_tensor(labels, device="cuda"))
+    out_c = train_step(cpu, torch.as_tensor(clouds), torch.as_tensor(labels))
+    forward_backward(exact, torch.as_tensor(clouds), torch.as_tensor(labels))
+    loss_g, loss_c = float(out_g["loss"]), float(out_c["loss"])
+    g32 = {n: p.grad.double() for n, p in exact.model.named_parameters()}
+    g_cpu = {n: p.grad.double() for n, p in cpu.model.named_parameters()}
+    top = max(float(g.norm()) for g in g32.values())
+    lr = cpu.schedule(0)
+    worst_ratio, worst_zero, worst_param, worst_settled, held = (0.0, ""), (0.0, ""), 0.0, 0.0, 0
+    p_cpu = dict(cpu.model.named_parameters())
+    for name, p in card.model.named_parameters():
+        want = g32[name]
+        g = p.grad.double().cpu()
+        err = float((g - want).norm())
+        if float(want.norm()) >= BF16_FLOOR * top:
+            cpu_err = float((g_cpu[name] - want).norm())
+            ratio = (err - BF16_SLACK * float(want.norm())) / max(cpu_err, 1e-30)
+            worst_ratio = max(worst_ratio, (ratio, name))
+            held += 1
+        else:
+            worst_zero = max(worst_zero, (err / top, name))
+        off = (p.detach().cpu() - p_cpu[name].detach()).abs()
+        settled = (g - g_cpu[name]).abs() <= SETTLED * g_cpu[name].abs()
+        worst_settled = max(worst_settled, float(torch.where(settled, off, 0.0).max()))
+        worst_param = max(worst_param, float(off.max()) / lr)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    msg = (f"{PARITY_CLOUDS} clouds x {NUM_POINTS}, {BF16_PRESET} bf16: loss card {loss_g:.6f} "
+           f"CPU {loss_c:.6f} (rel {loss_rel:.3e}, tol {BF16_LOSS_RTOL:g}); gradients against "
+           f"the CPU's f32 step, on the {held} with norm >= {BF16_FLOOR:g} of the largest: "
+           f"max (|card - f32| - {BF16_SLACK:g}|f32|) / |CPU bf16 - f32| {worst_ratio[0]:.3f} at "
+           f"{worst_ratio[1]} (tol {BF16_RATIO:g}); below: max |card - f32| {worst_zero[0]:.3e} "
+           f"of the largest at {worst_zero[1]} (tol {BF16_ZERO_TOL:g}); updated parameters: "
+           f"max |card - CPU| {worst_param:.3f} lr (tol 2.1), {worst_settled:.3e} where the "
+           f"gradients agree within {SETTLED:g} (tol {SETTLED_PARAM_TOL:g})")
+    if loss_rel > BF16_LOSS_RTOL or worst_ratio[0] > BF16_RATIO \
+            or worst_zero[0] > BF16_ZERO_TOL or worst_param > 2.1 \
+            or worst_settled > SETTLED_PARAM_TOL or held < 10:
+        fail("bf16 train parity: " + msg)
+    return msg
+
+
+def cls_eval_phase(wrappers: dict, ckpt_dir: str) -> dict:
+    """`cli evaluate-cls --ckpt DIR --sweep` on the checkpoint of the bf16
+    training phase, with CLS_OVERRIDES (the preset's 128-item test split):
+    the whole call's seconds, the forwards' clouds/s (each forward timed,
+    synchronized), peak memory, K2/K3/K5 launches; then K2/K3 at its
+    shapes, K5 at its batch, and CLS_PARITY_CLOUDS test clouds' logits
+    against the CPU's."""
+    import contextlib
+    import io
+
+    import torch
+
+    import rift_tpu_torch.train.loop as loop
+    from rift_tpu_torch import cli
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.ops.cuda.conv3d import conv3d_same
+    from rift_tpu_torch.train import apply_overrides, build_model, load_trained_state
+    from rift_tpu_torch.train.config import ModelConfig
+
+    forwards = {"s": 0.0, "clouds": 0, "calls": 0}
+    eval_step = loop.eval_step
+
+    def timed_eval_step(state, clouds):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = eval_step(state, clouds)
+        torch.cuda.synchronize()
+        forwards["s"] += time.perf_counter() - t1
+        forwards["clouds"] += clouds.shape[0]
+        forwards["calls"] += 1
+        return logits
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    loop.eval_step = timed_eval_step
+    try:
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(["evaluate-cls", "--ckpt", ckpt_dir, "--sweep", *CLS_OVERRIDES])
+        run_s = time.perf_counter() - t1
+    finally:
+        loop.eval_step = eval_step
+    launches = read_counts(wrappers)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if code != 0:
+        fail(f"cli evaluate-cls exited {code}: {out.getvalue()}")
+    print(out.getvalue(), end="", flush=True)
+    results = {k: float(v) for k, v in (line.split(": ") for line in out.getvalue().splitlines())}
+    want_keys = ["acc", "acc_hard", *[f"sweep_acc_l{i}" for i in range(6)], "sweep_auc",
+                 "rot_agree", "logit_drift"]
+    if list(results) != want_keys or not all(math.isfinite(v) for v in results.values()):
+        fail(f"cli evaluate-cls printed {results}")
+    # Forwards: the test split and the hard tier, each in batches of
+    # eval_batch_size, the 6 sweep levels likewise, and one forward of
+    # min(64, items) clouds per rotation.
+    raw, snapshot = load_trained_state(ckpt_dir)
+    cfg = bf16_config()
+    cfg.model = ModelConfig(**snapshot["model"])
+    for key, value in snapshot["dataset"].items():
+        setattr(cfg.dataset, key, value)
+    apply_overrides(cfg, CLS_OVERRIDES)
+    items = cfg.dataset.synthetic_items["test"]
+    want_calls = 8 * -(-items // cfg.train.eval_batch_size) + CLS_ROTATIONS
+    if forwards["calls"] != want_calls:
+        fail(f"cli evaluate-cls ran {forwards['calls']} forwards, expected {want_calls}")
+    for name in wrappers:
+        want = BF16_EVAL_LAUNCHES.get(name, 0) * want_calls
+        if launches[name] != want:
+            fail(f"cli evaluate-cls: {name} launched {launches[name]} times, expected {want}")
+
+    model = build_model(cfg)
+    model.load_state_dict(raw["model"])
+    model = model.eval().cuda()
+    test = ModelNet40(cfg.dataset, "test")
+    clouds, _ = next(test.batches(cfg.train.eval_batch_size, seed=0, shuffle=False,
+                                        drop_last=False))
+    rows = voxel_kernel_rows(model, torch.as_tensor(clouds[..., :3], device="cuda"), k4=False)
+    hard = ModelNet40(loop.hard_tier_dataset(cfg.dataset), "test")
+    hard_clouds, _ = next(hard.batches(cfg.train.eval_batch_size, seed=0, shuffle=False,
+                                        drop_last=False))
+    for name, rs in voxel_kernel_rows(model, torch.as_tensor(hard_clouds[..., :3],
+                                                             device="cuda"), k4=False).items():
+        rows[name] += rs
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k5_rows = []
+    b = cfg.train.eval_batch_size
+    for block in (model.layers[n] for n in model._backbone if n.startswith("PVConv")):
+        for conv in block.convs:
+            cin, cout = conv.in_channels, conv.out_channels
+            x, w, _, _, steps, equal, a, rel = k5_held(gen, b, block.resolution, cin, cout)
+            flops = 2 * 27 * block.resolution ** 3 * cin * cout * b
+            nbytes = b * block.resolution ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2
+            row = dict(shape=f"[{b},{block.resolution}^3,{cin}] -> {cout}", max_steps=steps,
+                       equal_share=equal, max_abs_err=a, max_rel_err=rel,
+                       ms=cuda_time_ms(lambda: conv3d_same(x, w), reps=5),
+                       dev_ms=dev_ms(lambda: conv3d_same(x, w), calls=5),
+                       bound_ms=max(flops / PEAK_BF16_FLOP_PER_S,
+                                    nbytes / PEAK_BYTES_PER_S) * 1e3, bound_by="operations")
+            print(f"    conv3d_same at {row['shape']}: max {steps:.3f} bf16 steps (tol "
+                  f"{TOL['conv3d_same']:g}), bit-equal {equal:.6f}; kernel {row['ms']:.4f} ms "
+                  f"per call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms, "
+                  f"share {row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
+            if steps > TOL["conv3d_same"]:
+                fail(f"K5 at {row['shape']}: {steps:.3f} bf16 steps from its plain version")
+            k5_rows.append(row)
+    rows["conv3d_same"] = k5_rows
+
+    # Parity: the card's logits against the CPU's on the first test clouds.
+    x = torch.as_tensor(clouds[:CLS_PARITY_CLOUDS], device="cuda")
+    with torch.no_grad():
+        card = loop.eval_step(loop.TrainState(model, None, None), x).cpu()
+        cpu = loop.eval_step(loop.TrainState(copy.deepcopy(model).cpu(), None, None),
+                             x.cpu())
+    scale = float(cpu.abs().max())
+    logit_err = float((card - cpu).abs().max()) / scale
+    top2 = cpu.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > CLS_LOGIT_TOL * scale
+    same = card.argmax(-1) == cpu.argmax(-1)
+    parity = (f"{CLS_PARITY_CLOUDS} test clouds: max |card - CPU| logit {logit_err:.3e} of the "
+              f"largest (tol {CLS_LOGIT_TOL:g}); predictions equal on {int(same.sum())}, "
+              f"{int(clear.sum())} of them with a top-2 margin above the tolerance")
+    if logit_err > CLS_LOGIT_TOL or not bool(same[clear].all()):
+        fail("evaluate-cls parity: " + parity)
+    return dict(results=results, run_s=run_s, forward_s=forwards["s"],
+                clouds=forwards["clouds"], calls=forwards["calls"], peak_gb=peak_gb,
+                launches=launches, kernels=rows, parity=parity)
+
+
+def dp_phase(wrappers: dict) -> dict:
+    """make_sharded_train_step on a one-rank NCCL group against train_step:
+    one step of the f32 flagship (train_config) from one seeded init on
+    the same batch, loss, accuracy, parameters and BN statistics bit for
+    bit (cuDNN deterministic in both); then DP_STEPS of each, in turns,
+    for their ms/step. The group is destroyed before the next phase."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.parallel import make_sharded_train_step
+    from rift_tpu_torch.train import build_model
+    from rift_tpu_torch.train.steps import create_state, train_step
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dev = torch.device("cuda")
+        cfg = train_config()
+        clouds, labels = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
+        clouds = torch.as_tensor(clouds, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        states = [create_state(build_model(cfg), cfg, TRAIN_LOOP_STEPS, dev, seed=cfg.seed)
+                  for _ in range(2)]
+        steps = [train_step, make_sharded_train_step(dist.group.WORLD)]
+        gen = torch.Generator(device=dev)
+        outs = []
+        for i, (state, step) in enumerate(zip(states, steps)):
+            if i == 1:
+                for fn in wrappers.values():
+                    fn.launches = 0
+            gen.manual_seed(cfg.seed)
+            outs.append(step(state, clouds, labels, gen))
+            torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        for name in wrappers:
+            if launches[name] != STEP_LAUNCHES.get(name, 0):
+                fail(f"train dp: {name} launched {launches[name]} times, expected "
+                     f"{STEP_LAUNCHES.get(name, 0)}")
+        (plain, sharded), (sp, sd) = outs, states
+        diff = [k for k, v in sp.model.state_dict().items()
+                if not torch.equal(v, sd.model.state_dict()[k])]
+        if not (torch.equal(plain["loss"], sharded["loss"])
+                and torch.equal(plain["acc"], sharded["acc"])) or diff:
+            fail(f"train dp: the one-rank sharded step differs from train_step: loss "
+                 f"{float(plain['loss'])!r} vs {float(sharded['loss'])!r}, acc "
+                 f"{float(plain['acc'])} vs {float(sharded['acc'])}, tensors {diff[:5]}")
+        times = ([], [])
+        for _ in range(DP_STEPS):
+            for i in (0, 1):
+                gen.manual_seed(cfg.seed)
+                t1 = time.perf_counter()
+                steps[i](states[i], clouds, labels, gen)
+                torch.cuda.synchronize()
+                times[i].append((time.perf_counter() - t1) * 1e3)
+        ms = [sorted(t)[len(t) // 2] for t in times]
+        return dict(launches=launches, plain_ms=ms[0], dp_ms=ms[1],
+                    loss=float(plain["loss"]), tensors=len(sp.model.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
 
 
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
@@ -2376,9 +2924,53 @@ def main() -> int:
     for name, rows in icl["kernels"].items():
         report[name]["eval_icl"] = rows
 
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as bf16_dir:
+        t0 = time.perf_counter()
+        bf = bf16_train_phase(wrappers, bf16_dir)
+        print(f"train bf16: {smi}: {BF16_PRESET} bf16 (cli train): {bf['ms_per_step']:.2f} "
+              f"ms/step (median of steps 2-{TRAIN_STEPS} on a fixed batch), "
+              f"{bf['clouds_per_s']:.2f} clouds/s at {TRAIN_BATCH} x {NUM_POINTS}; forward "
+              f"{bf['split_ms'][0]:.2f} ms, backward {bf['split_ms'][1]:.2f} ms, optimizer "
+              f"{bf['split_ms'][2]:.2f} ms; peak {bf['peak_gb']:.2f} GB", flush=True)
+        print(f"train bf16 profile (one step): {json.dumps(bf['profile'])}", flush=True)
+        phase("train bf16", t0, f"cli train {TRAIN_LOOP_STEPS} steps + validation in "
+                                f"{bf['loop_s']:.2f} s (epoch loss {bf['train_loss']:.4f}, best "
+                                f"{bf['best']}); fixed-batch losses {short(bf['losses'])}; "
+                                f"launches {bf['launches']}; {bf['fps']}")
+        t0 = time.perf_counter()
+        phase("train bf16 parity", t0, bf16_train_parity())
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ce = cls_eval_phase(wrappers, bf16_dir)
+        print(f"evaluate-cls: {smi}: {BF16_PRESET} bf16 checkpoint, {ce['calls']} forwards of "
+              f"{ce['clouds']} clouds: whole call {ce['run_s']:.2f} s, forwards "
+              f"{ce['forward_s']:.2f} s, {ce['clouds'] / ce['forward_s']:.2f} clouds/s; peak "
+              f"{ce['peak_gb']:.2f} GB; result (seeded, barely trained weights: information "
+              f"only) {json.dumps({k: round(v, 6) for k, v in ce['results'].items()})}",
+              flush=True)
+        phase("evaluate-cls", t0, f"launches {ce['launches']}; parity: {ce['parity']}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dp = dp_phase(wrappers)
+    print(f"train dp: {smi}: one-rank NCCL group, f32 flagship at {TRAIN_BATCH} x "
+          f"{NUM_POINTS}: sharded step {dp['dp_ms']:.2f} ms/step, plain step "
+          f"{dp['plain_ms']:.2f} ms/step (medians of {DP_STEPS}, in turns)", flush=True)
+    phase("train dp", t0, f"loss {dp['loss']:.6f}, accuracy, and the {dp['tensors']} "
+                          f"parameters and buffers bit-equal to train_step's; launches "
+                          f"{dp['launches']}; group destroyed")
+    for path, res in (("train_bf16", bf), ("evaluate_cls", ce)):
+        for name, rows in res["kernels"].items():
+            report[name][path] = rows
+
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
-             "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"]}
+             "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"],
+             "train_bf16": bf["launches"], "evaluate_cls": ce["launches"],
+             "train_dp": dp["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -2397,7 +2989,8 @@ def main() -> int:
                                    "library_steps", "per_shape", "other_shapes", "large",
                                    "degenerate", "other_r", "bisection_bound_ms",
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
-                                   "eval_5b", "eval_cube", "eval_icl")
+                                   "eval_5b", "eval_cube", "eval_icl", "train_bf16",
+                                   "evaluate_cls")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

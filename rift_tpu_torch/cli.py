@@ -2,15 +2,21 @@
 
   python -m rift_tpu_torch.cli presets
   python -m rift_tpu_torch.cli train --preset mn40_sph_dg [--no-resume] [a.b=v ...]
+  torchrun --nproc_per_node=4 -m rift_tpu_torch.cli train --preset mn40_sph_dg [...]
   python -m rift_tpu_torch.cli evaluate --preset reg_icl_nuim [--ckpt DIR] \
       [--best METRIC] [--untrained] [a.b=v ...]
+  python -m rift_tpu_torch.cli evaluate-cls --preset mn40_sph_dg [--ckpt DIR] \
+      [--best METRIC] [--rotations K] [--no-hard] [--sweep] [dataset.a=v ...]
 
-`train` and `evaluate` run on the CUDA card (`--device cuda`, the
-default, which fails without one) or, when asked, on the CPU with the
-kernels' plain versions (`--device cpu`). `a.b=v` overrides set preset
-fields (`train/config.py:apply_overrides`). The reference's method sweep
-(`evaluate --methods`), `evaluate-cls`, `map-sequence` and `train-seg`
-are not ported yet and exit with the ROADMAP item that ports them.
+`train`, `evaluate` and `evaluate-cls` run on the CUDA card (`--device
+cuda`, the default, which fails without one) or, when asked, on the CPU
+with the kernels' plain versions (`--device cpu`). `a.b=v` overrides set
+preset fields (`train/config.py:apply_overrides`). Under torchrun, `train`
+joins the process group of its environment (NCCL between cards, gloo with
+`--device cpu`) and trains data-parallel (`train.data_parallel`). The
+reference's method sweep (`evaluate --methods`), `map-sequence` and
+`train-seg` are not ported yet and exit with the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -18,11 +24,15 @@ import argparse
 import os
 import sys
 
-from .train import apply_overrides, evaluate_registration, get_config, presets
+import torch.distributed as dist
+
+from .parallel import initialize_multihost
+from .train import (apply_overrides, evaluate_classification_ckpt, evaluate_registration,
+                    get_config, presets)
 from .train import train as run_train
 
 # Not ported yet: (subcommand or option, ROADMAP item).
-NOT_PORTED = {"--methods": 10, "evaluate-cls": 9, "map-sequence": 10, "train-seg": 9}
+NOT_PORTED = {"--methods": 10, "map-sequence": 10, "train-seg": 10}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,8 +60,20 @@ def build_parser() -> argparse.ArgumentParser:
                         help="comma list: the method sweep (not ported yet)")
     p_eval.add_argument("overrides", nargs="*")
 
-    for name, preset in (("evaluate-cls", "mn40_sph_dg"),
-                         ("map-sequence", "reg_icl_nuim_teaserpp_cu_dg"),
+    p_ecls = sub.add_parser("evaluate-cls", parents=[device],
+                            help="classification accuracy and SO(3) rotation consistency "
+                                 "of a trained checkpoint")
+    p_ecls.add_argument("--preset", default="mn40_sph_dg")
+    p_ecls.add_argument("--ckpt", default=None, metavar="DIR")
+    p_ecls.add_argument("--best", default=None, metavar="METRIC")
+    p_ecls.add_argument("--rotations", type=int, default=4,
+                        help="rotated copies per cloud for the consistency meter (0: none)")
+    p_ecls.add_argument("--no-hard", action="store_true", help="skip the hard tier")
+    p_ecls.add_argument("--sweep", action="store_true",
+                        help="accuracy at each corruption level and its mean")
+    p_ecls.add_argument("overrides", nargs="*")
+
+    for name, preset in (("map-sequence", "reg_icl_nuim_teaserpp_cu_dg"),
                          ("train-seg", "shapenet_seg")):
         p = sub.add_parser(name, parents=[device],
                            help=f"not ported yet (ROADMAP item {NOT_PORTED[name]})")
@@ -80,9 +102,22 @@ def main(argv: list[str] | None = None) -> int:
     config = get_config(args.preset)
     apply_overrides(config, args.overrides)
     if args.command == "train":
-        run_train(config, resume=not args.no_resume, device=args.device)
+        joined = not dist.is_initialized() and initialize_multihost(args.device) is not None
+        try:
+            run_train(config, resume=not args.no_resume, device=args.device)
+        finally:
+            if joined:
+                dist.destroy_process_group()
         return 0
     ckpt_name = f"best_{args.best}" if args.best else None
+    if args.command == "evaluate-cls":
+        results = evaluate_classification_ckpt(
+            config, ckpt_dir=args.ckpt, ckpt_name=ckpt_name, rotations=args.rotations,
+            hard_tier=not args.no_hard, cli_overrides=args.overrides,
+            corruption_sweep=args.sweep, device=args.device)
+        for key, value in results.items():
+            print(f"{key}: {value:.6f}")
+        return 0
     if args.ckpt is None and not args.untrained:
         # Fail loudly rather than score random weights.
         probe = os.path.join(config.train.ckpt_dir,

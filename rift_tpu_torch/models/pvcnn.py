@@ -34,6 +34,7 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..nn.batch_norm import BatchNorm
@@ -54,7 +55,8 @@ class PVCNNClassifier(nn.Module):
     inside `ops/precision.py:f32_geometry` (as `register_batch` and
     `train.steps.train_step` do): cuDNN runs Conv3d in TF32 by default.
     `dropout` is the head's rate (the reference's 0.2); in train mode its
-    mask is drawn from the `generator` given to `forward`. `dtype` is None
+    mask is drawn from the `generator` given to `forward` (under
+    `group`, the global batch's mask, this rank's rows). `dtype` is None
     (f32) or "bfloat16", as the reference's field."""
 
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
@@ -125,6 +127,7 @@ class PVCNNClassifier(nn.Module):
         self.layers = nn.ModuleDict(layers)
         self.out_channels = in_ch
         self.head = None
+        self.group = None  # set by parallel.sharded_ops for a data-parallel step
         if is_classify:
             w1, w2 = int(512 * width_multiplier), int(256 * width_multiplier)
             self.head = nn.ModuleDict({
@@ -173,12 +176,26 @@ class PVCNNClassifier(nn.Module):
         if self.head is None:
             return features.float()
         h = self.head
-        x = torch.relu(h["BatchNorm_0"](h["Dense_0"](features.amax(-2).float())))
+        pooled = features.amax(-2).to(h["Dense_0"].weight.dtype)  # bf16 features: f32 head
+        x = torch.relu(h["BatchNorm_0"](h["Dense_0"](pooled)))
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("train-mode dropout needs a torch.Generator")
             keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-            x = torch.where(mask, x / keep, torch.zeros_like(x))
+            x = torch.where(self._draw(x.shape, generator, x.device) < keep, x / keep,
+                            torch.zeros_like(x))
         x = torch.relu(h["BatchNorm_1"](h["Dense_1"](x)))
         return h["Dense_2"](x)
+
+    def _draw(self, shape: torch.Size, generator: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+        """Uniform draws for the dropout mask of `shape`; under a process
+        group (a data-parallel step), the draws of the global batch's
+        [world·b, ...] mask, this rank's rows, so that the ranks together
+        drop what one process would."""
+        if self.group is None:
+            return torch.rand(shape, generator=generator, device=device)
+        rank, world = dist.get_rank(self.group), dist.get_world_size(self.group)
+        b = shape[0]
+        full = torch.rand((world * b,) + tuple(shape[1:]), generator=generator, device=device)
+        return full[rank * b:(rank + 1) * b]

@@ -8,6 +8,11 @@ row gather dfeat[p] = g[ind[p]] / cnt[ind[p]] (0 for dropped points), plain
 PyTorch; the corner gather's backward for the grid is K4, its transpose.
 Indices, corner weights and counts get no gradient. On CPU tensors the
 wrappers take their plain versions, forward and backward alike.
+
+K2 and K3 write f32 for a bf16 input, and K4 takes an f32 cotangent, so
+in bf16 training each backward forms an f32 gradient for a bf16 input; it
+rounds it to the input's type itself, as the reference's convert does in
+its transpose, rather than leaving the cast to the autograd engine.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ class ScatterMean(torch.autograd.Function):
         out, cnt = scatter_mean(features, inds, num_segments)
         ctx.save_for_backward(inds, cnt)
         ctx.mark_non_differentiable(cnt)
+        ctx.dtype = features.dtype
         return out, cnt
 
     @staticmethod
@@ -35,7 +41,7 @@ class ScatterMean(torch.autograd.Function):
         g_rows = torch.gather(g, 1, safe[..., None].expand(-1, -1, g.shape[-1]))
         inv = 1.0 / torch.clamp(torch.gather(cnt, 1, safe), min=1.0)
         inv = torch.where(valid, inv, torch.zeros_like(inv))
-        return g_rows * inv[..., None], None, None
+        return (g_rows * inv[..., None]).to(ctx.dtype), None, None
 
 
 class CornerGather(torch.autograd.Function):
@@ -47,9 +53,11 @@ class CornerGather(torch.autograd.Function):
     def forward(ctx, grid, corner_idx, corner_w):
         ctx.save_for_backward(corner_idx, corner_w)
         ctx.num_segments = grid.shape[1]
+        ctx.dtype = grid.dtype
         return corner_gather(grid, corner_idx, corner_w)
 
     @staticmethod
     def backward(ctx, g):
         corner_idx, corner_w = ctx.saved_tensors
-        return corner_scatter(g.contiguous(), corner_idx, corner_w, ctx.num_segments), None, None
+        g_grid = corner_scatter(g.contiguous(), corner_idx, corner_w, ctx.num_segments)
+        return g_grid.to(ctx.dtype), None, None

@@ -1,8 +1,11 @@
-"""Classification training of the PVCNN classifier and registration
+"""Classification training of the PVCNN classifier (one card or
+data-parallel), its classification evaluation, and registration
 evaluation (twin of `rift_tpu.train`)."""
 from .config import (EvalConfig, ExperimentConfig, apply_overrides, get_config,  # noqa: F401
                      presets)
-from .loop import (build_model, evaluate_classification, evaluate_registration,  # noqa: F401
-                   extractor_from_snapshot, load_trained_state, registration_probe,
-                   resolve_extractor, train)
+from .loop import (CORRUPTION_LEVELS, build_model, evaluate_classification,  # noqa: F401
+                   evaluate_classification_ckpt, evaluate_registration,
+                   extractor_from_snapshot, hard_tier_dataset, load_trained_state,
+                   make_distributed_step, registration_probe, resolve_extractor,
+                   rotation_consistency, train)
 from .steps import TrainState, create_state, eval_step, train_step  # noqa: F401

@@ -21,10 +21,13 @@
   solver settings). `shapenet_seg` waits for its trainer (ROADMAP item
   10).
 
-Only the fields the port reads are here; the dataclasses have slots, so
-setting any other raises. The reference's other training fields change
-nothing on one card (`log_every`, `data_parallel`, `cache_npy`).
-`EvalConfig` has every field of the reference's with its default.
+The dataclasses have slots, so setting a field the port lacks raises. Of
+the reference's fields only `train.log_every` (a logging cadence) is left
+out. `train.half_precision` is kept as the reference keeps it, read by
+nothing: bf16 training is `model.dtype='bfloat16'`. `train.data_parallel`
+is read by `train()` under a process group (`train/loop.py:
+make_distributed_step`), `dataset.cache_npy` by the ModelNet40 file
+loader. `EvalConfig` has every field of the reference's with its default.
 """
 from __future__ import annotations
 
@@ -75,7 +78,14 @@ class TrainConfig:
     valid_interval: int = 1
     steps_per_epoch: int | None = None  # cap (useful for smoke runs)
     ckpt_dir: str = "checkpoints"
-    half_precision: bool = False   # not ported yet: train() raises when set
+    # Read by nothing, as in the reference (rift_tpu/train/config.py:72):
+    # training stays f32 when it is set. bf16 training is model.dtype.
+    half_precision: bool = False
+    # Data-parallel training over the ranks of a torch.distributed process
+    # group (torchrun), one card a rank, when the group has more than one
+    # rank and batch_size divides by it (train/loop.py:make_distributed_step).
+    # False trains each rank alone on the whole batch.
+    data_parallel: bool = True
     # At each validation epoch whose number (epoch + 1) K divides, register
     # reg_probe_pairs synthetic noise pairs with the current trunk and track
     # rre, rte, ... as best metrics (train/loop.py:registration_probe).

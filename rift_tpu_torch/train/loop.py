@@ -1,15 +1,17 @@
-"""Classification training and registration evaluation, twin of
-`rift_tpu/train/loop.py` on one card: `build_model`, `train` (with the
-in-training `registration_probe`), `run_meters`, `update_best`,
-`_improved`, `evaluate_classification`, and `load_trained_state`,
-`extractor_from_snapshot`, `resolve_extractor`, `evaluate_registration`
-(every method of `registration.METHODS`, with or without the
-flip-hypothesis consensus).
+"""Classification training and evaluation, registration evaluation, twin
+of `rift_tpu/train/loop.py`: `build_model` (f32 or the bf16 `dtype`
+model), `make_distributed_step`, `train` (one card, or data-parallel over
+a torchrun process group, with the in-training `registration_probe`),
+`run_meters`, `update_best`, `_improved`, `evaluate_classification`,
+`evaluate_classification_ckpt` (with `hard_tier_dataset`,
+`rotation_consistency` and the `CORRUPTION_LEVELS` sweep), and
+`load_trained_state`, `extractor_from_snapshot`, `resolve_extractor`,
+`evaluate_registration` (every method of `registration.METHODS`, with or
+without the flip-hypothesis consensus).
 
-Not ported yet (ROADMAP): the data-parallel step (`make_distributed_step`),
-bf16 training, `train_segmentation`, `evaluate_classification_ckpt` and
-the evaluation extras (the method sweep, feature extraction, rotation
-consistency).
+Not ported yet (ROADMAP): `train_segmentation` (item 10) and the
+registration extras (the method sweep, feature extraction, the sequence
+mapping).
 """
 from __future__ import annotations
 
@@ -20,20 +22,23 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import SyntheticPairs, get_pairs
-from ..data.modelnet40 import get_datasets
+from ..data.modelnet40 import ModelNet40, get_datasets
+from ..data.synthetic_pairs import random_rotation
 from ..device import resolve_device
 from ..models import PVCNNClassifier
 from ..ops.lrf import lrf_basis, lrf_flip_hypotheses
 from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
+from ..parallel.mesh import broadcast_object, rank_and_world, replicate, shard_batch
 from ..registration import (consensus_match, gnc_pose, pair_errors, register_pair,
                             register_pair_from_matches)
 from ..registration.pipeline import split_method
 from .checkpoint import CheckpointManager
-from .config import EvalConfig, ExperimentConfig, ModelConfig
+from .config import EvalConfig, ExperimentConfig, ModelConfig, apply_overrides
 from .meters import MeterClassification, MeterRegistration
 from .steps import TrainState, create_state, eval_step, init_params, train_step
 from .utils import MetricWriter, get_logger
@@ -43,8 +48,8 @@ Tensor = torch.Tensor
 
 def build_model(config: ExperimentConfig) -> PVCNNClassifier:
     m = config.model
-    if m.with_transform_fine_tune or m.dtype:
-        raise NotImplementedError("with_transform_fine_tune and dtype are not ported yet")
+    if m.with_transform_fine_tune:
+        raise NotImplementedError("with_transform_fine_tune is not ported yet (ROADMAP item 10)")
     return PVCNNClassifier(
         blocks=tuple(tuple(b) for b in m.blocks),
         dim_k=m.dim_k,
@@ -61,7 +66,32 @@ def build_model(config: ExperimentConfig) -> PVCNNClassifier:
         lrf_kind=m.lrf_kind,
         with_local_feat=m.with_local_feat,
         local_neighbors=m.local_neighbors,
-        use_new_coords_for_voxel=m.use_new_coords_for_voxel)
+        use_new_coords_for_voxel=m.use_new_coords_for_voxel,
+        dtype=m.dtype)
+
+
+def make_distributed_step(data_parallel: bool = True, batch_size: int | None = None,
+                          log: logging.Logger | None = None):
+    """(step, group): the data-parallel step over the default process group
+    (`parallel.make_sharded_train_step`) when one of more than one rank
+    exists and `data_parallel` is set, else (`train_step`, None). As in the
+    reference, a batch_size that the ranks do not divide warns and trains
+    each rank alone on the whole batch; that is the reference's rule for a
+    mesh, not a device fallback. One process drives one card (torchrun),
+    where the reference's one process drives every local device."""
+    _, world = rank_and_world()
+    if not data_parallel or world < 2:
+        return train_step, None
+    if batch_size is not None and batch_size % world:
+        if log is not None:
+            log.warning("data_parallel requested but batch_size %d %% %d ranks != 0; "
+                        "each rank trains alone on the whole batch", batch_size, world)
+        return train_step, None
+    from ..parallel.sharded_ops import make_sharded_train_step  # it imports train.steps
+
+    if log is not None:
+        log.info("data-parallel over %d ranks (%s)", world, dist.get_backend())
+    return make_sharded_train_step(dist.group.WORLD), dist.group.WORLD
 
 
 # Metric keys where smaller is better, the reference's set (registration
@@ -84,15 +114,17 @@ def _improved(key: str, new: float, old: float | None) -> bool:
 def update_best(best: dict, results: dict, ckpt: CheckpointManager, state: TrainState,
                 config: ExperimentConfig, log: logging.Logger | None = None) -> None:
     """Per-metric best tracking, saving a `best_{name}` checkpoint per
-    improved metric; a dict-valued result (the probe's meter) saves
-    `best_{name}_{key}` per improved key."""
+    improved metric (none when `ckpt` is None: the ranks other than 0); a
+    dict-valued result (the probe's meter) saves `best_{name}_{key}` per
+    improved key."""
     for name, value in results.items():
         items = ({f"{name}_{k}": (k, v) for k, v in value.items()} if isinstance(value, dict)
                  else {name: (name, value)})
         for tag, (key, v) in items.items():
             if _improved(key, float(v), best.get(tag)):
                 best[tag] = float(v)
-                ckpt.save_best(tag, state, best, config)
+                if ckpt is not None:
+                    ckpt.save_best(tag, state, best, config)
                 if log is not None and isinstance(value, dict):
                     log.info("new best %s = %.4f", tag, float(v))
 
@@ -145,21 +177,26 @@ def registration_probe(state: TrainState, config: ExperimentConfig, num_pairs: i
 
 def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = None,
           device: str | torch.device | None = None) -> dict:
-    """Classification training on one device (the card unless `device` says
-    otherwise): per epoch, `steps_per_epoch` updates, then every
-    `valid_interval` epochs the `meters` ({name: factory}; default {'acc':
+    """Classification training (the card unless `device` says otherwise):
+    per epoch, `steps_per_epoch` updates, then every `valid_interval`
+    epochs the `meters` ({name: factory}; default {'acc':
     MeterClassification}) on the valid split, and, at those epochs that
     `train.reg_probe_interval` also divides, `registration_probe` as
     result 'reg'; best checkpoints per improved metric (`update_best`) and
     the rolling `common` checkpoint. With `resume`, continues from
-    `common` in `ckpt_dir`. Returns {'state', 'best', 'loss'} (loss: the
-    last epoch's mean train loss)."""
-    if config.train.half_precision:
-        raise NotImplementedError("half_precision (bf16 training) is not ported yet "
-                                  "(ROADMAP item 9)")
+    `common` in `ckpt_dir`. Under a torch.distributed process group
+    (torchrun, `parallel.initialize_multihost`) the global batch runs
+    data-parallel over its ranks (`make_distributed_step`); every rank
+    reads the same batches and keeps its rows, rank 0's state is
+    replicated first, rank 0 alone writes checkpoints and the metric log,
+    and it runs validation and the probe and gives every rank their
+    results. Returns {'state', 'best', 'loss'} (loss: the last epoch's
+    mean train loss; under data parallelism, of the global batches)."""
     device = resolve_device(device)
     log = get_logger(config.name)
-    writer = MetricWriter(config.train.ckpt_dir, config.name)
+    rank, world = rank_and_world()
+    main = rank == 0
+    writer = MetricWriter(config.train.ckpt_dir, config.name) if main else None
     datasets = get_datasets(config.dataset)
     meters = meters or {"acc": MeterClassification}
 
@@ -168,6 +205,8 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
         steps_per_epoch = min(steps_per_epoch, config.train.steps_per_epoch)
     state = create_state(build_model(config), config, steps_per_epoch, device,
                          seed=config.seed)
+    step_fn, group = make_distributed_step(config.train.data_parallel,
+                                           config.train.batch_size, log)
 
     ckpt = CheckpointManager(config.train.ckpt_dir)
     best: dict = {}
@@ -178,6 +217,8 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
             best = restored
             start_epoch = state.step // steps_per_epoch
             log.info("resumed from step %d (epoch %d)", state.step, start_epoch)
+    if group is not None:
+        replicate(state, group)
 
     # The dropout mask of update t comes from a generator seeded with
     # (seed, t), as the reference folds the step into its key.
@@ -190,30 +231,41 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
                 datasets["train"].batches(config.train.batch_size, seed=epoch)):
             if i >= steps_per_epoch:
                 break
+            if group is not None:
+                clouds, labels = shard_batch((clouds, labels), group)
             generator.manual_seed(config.seed * 1_000_003 + state.step)
-            metrics.append(train_step(state, torch.as_tensor(clouds, device=device),
-                                      torch.as_tensor(labels, device=device), generator))
+            metrics.append(step_fn(state, torch.as_tensor(clouds, device=device),
+                                   torch.as_tensor(labels, device=device), generator))
         loss = float(np.mean([float(m["loss"]) for m in metrics]))
         acc = float(np.mean([float(m["acc"]) for m in metrics]))
-        writer.write(step=state.step, epoch=epoch, split="train", loss=loss, acc=acc,
-                     sec=time.time() - t0)
-        log.info("epoch %d: loss %.4f acc %.4f (%.1fs)", epoch, loss, acc, time.time() - t0)
+        if main:
+            writer.write(step=state.step, epoch=epoch, split="train", loss=loss, acc=acc,
+                         sec=time.time() - t0)
+            log.info("epoch %d: loss %.4f acc %.4f (%.1fs)", epoch, loss, acc,
+                     time.time() - t0)
 
         if (epoch + 1) % config.train.valid_interval == 0:
-            results = run_meters(state, datasets["valid"], config, meters)
-            probe_every = config.train.reg_probe_interval
-            if probe_every and (epoch + 1) % probe_every == 0:
-                results["reg"] = registration_probe(state, config, config.train.reg_probe_pairs)
+            results = None
+            if main:
+                results = run_meters(state, datasets["valid"], config, meters)
+                probe_every = config.train.reg_probe_interval
+                if probe_every and (epoch + 1) % probe_every == 0:
+                    results["reg"] = registration_probe(state, config,
+                                                        config.train.reg_probe_pairs)
+            if world > 1:
+                results = broadcast_object(results)
             flat = {}
             for k, v in results.items():
                 if isinstance(v, dict):
                     flat.update({f"{k}_{kk}": float(vv) for kk, vv in v.items()})
                 else:
                     flat[k] = float(v)
-            writer.write(step=state.step, epoch=epoch, split="valid", **flat)
-            log.info("epoch %d: valid %s", epoch, flat)
-            update_best(best, results, ckpt, state, config, log)
-            ckpt.save_common(state, best, config)
+            if main:
+                writer.write(step=state.step, epoch=epoch, split="valid", **flat)
+                log.info("epoch %d: valid %s", epoch, flat)
+            update_best(best, results, ckpt if main else None, state, config, log)
+            if main:
+                ckpt.save_common(state, best, config)
     return {"state": state, "best": best, "loss": loss}
 
 
@@ -384,4 +436,117 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
                      reg_time * n_real / src.shape[0])
     results = meter.compute()
     log.info("registration eval [%s/%s]: %s", ev.pairs_mode, ev.method, results)
+    return results
+
+
+def rotation_consistency(state: TrainState, dataset, num_items: int = 64,
+                         num_rotations: int = 4, seed: int = 0) -> dict:
+    """SO(3) consistency of the trained classifier: the first `num_items`
+    items of `dataset` (drawn with one RandomState seeded `seed`) under
+    `num_rotations` random rotations each, from the same RandomState.
+    Returns rot_agree, the share of (item, rotation) predictions equal to
+    the item's most frequent one, and logit_drift, the mean over them of
+    |logits − their mean over rotations| / |that mean|."""
+    device = next(state.model.parameters()).device
+    rs = np.random.RandomState(seed)
+    num_items = min(num_items, len(dataset))
+    clouds = np.stack([dataset.get(i, rs)[0] for i in range(num_items)])
+    logits_per_rot = []
+    for _ in range(num_rotations):
+        rotated = []
+        for cloud in clouds:
+            _, p, nrm = random_rotation(cloud[:, :3], cloud[:, 3:6], 360.0, 0.0, rs=rs)
+            rotated.append(np.concatenate([p, nrm], -1))
+        logits_per_rot.append(eval_step(
+            state, torch.as_tensor(np.stack(rotated), device=device)).cpu().numpy())
+    logits = np.stack(logits_per_rot)           # [K, m, C]
+    preds = np.argmax(logits, -1)               # [K, m]
+    modal = np.apply_along_axis(lambda col: np.bincount(col).argmax(), 0, preds)
+    center = logits.mean(0, keepdims=True)
+    drift = np.linalg.norm(logits - center, axis=-1) / (np.linalg.norm(center, axis=-1) + 1e-9)
+    return {"rot_agree": float(np.mean(preds == modal[None])), "logit_drift": float(np.mean(drift))}
+
+
+def hard_tier_dataset(dataset_cfg):
+    """The reference's hard evaluation tier: a copy of `dataset_cfg` with
+    at most 512 points, within-class shape jitter 0.25, clipped sensor
+    noise 0.01 and 5% of each cloud cropped behind a random half-space
+    (the standard synthetic test split saturates)."""
+    return dataclasses.replace(dataset_cfg, num_points=min(dataset_cfg.num_points, 512),
+                               instance_jitter=0.25, noise_sigma=0.01, occlusion=0.05)
+
+
+# The sweep's (instance_jitter, noise_sigma, occlusion) levels, from clean
+# through the hard tier (level 3) to beyond it, all at hard_tier_dataset's
+# point budget.
+CORRUPTION_LEVELS = ((0.0, 0.0, 0.0), (0.10, 0.005, 0.02),
+                     (0.18, 0.0075, 0.035), (0.25, 0.01, 0.05),
+                     (0.32, 0.015, 0.10), (0.40, 0.02, 0.15))
+
+
+def _corruption_sweep(state: TrainState, config: ExperimentConfig,
+                      log: logging.Logger) -> dict:
+    """Test accuracy at each of CORRUPTION_LEVELS (sweep_acc_l0..5) and
+    their mean (sweep_auc)."""
+    out, accs = {}, []
+    for i, (jitter, noise, occlusion) in enumerate(CORRUPTION_LEVELS):
+        cfg = dataclasses.replace(config.dataset, num_points=min(config.dataset.num_points, 512),
+                                  instance_jitter=jitter, noise_sigma=noise,
+                                  occlusion=occlusion)
+        acc = evaluate_classification(state, ModelNet40(cfg, "test"), config)
+        out[f"sweep_acc_l{i}"] = acc
+        accs.append(acc)
+        log.info("corruption level %d (jitter %.2f noise %.3f occl %.2f): acc %.4f",
+                 i, jitter, noise, occlusion, acc)
+    out["sweep_auc"] = float(np.mean(accs))
+    return out
+
+
+def evaluate_classification_ckpt(config: ExperimentConfig, ckpt_dir: str | None = None,
+                                 ckpt_name: str | None = None, rotations: int = 4,
+                                 state: TrainState | None = None, hard_tier: bool = True,
+                                 cli_overrides: list[str] | None = None,
+                                 corruption_sweep: bool = False,
+                                 device: str | torch.device | None = None) -> dict:
+    """Test-split accuracy of a trained classifier (the card unless
+    `device` says otherwise): `acc`; with `hard_tier`, `acc_hard` on
+    `hard_tier_dataset`; with `corruption_sweep`, `sweep_acc_l0..5` and
+    `sweep_auc`; with `rotations` > 0, `rot_agree` and `logit_drift` of
+    `rotation_consistency`. The model is `state`'s, or the checkpoint
+    `ckpt_name` (`evaluate.ckpt_name`, else 'common') in `ckpt_dir`
+    (`evaluate.ckpt_dir`, else `train.ckpt_dir`), built from its saved
+    `model` config. The saved `dataset` config applies over `config`'s,
+    and the `dataset.*` items of `cli_overrides` over both. `config` is
+    not changed."""
+    device = resolve_device(device)
+    log = get_logger(config.name)
+    config = dataclasses.replace(config, dataset=dataclasses.replace(config.dataset))
+    if state is None:
+        raw, snapshot = load_trained_state(
+            ckpt_dir or config.evaluate.ckpt_dir or config.train.ckpt_dir,
+            ckpt_name or config.evaluate.ckpt_name or "common")
+        snap_model = dict(snapshot.get("model") or {})
+        if snap_model:
+            known = {f.name for f in dataclasses.fields(ModelConfig)}
+            config.model = ModelConfig(**{k: v for k, v in snap_model.items() if k in known})
+        for key, value in (snapshot.get("dataset") or {}).items():
+            if hasattr(config.dataset, key):
+                setattr(config.dataset, key, value)
+        model = build_model(config)
+        model.load_state_dict(raw["model"])
+        state = TrainState(model.to(device), None, None, step=int(raw["step"]))
+    if cli_overrides:
+        apply_overrides(config, [o for o in cli_overrides
+                                 if o.lstrip("-").startswith("dataset.")])
+    test = ModelNet40(config.dataset, "test")
+    results = {"acc": evaluate_classification(state, test, config)}
+    if hard_tier:
+        results["acc_hard"] = evaluate_classification(
+            state, ModelNet40(hard_tier_dataset(config.dataset), "test"), config)
+    if corruption_sweep:
+        results.update(_corruption_sweep(state, config, log))
+    if rotations > 0:
+        results.update(rotation_consistency(state, test, num_rotations=rotations,
+                                            seed=config.seed))
+    log.info("classification eval: %s", results)
     return results

@@ -16,7 +16,13 @@ The reference's optax chain, in torch:
   steps_per_epoch.
 
 A step runs inside `ops/precision.py:f32_geometry`, so cuDNN's Conv3d
-forward and backward stay in f32 on the card.
+forward and backward stay in f32 on the card. A bf16 model
+(`model.dtype='bfloat16'`, the reference's `dtype` model) keeps f32
+parameters and f32 Adam moments, and computes its conv and MLP stacks in
+bf16 (cuDNN's bf16 Conv3d forward and backward; TF32 concerns f32 alone,
+so the context leaves them as they are); its head, and so the logits and
+the cross-entropy, stay f32, as flax's `Dense` without a `dtype` promotes
+the bf16 features to its f32 kernel.
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ _TRUNC_STD = 0.87962566103423978
 @dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, the learning
-    rate per update index, the clip norm, and the number of updates made."""
+    rate per update index, the clip norm, and the number of updates made.
+    A state restored for evaluation has no optimizer and no schedule."""
     model: nn.Module
-    optimizer: torch.optim.Optimizer
-    schedule: Callable[[int], float]
+    optimizer: torch.optim.Optimizer | None
+    schedule: Callable[[int], float] | None
     grad_clip: float | None = None
     step: int = 0
 
@@ -110,12 +117,12 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def train_step(state: TrainState, clouds: torch.Tensor, labels: torch.Tensor,
-               generator: torch.Generator | None = None) -> dict:
-    """One update of `state` in place on a batch (clouds [b, n, 6], labels
-    [b]). `generator` draws the head's dropout mask. Returns the batch's
-    loss and accuracy as 0-d tensors (no host sync); the gradients stay in
-    each parameter's `.grad`."""
+def forward_backward(state: TrainState, clouds: torch.Tensor, labels: torch.Tensor,
+                     generator: torch.Generator | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode forward and the backward of the batch's mean
+    cross-entropy: (loss, accuracy) as 0-d tensors (no host sync), the
+    gradients in each parameter's `.grad`."""
     model = state.model
     model.train()
     with f32_geometry():
@@ -123,14 +130,31 @@ def train_step(state: TrainState, clouds: torch.Tensor, labels: torch.Tensor,
         loss = cross_entropy(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if state.grad_clip:
-            clip_by_global_norm(model.parameters(), state.grad_clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedule(state.step)
-        state.optimizer.step()
-    state.step += 1
     acc = (logits.detach().argmax(-1) == labels).float().mean()
-    return {"loss": loss.detach(), "acc": acc}
+    return loss.detach(), acc
+
+
+def apply_update(state: TrainState) -> None:
+    """The optimizer's update from the gradients in `.grad` (clipped first
+    when `grad_clip` is set), at the rate of update `state.step`, which it
+    then counts."""
+    if state.grad_clip:
+        clip_by_global_norm(state.model.parameters(), state.grad_clip)
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.step)
+    state.optimizer.step()
+    state.step += 1
+
+
+def train_step(state: TrainState, clouds: torch.Tensor, labels: torch.Tensor,
+               generator: torch.Generator | None = None) -> dict:
+    """One update of `state` in place on a batch (clouds [b, n, 6], labels
+    [b]). `generator` draws the head's dropout mask. Returns the batch's
+    loss and accuracy as 0-d tensors (no host sync); the gradients stay in
+    each parameter's `.grad`."""
+    loss, acc = forward_backward(state, clouds, labels, generator)
+    apply_update(state)
+    return {"loss": loss, "acc": acc}
 
 
 def eval_step(state: TrainState, clouds: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """rift_tpu_torch's command line against rift_tpu's on the CPU: the preset
-table, `apply_overrides` on the same strings, `presets`, `train` and
-`evaluate` through `cli.main` with `--device cpu`, the card by default,
-the guard against scoring random weights, and the commands not ported
-yet."""
+table, `apply_overrides` on the same strings, `presets`, `train`,
+`evaluate` and `evaluate-cls` through `cli.main` with `--device cpu`,
+`train` under torchrun on 2 gloo ranks, the card by default, the guard
+against scoring random weights, and the commands not ported yet."""
 import dataclasses
 import json
 import os
@@ -45,9 +45,7 @@ def test_apply_overrides_matches_reference(overrides):
     ref = j_apply_overrides(j_get_config("reg_icl_nuim"), overrides)
     ref_dict = json.loads(json.dumps(dataclasses.asdict(ref)))
     ours_dict = json.loads(json.dumps(dataclasses.asdict(ours)))
-    for key in ("log_every", "data_parallel"):  # the fields the port leaves out
-        ref_dict["train"].pop(key)
-    ref_dict["dataset"].pop("cache_npy")
+    ref_dict["train"].pop("log_every")  # the field the port leaves out
     assert ours_dict == ref_dict
     assert ours_dict != json.loads(json.dumps(dataclasses.asdict(get_config("reg_icl_nuim"))))
 
@@ -130,9 +128,8 @@ def test_the_cli_takes_the_card_by_default(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["evaluate-cls", "--rotations", "2"], 9),
     (["map-sequence", "--loop-stride", "3"], 10),
-    (["train-seg"], 9),
+    (["train-seg"], 10),
     (["evaluate", "--methods", "ransac,fgr", "--untrained"], 10),
 ])
 def test_commands_not_ported_exit_with_their_roadmap_item(argv, item, capsys):
@@ -148,3 +145,55 @@ def test_the_cli_runs_as_a_module():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "reg_icl_nuim" in out.stdout.split()
+
+
+CLS_KEYS = ["acc", "acc_hard", *[f"sweep_acc_l{i}" for i in range(6)], "sweep_auc",
+            "rot_agree", "logit_drift"]
+
+
+def test_evaluate_cls_prints_the_reference_keys(tmp_path, capsys):
+    """`evaluate-cls` on the checkpoint `train` wrote: the reference's result
+    keys in its order (rift_tpu/cli.py prints the same dict), `--no-hard`,
+    `--rotations 0` and `--best`; a `dataset.*` override beats the
+    checkpoint's snapshot, and other overrides leave the scores alone."""
+    ckpt = str(tmp_path / "run")
+    assert cli.main(["train", "--preset", "tiny_smoke", "--device", "cpu", "--no-resume",
+                     f"train.ckpt_dir={ckpt}", "optim.num_epochs=1",
+                     "train.steps_per_epoch=2"]) == 0
+    capsys.readouterr()
+    base = ["evaluate-cls", "--preset", "tiny_smoke", "--device", "cpu", "--ckpt", ckpt]
+    assert cli.main([*base, "--rotations", "2", "--sweep"]) == 0
+    full = _results(capsys.readouterr().out)
+    assert list(full) == CLS_KEYS and all(np.isfinite(list(full.values())))
+    assert cli.main([*base, "--no-hard", "--rotations", "0", "--best", "acc"]) == 0
+    assert list(_results(capsys.readouterr().out)) == ["acc"]
+    assert cli.main([*base, "--no-hard", "--rotations", "2", "model.dim_k=7"]) == 0
+    same = _results(capsys.readouterr().out)
+    assert same == {k: full[k] for k in ("acc", "rot_agree", "logit_drift")}
+    assert cli.main([*base, "--no-hard", "--rotations", "2", "dataset.num_points=32"]) == 0
+    assert _results(capsys.readouterr().out)["logit_drift"] != full["logit_drift"]
+
+
+def test_train_under_torchrun_is_data_parallel(tmp_path):
+    """`torchrun --nproc_per_node=2 -m rift_tpu_torch.cli train --device cpu`
+    joins a gloo group of 2 ranks and trains data-parallel: one metric log
+    (rank 0's), its checkpoints, and the epoch's loss of the global batches
+    within 1e-5 of the single-process run's."""
+    def run(ckpt, launcher):
+        args = ["train", "--preset", "tiny_smoke", "--device", "cpu", "--no-resume",
+                f"train.ckpt_dir={ckpt}", "optim.num_epochs=1", "train.steps_per_epoch=2",
+                "dataset.num_workers=0"]
+        out = subprocess.run([sys.executable, *launcher, "-m", "rift_tpu_torch.cli", *args],
+                             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+                             capture_output=True, text=True, timeout=180)
+        assert out.returncode == 0, out.stderr[-3000:]
+        with open(os.path.join(ckpt, "tiny_smoke.metrics.jsonl")) as f:
+            return out.stderr, [json.loads(line) for line in f]
+
+    log, dp = run(str(tmp_path / "dp"), ["-m", "torch.distributed.run", "--standalone",
+                                         "--nproc_per_node=2"])
+    assert "data-parallel over 2 ranks (gloo)" in log
+    _, single = run(str(tmp_path / "single"), [])
+    assert [r["split"] for r in dp] == [r["split"] for r in single] == ["train", "valid"]
+    assert dp[0]["loss"] == pytest.approx(single[0]["loss"], rel=1e-5, abs=0)
+    assert {"common.pt", "best_acc.pt"} <= set(os.listdir(tmp_path / "dp"))

@@ -1,8 +1,10 @@
-"""rift_tpu_torch's pair sources against rift_tpu's on the CPU: the
+"""rift_tpu_torch's data sources against rift_tpu's on the CPU: the
 synthetic indoor sequence (the ICL-NUIM analog), its adjacent-scan pairs
 and `get_pairs`' 'icl_nuim' mode, the h5 test pairs and the h5 sequence
 on files the tests write, and the `reg_icl_nuim` evaluation at a small
-size, stage by stage."""
+size, stage by stage; the ModelNet40 file loader on a tree the tests
+write (random and furthest-point sampling, its caches), and
+`ops/sampling.py`."""
 import dataclasses
 
 import jax
@@ -334,3 +336,148 @@ def test_picp_on_adjacent_room_scans_matches_reference(iterations):
     np.testing.assert_allclose(got["rre"].numpy(), np.asarray(want["rre"]), rtol=0, atol=0.1)
     np.testing.assert_allclose(got["rte"].numpy(), np.asarray(want["rte"]), rtol=0, atol=1e-3)
     assert bool((got["rre"] < start["rre"]).all())  # every pair moved toward its ground truth
+
+
+# ---- ModelNet40 files and furthest point sampling ----
+
+MN40_CLASSES = ("airplane", "night_stand", "cup")
+
+
+def _write_modelnet40(root, rng, points: int = 300) -> None:
+    """A modelnet40_normal_resampled tree: 3 classes (one with an
+    underscore in its name) x 2 items, item 0 of each class in the train
+    list and item 1 in the test list; rows x,y,z,nx,ny,nz."""
+    (root / "modelnet40_shape_names.txt").write_text("\n".join(MN40_CLASSES) + "\n")
+    train, test = [], []
+    for cls in MN40_CLASSES:
+        (root / cls).mkdir()
+        for i in (1, 2):
+            name = f"{cls}_{i:04d}"
+            pts = rng.randn(points, 3)
+            if i == 2:
+                pts[:40] = np.round(pts[:40])  # duplicates and equal distances: FPS ties
+            normals = rng.randn(points, 3)
+            normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+            np.savetxt(root / cls / f"{name}.txt", np.concatenate([pts, normals], 1),
+                       delimiter=",", fmt="%.6f")
+            (train if i == 1 else test).append(name)
+    (root / "modelnet40_train.txt").write_text("\n".join(train) + "\n")
+    (root / "modelnet40_test.txt").write_text("\n\n".join(test) + "\n")  # blank lines skipped
+
+
+@pytest.mark.parametrize("sample_method", ["random", "fps"])
+def test_modelnet40_files_equal_reference(tmp_path, rng, sample_method):
+    """The file loader on a tree the test writes: every split's batches
+    equal rift_tpu's, from the txt files, then again from the .npy and FPS
+    caches the first pass wrote (a second tree for the reference, so each
+    package writes and reads its own caches), and with cache_npy off."""
+    from rift_tpu.data.modelnet40 import ModelNet40 as JaxModelNet40
+    from rift_tpu.data.modelnet40 import ModelNet40Config as JaxModelNet40Config
+    from rift_tpu_torch.data.modelnet40 import ModelNet40, ModelNet40Config
+
+    ours_root, ref_root = tmp_path / "ours", tmp_path / "ref"
+    for root in (ours_root, ref_root):
+        root.mkdir()
+        _write_modelnet40(root, np.random.RandomState(0))
+    kwargs = dict(num_points=128, sample_method=sample_method, num_workers=2)
+    for cache_npy, passes in ((True, 2), (False, 1)):
+        for _ in range(passes):
+            for split in ("train", "valid", "test"):
+                ours = ModelNet40(ModelNet40Config(root=str(ours_root), cache_npy=cache_npy,
+                                                   **kwargs), split)
+                ref = JaxModelNet40(JaxModelNet40Config(root=str(ref_root),
+                                                        cache_npy=cache_npy, **kwargs), split)
+                assert len(ours) == len(ref) == 3
+                assert ours._items == [(str(ours_root / p[len(str(ref_root)) + 1:]), c)
+                                       for p, c in ref._items]
+                for seed in (0, 4):
+                    got = list(ours.batches(2, seed=seed, drop_last=False))
+                    want = list(ref.batches(2, seed=seed, drop_last=False))
+                    assert len(got) == len(want) == 2
+                    for (c1, l1), (c2, l2) in zip(got, want):
+                        assert c1.shape[1:] == (128, 6)
+                        np.testing.assert_array_equal(c1, c2)
+                        np.testing.assert_array_equal(l1, l2)
+    cached = sorted(p.name for p in (ours_root / "night_stand").iterdir())
+    fps = ["night_stand_0001.txt.fps128.npy", "night_stand_0002.txt.fps128.npy"]
+    assert cached == sorted(["night_stand_0001.txt", "night_stand_0001.txt.npy",
+                             "night_stand_0002.txt", "night_stand_0002.txt.npy"]
+                            + (fps if sample_method == "fps" else []))
+    assert cached == sorted(p.name for p in (ref_root / "night_stand").iterdir())
+    for name in cached:
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(ours_root / "night_stand" / name),
+                                          np.load(ref_root / "night_stand" / name))
+
+
+def test_modelnet40_fps_on_the_synthetic_split_and_the_hard_tier():
+    """sample_method='fps' on the synthetic split, and an occluded tier
+    (random sampling of the cut cloud), equal to the reference's."""
+    from rift_tpu.data.modelnet40 import ModelNet40 as JaxModelNet40
+    from rift_tpu.data.modelnet40 import ModelNet40Config as JaxModelNet40Config
+    from rift_tpu_torch.data.modelnet40 import ModelNet40, ModelNet40Config
+
+    for extra in ({}, {"occlusion": 0.2, "noise_sigma": 0.01}):
+        kwargs = dict(num_points=96, sample_method="fps", num_workers=0,
+                      synthetic_items={"train": 4, "valid": 2, "test": 2}, **extra)
+        ours = ModelNet40(ModelNet40Config(**kwargs), "test")
+        ref = JaxModelNet40(JaxModelNet40Config(**kwargs), "test")
+        for i in range(2):
+            a, b = ours.get(i, seed=3), ref.get(i, seed=3)
+            np.testing.assert_array_equal(a[0], b[0])
+            assert a[1] == b[1]
+
+
+def test_modelnet40_root_must_exist_and_sampling_be_known(tmp_path):
+    from rift_tpu_torch.data.modelnet40 import ModelNet40, ModelNet40Config
+
+    with pytest.raises(FileNotFoundError, match="synthetic"):
+        ModelNet40(ModelNet40Config(root=str(tmp_path / "missing")), "train")
+    with pytest.raises(ValueError, match="sample_method"):
+        ModelNet40(ModelNet40Config(sample_method="grid"), "train")
+
+
+@pytest.mark.parametrize("case", ["random", "grid_ties", "duplicates", "past_n"])
+def test_furthest_point_sample_equals_reference(rng, case):
+    """Indices equal to rift_tpu.ops.sampling's, and to the data loader's
+    numpy order (start 0), batched over two leading axes; ties (points on
+    a grid, duplicated points) go to the first maximum; past n samples the
+    order goes on as the reference's does."""
+    from rift_tpu.data.modelnet40 import _fps_order as j_fps_order
+    from rift_tpu.ops.sampling import furthest_point_sample as j_fps
+    from rift_tpu_torch.data.modelnet40 import _fps_order
+    from rift_tpu_torch.ops.sampling import furthest_point_sample
+
+    n, m = (40, 50) if case == "past_n" else (300, 120)
+    x = rng.randn(2, 3, n, 3).astype(np.float32)
+    if case == "grid_ties":
+        x = np.round(x * 2) / 2
+    elif case == "duplicates":
+        x[..., n // 2:, :] = x[..., :n - n // 2, :]
+    got = furthest_point_sample(torch.from_numpy(x), m)
+    assert got.shape == (2, 3, m) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_fps(jnp.asarray(x), m)))
+    start = furthest_point_sample(torch.from_numpy(x), m, start_idx=5)
+    np.testing.assert_array_equal(start.numpy(), np.asarray(j_fps(jnp.asarray(x), m, 5)))
+    flat = x.reshape(-1, n, 3)
+    for b in range(flat.shape[0]):
+        np.testing.assert_array_equal(_fps_order(flat[b], m), j_fps_order(flat[b], m))
+        np.testing.assert_array_equal(_fps_order(flat[b], m), got.reshape(-1, m)[b, :min(m, n)])
+
+
+def test_sampling_gather_and_random_choice(rng):
+    from rift_tpu.ops.sampling import gather as j_gather
+    from rift_tpu_torch.ops.sampling import gather, random_choice
+
+    feats = rng.randn(2, 50, 5).astype(np.float32)
+    idx = rng.randint(0, 50, (2, 7)).astype(np.int32)
+    np.testing.assert_array_equal(gather(torch.from_numpy(feats), torch.from_numpy(idx)).numpy(),
+                                  np.asarray(j_gather(jnp.asarray(feats), jnp.asarray(idx))))
+    gen = torch.Generator().manual_seed(0)
+    without = random_choice(gen, 20, 12)
+    assert without.shape == (12,) and len(set(without.tolist())) == 12
+    assert int(without.min()) >= 0 and int(without.max()) < 20
+    again = random_choice(torch.Generator().manual_seed(0), 20, 12)
+    assert torch.equal(without, again)
+    repeated = random_choice(gen, 5, 30)
+    assert repeated.shape == (30,) and int(repeated.max()) < 5 and len(set(repeated.tolist())) <= 5

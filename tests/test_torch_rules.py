@@ -1,4 +1,5 @@
-"""The port's ground rules: no JAX anywhere in rift_tpu_torch,
+"""The port's ground rules: no JAX anywhere in rift_tpu_torch (its
+`parallel/` package and the imports inside functions included),
 chip_smoke.py or scatter_ab.py; h5py (not on the card's machine) only
 inside the two h5 readers; entry points default to the card and raise
 without one; chip_smoke.py fails where there is no card or no
@@ -42,6 +43,28 @@ def test_port_imports_no_jax_and_nothing_of_rift_tpu():
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_roots(p)
            if m in FORBIDDEN]
     assert not bad, bad
+
+
+NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops.py",
+               "ops/sampling.py", "data/modelnet40.py", "train/loop.py", "cli.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_data_parallel_and_sampling_modules_import_no_jax(module):
+    """The rule above covers `parallel/` and the modules of the classifier's
+    workflow, with the imports inside their functions (`ast.walk` reaches
+    every node, not only the top level)."""
+    path = os.path.join(ROOT, "rift_tpu_torch", module)
+    assert path in _port_files()
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots
+
+
+def test_the_import_rule_sees_function_local_imports(tmp_path):
+    path = tmp_path / "m.py"
+    path.write_text("import os\n\ndef f():\n    if True:\n        from jax import numpy\n"
+                    "    import rift_tpu.ops as o\n")
+    assert set(_imported_roots(str(path))) == {"os", "jax", "rift_tpu"}
 
 
 def _h5py_imports(path):

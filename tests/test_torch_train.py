@@ -36,8 +36,8 @@ from rift_tpu_torch.ops import spherical
 from rift_tpu_torch.train import (build_model, evaluate_classification, get_config,
                                   registration_probe, train)
 from rift_tpu_torch.train.checkpoint import CheckpointManager
-from rift_tpu_torch.train.steps import (TrainState, clip_by_global_norm, make_optimizer,
-                                        train_step)
+from rift_tpu_torch.train.steps import (TrainState, clip_by_global_norm, forward_backward,
+                                        make_optimizer, train_step)
 from rift_tpu_torch.weights import from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -174,11 +174,9 @@ def test_synthetic_modelnet40_matches_reference():
 
 
 # Fields of the flagship's meta JSON the port does not have, each with the
-# value that makes it change nothing in a one-card run.
+# value that makes it change nothing.
 UNREAD_FIELDS = {
-    "train": {"log_every": 10,          # logging cadence only
-              "data_parallel": True},   # one card: the one step
-    "dataset": {"cache_npy": True},     # read only by the file loader (root set)
+    "train": {"log_every": 10},         # logging cadence only
 }
 
 
@@ -469,8 +467,7 @@ def test_update_best_tracks_registration_errors_as_lower_is_better(tmp_path):
 
 def test_train_with_the_probe_saves_its_best_checkpoints(tmp_path):
     """reg_probe_interval = 1: every validation epoch also runs the probe,
-    whose metrics are logged flat and tracked as best_reg_*; half_precision
-    still raises."""
+    whose metrics are logged flat and tracked as best_reg_*."""
     cfg = get_config("tiny_smoke")
     cfg.train.ckpt_dir = str(tmp_path)
     cfg.train.steps_per_epoch = 1
@@ -485,6 +482,142 @@ def test_train_with_the_probe_saves_its_best_checkpoints(tmp_path):
         valid = [json.loads(line) for line in f if '"valid"' in line]
     assert len(valid) == 2 and all(np.isfinite(r["reg_rre"]) for r in valid)
     assert out["best"]["reg_rre"] == min(r["reg_rre"] for r in valid)
-    cfg.train.half_precision = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        train(cfg, device="cpu")
+
+
+# The bf16 model (model.dtype='bfloat16', the reference's `dtype` model):
+# conv and MLP stacks in bf16, f32 parameters, f32 Adam moments, an f32
+# head. At tiny_smoke the bf16 gradients are far from the exact ones in
+# both packages: on the first step from the reference's init, rift_tpu's
+# bf16 gradients miss the f64 gradient by 0.05-0.48 of their norm (its f32
+# ones by ~1e-3), because BatchNorm over these few, ill-conditioned rows
+# amplifies bf16's 2^-9 rounding. So the port's bf16 gradients are held to
+# be as accurate as the reference's: per parameter whose f64 gradient has
+# a norm of at least BF16_FLOOR of the largest, |port - f64| within
+# BF16_RATIO times |reference - f64| plus BF16_SLACK of the f64 norm
+# (measured ratios 0.80-1.04); below the floor, within BF16_ZERO_TOL of the
+# largest norm (measured up to 0.011). The loss within BF16_LOSS_RTOL of
+# the reference's (measured 1.1e-3 on the first step, 6.0e-4 for train()'s
+# epoch).
+BF16_FLOOR, BF16_RATIO, BF16_SLACK, BF16_ZERO_TOL = 5e-2, 1.5, 0.05, 0.05
+BF16_LOSS_RTOL = 1e-2
+
+
+def _bf16_configs():
+    cfg, jcfg = _tiny_configs()
+    cfg.model.dtype = jcfg.model.dtype = "bfloat16"
+    return cfg, jcfg
+
+
+def _f64_grads(cfg, weights, clouds, labels) -> dict:
+    """The exact step's gradients: the f32 model in f64, dropout off."""
+    model = build_model(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                           dtype=None)))
+    model.load_state_dict(weights)
+    model.dropout = 0.0
+    model.double()
+    state = TrainState(model, *make_optimizer(model, cfg, 1))
+    forward_backward(state, torch.from_numpy(clouds).double(), torch.from_numpy(labels))
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_bf16_train_step_matches_make_train_step():
+    """One bf16 step from the reference's init, dropout off, against
+    rift_tpu's bf16 `make_train_step`: the loss, the gradients by the rule
+    above, and f32 parameters and Adam moments after the update."""
+    cfg, jcfg = _bf16_configs()
+    clouds, labels = next(ModelNet40(cfg.dataset, "train").batches(cfg.train.batch_size, seed=0))
+    jmodel = jax_build_model(jcfg)
+    jstate, tx = jax_create_state(jmodel, jcfg, jnp.asarray(clouds), 8)
+    weights = from_flax(_np(jstate.params), _np(jstate.batch_stats))
+
+    @jax.jit
+    def jax_grads(params, stats, x, y):
+        def loss_fn(p):
+            out, _ = jmodel.apply({"params": p, "batch_stats": stats}, x, train=True,
+                                  mutable=["batch_stats"])
+            return jax_cross_entropy(out, y), out
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    with fnn.intercept_methods(_no_dropout):
+        (want_loss, logits), jg = jax_grads(jstate.params, jstate.batch_stats,
+                                            jnp.asarray(clouds), jnp.asarray(labels))
+    assert logits.dtype == jnp.float32  # the reference's head promotes to f32
+    ref = from_flax(_np(jg), _np(jstate.batch_stats))
+    exact = _f64_grads(cfg, weights, clouds, labels)
+
+    model = build_model(cfg)
+    model.load_state_dict(weights)
+    model.dropout = 0.0
+    state = TrainState(model, *make_optimizer(model, cfg, 8))
+    out = train_step(state, torch.from_numpy(clouds), torch.from_numpy(labels))
+    assert out["loss"].dtype == torch.float32
+    assert abs(float(out["loss"]) - float(want_loss)) <= BF16_LOSS_RTOL * float(want_loss)
+    top = max(float(g.norm()) for g in exact.values())
+    held = 0
+    for name, p in model.named_parameters():
+        want = exact[name]
+        err = float((p.grad.double() - want).norm())
+        if float(want.norm()) >= BF16_FLOOR * top:
+            ref_err = float((ref[name].double() - want).norm())
+            assert err <= BF16_RATIO * ref_err + BF16_SLACK * float(want.norm()), \
+                (name, err / float(want.norm()), ref_err / float(want.norm()))
+            held += 1
+        else:
+            assert err <= BF16_ZERO_TOL * top, (name, err / top)
+        assert p.dtype == torch.float32
+        moments = state.optimizer.state[p]
+        assert moments["exp_avg"].dtype == moments["exp_avg_sq"].dtype == torch.float32
+    assert held >= 10
+
+
+def test_bf16_train_matches_reference_train(tmp_path, monkeypatch):
+    """train() of the bf16 tiny_smoke preset, one epoch of 2 steps from the
+    reference's init with dropout off, against rift_tpu's train(): the
+    epoch's mean train loss within BF16_LOSS_RTOL (each step's update
+    differs by Adam's sign of the bf16 rounding, up to 2·lr an element),
+    the validation accuracy equal, and the checkpoint's snapshot a bf16
+    model."""
+    cfg, jcfg = _bf16_configs()
+    for c, sub in ((cfg, "port"), (jcfg, "ref")):
+        c.train.ckpt_dir = str(tmp_path / sub)
+        c.train.steps_per_epoch = 2
+        c.optim.num_epochs = 1
+    sample = next(ModelNet40(cfg.dataset, "train").batches(cfg.train.batch_size, seed=0))[0]
+    jstate, _ = jax_create_state(jax_build_model(jcfg), jcfg, jnp.asarray(sample), 2)
+    weights = from_flax(_np(jstate.params), _np(jstate.batch_stats))
+    create_state = t_loop.create_state
+
+    def from_reference_init(model, *args, **kwargs):
+        model.dropout = 0.0
+        state = create_state(model, *args, **kwargs)
+        state.model.load_state_dict(weights)
+        return state
+
+    monkeypatch.setattr(t_loop, "create_state", from_reference_init)
+    got = train(cfg, device="cpu")
+    with fnn.intercept_methods(_no_dropout):
+        want = j_loop.train(jcfg, resume=False)
+    assert abs(got["loss"] - want["loss"]) <= BF16_LOSS_RTOL * want["loss"], \
+        (got["loss"], want["loss"])
+    assert got["best"]["acc"] == want["best"]["acc"]
+    meta = CheckpointManager(cfg.train.ckpt_dir).load_meta()
+    assert meta["config"]["model"]["dtype"] == "bfloat16"
+    assert all(v.dtype == torch.float32 for v in got["state"].model.state_dict().values())
+
+
+def test_half_precision_trains_exactly_as_f32(tmp_path):
+    """train.half_precision is read by nothing, as in the reference (its
+    only mention is the field, rift_tpu/train/config.py:72): a run with it
+    set equals the f32 run bit for bit."""
+    runs = []
+    for flag in (False, True):
+        cfg = get_config("tiny_smoke")
+        cfg.train.ckpt_dir = str(tmp_path / str(flag))
+        cfg.train.steps_per_epoch = 2
+        cfg.optim.num_epochs = 1
+        cfg.train.half_precision = flag
+        runs.append(train(cfg, device="cpu"))
+    assert runs[0]["loss"] == runs[1]["loss"]
+    for (k, a), b in zip(runs[0]["state"].model.state_dict().items(),
+                         runs[1]["state"].model.state_dict().values()):
+        assert a.dtype == torch.float32 and torch.equal(a, b), k
