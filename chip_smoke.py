@@ -8,8 +8,10 @@ flip hypotheses, TEASER), the reference's recommended reg_noise preset
 line, its reg_icl_nuim preset on the indoor sequence's adjacent scans;
 then the classifier's own workflow: bf16 training of the reference's
 default preset through the command line, `evaluate-cls` of its
-checkpoint, and the data-parallel step on a one-rank NCCL group; and
-compare every path with its CPU run.
+checkpoint, and the data-parallel step on a one-rank NCCL group; then
+ShapeNet part segmentation training through the command line at the
+`shapenet_seg` preset's full width; and compare every path with its CPU
+run.
 
     python3 chip_smoke.py
 
@@ -117,6 +119,15 @@ Phases (each prints one line with its wall time):
                train_step, one step of the f32 flagship at 16 x 1024:
                loss, accuracy, parameters and BN statistics bit for bit;
                both steps' ms; the group destroyed.
+ 17. train-seg — `cli.main(["train-seg", "--preset", "shapenet_seg", ...])`
+               at the preset's full width (SEG_OVERRIDES: one epoch of 4
+               steps of 8 x 2048 on the synthetic split, the 32 test items
+               evaluated as one batch): K2, K3, K4 launched twice a step,
+               K2, K3 twice an eval forward, best_iou and common written;
+               then 10 steps on one fixed batch (ms/step, clouds/s,
+               points/s, the split, a profiled step, peak memory, the loss
+               falling), the eval forward at 32 x 2048 timed, card vs CPU
+               on 2 clouds (logits, one step), and K2/K3/K4 at its shapes.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -399,6 +410,29 @@ CLS_LOGIT_TOL = 5e-2
 # The data-parallel step on a one-rank NCCL group: bit-equal to the plain
 # step, then DP_STEPS of each in turns for their ms/step.
 DP_STEPS = 5
+# Part segmentation: `cli train-seg --preset shapenet_seg` at the preset's
+# full width (8 clouds x 2048 points, 22 channels, blocks 64/128 spherical
+# r = 32 dgcnn_kernel without SE or coefficient, then 256 and 512; local
+# PPF with k = 128; 50 parts) on the synthetic ShapeNet split (the
+# reference's 128 train / 32 test items; the command line passes no data
+# directory), cut to one epoch of SEG_LOOP_STEPS steps (SEG_OVERRIDES);
+# its evaluation runs the 32 test items as one eval_batch_size batch. K2,
+# K3, K4 launched STEP_LAUNCHES a step and K2, K3 EVAL_LAUNCHES an eval
+# forward, as in the classifier (two PVConv blocks). Then TRAIN_STEPS
+# steps on one fixed batch of its seeded model (as in 8), SEG_EVAL_CALLS
+# timed eval forwards at 32 x 2048, and,
+# card vs CPU on SEG_PARITY_CLOUDS test clouds from the same seeded
+# weights: the eval logits (at most SEG_LOGIT_SHARE of the points differ by
+# more than SEG_LOGIT_TOL of the largest logit — a ball-query radius test
+# or a voxel boundary one ulp apart moves single points —, the median
+# point within SEG_LOGIT_MEDIAN, the argmax equal at SEG_ARGMAX_SHARE of
+# the points) and one train step, dropout off, by train_parity's rule.
+SEG_PRESET = "shapenet_seg"
+SEG_BATCH, SEG_POINTS, SEG_LOOP_STEPS = 8, 2048, 4
+SEG_OVERRIDES = [f"train.steps_per_epoch={SEG_LOOP_STEPS}", "optim.num_epochs=1"]
+SEG_EVAL_CALLS = 5
+SEG_PARITY_CLOUDS = 2
+SEG_LOGIT_TOL, SEG_LOGIT_SHARE, SEG_LOGIT_MEDIAN, SEG_ARGMAX_SHARE = 1e-3, 0.01, 1e-5, 0.99
 
 
 def tls_cost(transform, src, dst, mask, noise_bound: float):
@@ -2165,32 +2199,43 @@ def train_phase(wrappers: dict) -> dict:
 
 
 def fixed_batch_steps(cfg, full, wrappers: dict) -> dict:
-    """TRAIN_STEPS train steps of `cfg`'s model from its seeded init, with
-    the optimizer and schedule of the preset `full` (its whole split), on
-    one fixed batch of TRAIN_BATCH clouds of cfg's train split: finite
-    losses, K2, K3 and K4 launched STEP_LAUNCHES times a step, the last 3
-    losses below the first 3; ms/step (median of steps 2-TRAIN_STEPS),
-    clouds/s, peak memory, one more step split by CUDA events into
-    forward, backward and optimizer, and a profiled step."""
+    """TRAIN_STEPS train steps of `cfg`'s classifier from its seeded init,
+    with the optimizer and schedule of the preset `full` (its whole split),
+    on one fixed batch of TRAIN_BATCH clouds of cfg's train split
+    (`steps_on_batch`)."""
     import torch
 
     from rift_tpu_torch.data.modelnet40 import ModelNet40
-    from rift_tpu_torch.ops.precision import f32_geometry
     from rift_tpu_torch.train import build_model
-    from rift_tpu_torch.train.steps import create_state, cross_entropy, train_step
+    from rift_tpu_torch.train.steps import create_state
 
     dev = torch.device("cuda")
     steps_per_epoch = full.dataset.synthetic_items["train"] // full.train.batch_size
     state = create_state(build_model(cfg), full, steps_per_epoch, dev, seed=cfg.seed)
     clouds, labels = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
-    clouds = torch.as_tensor(clouds, device=dev)
-    labels = torch.as_tensor(labels, device=dev)
-    gen = torch.Generator(device=dev)
+    return steps_on_batch(state, torch.as_tensor(clouds, device=dev),
+                          torch.as_tensor(labels, device=dev), wrappers, cfg.seed,
+                          STEP_LAUNCHES)
+
+
+def steps_on_batch(state, clouds, labels, wrappers: dict, seed: int,
+                   step_launches: dict) -> dict:
+    """TRAIN_STEPS train steps of `state` on one batch on the card: finite
+    losses, each kernel launched `step_launches` times a step, the last 3
+    losses below the first 3; ms/step (median of steps 2-TRAIN_STEPS),
+    clouds/s, peak memory, one more step split by CUDA events into forward,
+    backward and optimizer, and a profiled step."""
+    import torch
+
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.train.steps import cross_entropy, train_step
+
+    gen = torch.Generator(device=clouds.device)
     losses, times, per_step = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_STEPS):
         before = read_counts(wrappers)
-        gen.manual_seed(cfg.seed * 1_000_003 + state.step)
+        gen.manual_seed(seed * 1_000_003 + state.step)
         t1 = time.perf_counter()
         metrics = train_step(state, clouds, labels, gen)
         torch.cuda.synchronize()
@@ -2202,9 +2247,9 @@ def fixed_batch_steps(cfg, full, wrappers: dict) -> dict:
     launches = {}
     for name in wrappers:
         fixed = [d[name] for d in per_step]
-        if any(d != STEP_LAUNCHES.get(name, 0) for d in fixed):
+        if any(d != step_launches.get(name, 0) for d in fixed):
             fail(f"fixed-batch steps: {name} launched {fixed} times per step, expected "
-                 f"{STEP_LAUNCHES.get(name, 0)}")
+                 f"{step_launches.get(name, 0)}")
         launches[name] = sum(fixed)
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
@@ -2231,7 +2276,7 @@ def fixed_batch_steps(cfg, full, wrappers: dict) -> dict:
     split = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
     profile = profile_step(lambda: train_step(state, clouds, labels, gen))
     ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
-    return dict(ms_per_step=ms, clouds_per_s=TRAIN_BATCH / ms * 1e3, losses=losses,
+    return dict(ms_per_step=ms, clouds_per_s=clouds.shape[0] / ms * 1e3, losses=losses,
                 split_ms=split, peak_gb=peak_gb, launches=launches, profile=profile)
 
 
@@ -2268,14 +2313,13 @@ def profile_step(step) -> dict:
 
 
 def train_parity() -> str:
-    """One step on PARITY_CLOUDS clouds from the same weights, dropout off,
-    on the card and on the CPU. Prints a line per parameter below the
-    norm floor."""
+    """One step of the flagship on PARITY_CLOUDS clouds from the same
+    weights, dropout off, on the card and on the CPU (`step_parity`)."""
     import torch
 
     from rift_tpu_torch.data.modelnet40 import ModelNet40
     from rift_tpu_torch.train import build_model
-    from rift_tpu_torch.train.steps import TrainState, create_state, make_optimizer, train_step
+    from rift_tpu_torch.train.steps import TrainState, create_state, make_optimizer
 
     cfg = train_config()
     clouds, labels = next(ModelNet40(cfg.dataset, "valid").batches(PARITY_CLOUDS, seed=1))
@@ -2284,6 +2328,18 @@ def train_parity() -> str:
     cpu.model.dropout = 0.0
     card_model = copy.deepcopy(cpu.model).cuda()
     card = TrainState(card_model, *make_optimizer(card_model, cfg, TRAIN_LOOP_STEPS))
+    return step_parity(cpu, card, clouds, labels, f"{PARITY_CLOUDS} clouds x {NUM_POINTS}")
+
+
+def step_parity(cpu, card, clouds, labels, what: str) -> str:
+    """One train_step of the CPU state `cpu` and of its copy `card` on the
+    card, on the batch (clouds, labels) (numpy): the loss, the gradients
+    (GRAD_COS above GRAD_NORM_FLOOR, GRAD_DIFF_TOL below, a line printed per
+    parameter below the floor) and the BN statistics (STATS_RTOL)."""
+    import torch
+
+    from rift_tpu_torch.train.steps import train_step
+
     out_g = train_step(card, torch.as_tensor(clouds, device="cuda"),
                        torch.as_tensor(labels, device="cuda"))
     out_c = train_step(cpu, torch.as_tensor(clouds), torch.as_tensor(labels))
@@ -2311,7 +2367,7 @@ def train_parity() -> str:
         if err > worst_stat:
             worst_stat, worst_stat_name = err, name
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    msg = (f"{PARITY_CLOUDS} clouds x {NUM_POINTS}: loss card {loss_g:.6f} CPU {loss_c:.6f} "
+    msg = (f"{what}: loss card {loss_g:.6f} CPU {loss_c:.6f} "
            f"(rel {loss_rel:.3e}, tol {LOSS_RTOL:g}); gradients (norms relative to the "
            f"largest parameter gradient's): min cosine {worst_cos[0]:.6f} at {worst_cos[3]} "
            f"over the {len(directed)} with norm >= {GRAD_NORM_FLOOR:g} (tol {GRAD_COS}); "
@@ -2349,9 +2405,11 @@ def voxel_kernel_rows(model, coords, k4: bool) -> dict:
                                               spherical_corner_weights,
                                               spherical_voxel_indices)
 
-    dtype = model.dtype or torch.float32
+    from rift_tpu_torch.nn import PVConv
+
+    dtype = getattr(model, "dtype", None) or torch.float32
     size = torch.tensor([], dtype=dtype).element_size()
-    blocks = [model.layers[name] for name in model._backbone if name.startswith("PVConv")]
+    blocks = [m for m in model.modules() if isinstance(m, PVConv)]
     r = blocks[0].resolution
     s = r ** 3
     with torch.no_grad():
@@ -2759,6 +2817,127 @@ def dp_phase(wrappers: dict) -> dict:
         dist.destroy_process_group()
 
 
+def seg_phase(wrappers: dict) -> dict:
+    """`cli train-seg` of SEG_PRESET on the card with SEG_OVERRIDES (its
+    checkpoints in a temp dir), then the fixed-batch steps of its seeded
+    model, the eval forward's clouds/s and launches at eval_batch_size,
+    card-vs-CPU parity of logits and of one step, and K2/K3/K4 at its
+    shapes."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rift_tpu_torch import cli
+    from rift_tpu_torch.data.shapenet import ShapeNetConfig, get_shapenet
+    from rift_tpu_torch.train import apply_overrides, build_seg_model, get_config
+    from rift_tpu_torch.train.checkpoint import CheckpointManager
+    from rift_tpu_torch.train.steps import create_state, eval_step
+
+    cfg = apply_overrides(get_config(SEG_PRESET), SEG_OVERRIDES)
+    data = get_shapenet(ShapeNetConfig(num_points=cfg.dataset.num_points))
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(["train-seg", "--preset", SEG_PRESET, "--device", "cuda",
+                             f"train.ckpt_dir={ckpt_dir}", *SEG_OVERRIDES])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+        launches = read_counts(wrappers)
+        if code != 0:
+            fail(f"cli train-seg exited {code}")
+        eval_batches = -(-len(data["test"]) // cfg.train.eval_batch_size)
+        for name in wrappers:
+            want = (STEP_LAUNCHES.get(name, 0) * SEG_LOOP_STEPS
+                    + EVAL_LAUNCHES.get(name, 0) * eval_batches)
+            if launches[name] != want:
+                fail(f"cli train-seg: {name} launched {launches[name]} times, expected {want}")
+        meta = CheckpointManager(ckpt_dir).load_meta()
+        with open(os.path.join(ckpt_dir, f"{SEG_PRESET}.metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        if meta is None or meta["config"]["name"] != SEG_PRESET or len(log) != 1 \
+                or log[0]["step"] != SEG_LOOP_STEPS or not math.isfinite(log[0]["loss"]) \
+                or not 0.0 <= log[0]["iou"] <= 1.0 \
+                or not os.path.isfile(os.path.join(ckpt_dir, "best_iou.pt")) \
+                or not os.path.isfile(os.path.join(ckpt_dir, "common.pt")):
+            fail(f"cli train-seg: meta {meta and meta['best']}, log {log}, files "
+                 f"{sorted(os.listdir(ckpt_dir))}")
+
+    dev = torch.device("cuda")
+    steps_per_epoch = len(data["train"]) // cfg.train.batch_size  # the preset's schedule
+    state = create_state(build_seg_model(cfg), get_config(SEG_PRESET), steps_per_epoch, dev,
+                         seed=cfg.seed)
+    clouds, labels = next(data["train"].batches(SEG_BATCH, seed=0))
+    clouds = torch.as_tensor(clouds, device=dev)
+    fixed = steps_on_batch(state, clouds, torch.as_tensor(labels, device=dev), wrappers,
+                           cfg.seed, STEP_LAUNCHES)
+    for name in wrappers:
+        launches[name] += fixed["launches"][name]
+
+    test, _ = next(data["test"].batches(cfg.train.eval_batch_size, seed=0, shuffle=False,
+                                        drop_last=False))
+    test = torch.as_tensor(test, device=dev)
+    eval_step(state, test)
+    torch.cuda.synchronize()
+    before = read_counts(wrappers)
+    times = []
+    for _ in range(SEG_EVAL_CALLS):
+        t1 = time.perf_counter()
+        logits = eval_step(state, test)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    after = read_counts(wrappers)
+    per_forward = {k: (after[k] - before[k]) / SEG_EVAL_CALLS for k in after}
+    for name in wrappers:
+        if per_forward[name] != EVAL_LAUNCHES.get(name, 0):
+            fail(f"train-seg eval forward: {name} launched {per_forward[name]} times a "
+                 f"forward, expected {EVAL_LAUNCHES.get(name, 0)}")
+    if tuple(logits.shape) != (test.shape[0], SEG_POINTS, 50) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"train-seg eval logits: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    eval_ms = sorted(times)[len(times) // 2] * 1e3
+    rows = voxel_kernel_rows(state.model, clouds[..., :3], k4=True)
+    return dict(fixed, loop_s=loop_s, launches=launches, log=log[0], best=meta["best"],
+                eval_ms=eval_ms, eval_clouds=test.shape[0], test_items=len(data["test"]),
+                per_forward=per_forward,
+                kernels=rows, parity=seg_parity(cfg, data["test"]))
+
+
+def seg_parity(cfg, test) -> str:
+    """The segmentation model with seeded weights on SEG_PARITY_CLOUDS test
+    clouds, card vs CPU: the eval logits (SEG_LOGIT_* rules) and one train
+    step, dropout off (`step_parity`)."""
+    import torch
+
+    from rift_tpu_torch.train import build_seg_model
+    from rift_tpu_torch.train.steps import TrainState, eval_step, make_optimizer
+
+    clouds, labels = next(test.batches(SEG_PARITY_CLOUDS, seed=1, shuffle=False))
+    cpu_model = seeded_model(2, build_seg_model(cfg))
+    cpu_model.dropout = 0.0
+    card_model = copy.deepcopy(cpu_model).cuda()
+    cpu = TrainState(cpu_model, *make_optimizer(cpu_model, cfg, SEG_LOOP_STEPS))
+    card = TrainState(card_model, *make_optimizer(card_model, cfg, SEG_LOOP_STEPS))
+    got = eval_step(card, torch.as_tensor(clouds, device="cuda")).cpu().double()
+    want = eval_step(cpu, torch.as_tensor(clouds)).double()
+    err = (got - want).abs().amax(-1) / want.abs().max()
+    share = float((err > SEG_LOGIT_TOL).double().mean())
+    median = float(err.median())
+    agree = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    msg = (f"eval logits of {SEG_PARITY_CLOUDS} clouds x {SEG_POINTS}: max |card - CPU| "
+           f"{float(err.max()):.3e} of the largest logit, {share:.4f} of the points above "
+           f"{SEG_LOGIT_TOL:g} (tol {SEG_LOGIT_SHARE}), median {median:.3e} (tol "
+           f"{SEG_LOGIT_MEDIAN:g}), argmax equal at {agree:.4f} (tol {SEG_ARGMAX_SHARE})")
+    if share > SEG_LOGIT_SHARE or median > SEG_LOGIT_MEDIAN or agree < SEG_ARGMAX_SHARE:
+        fail("train-seg parity: " + msg)
+    return msg + "; one step, " + step_parity(cpu, card, clouds, labels,
+                                               f"{SEG_PARITY_CLOUDS} clouds x {SEG_POINTS}")
+
+
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
     """The result lines of a reg_phase run of `preset`."""
     res, ev = rg["results"], rg["evaluate"]
@@ -2962,7 +3141,26 @@ def main() -> int:
     phase("train dp", t0, f"loss {dp['loss']:.6f}, accuracy, and the {dp['tensors']} "
                           f"parameters and buffers bit-equal to train_step's; launches "
                           f"{dp['launches']}; group destroyed")
-    for path, res in (("train_bf16", bf), ("evaluate_cls", ce)):
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sg = seg_phase(wrappers)
+    print(f"train-seg: {smi}: {SEG_PRESET} (cli train-seg, {SEG_LOOP_STEPS} steps + "
+          f"evaluation of the {sg['test_items']} test items): whole call "
+          f"{sg['loop_s']:.2f} s, epoch loss {sg['log']['loss']:.4f}, best mIoU "
+          f"{sg['best']['iou']:.4f} (seeded weights, {SEG_LOOP_STEPS} steps: information "
+          f"only); fixed batch {sg['ms_per_step']:.2f} "
+          f"ms/step (median of steps 2-{TRAIN_STEPS}), {sg['clouds_per_s']:.2f} clouds/s, "
+          f"{sg['clouds_per_s'] * SEG_POINTS:.0f} points/s at {SEG_BATCH} x {SEG_POINTS}; "
+          f"forward {sg['split_ms'][0]:.2f} ms, backward {sg['split_ms'][1]:.2f} ms, "
+          f"optimizer {sg['split_ms'][2]:.2f} ms; peak {sg['peak_gb']:.2f} GB; eval forward "
+          f"{sg['eval_ms']:.2f} ms at {sg['eval_clouds']} x {SEG_POINTS} "
+          f"({sg['eval_clouds'] / sg['eval_ms'] * 1e3:.2f} clouds/s)", flush=True)
+    print(f"train-seg profile (one step): {json.dumps(sg['profile'])}", flush=True)
+    phase("train-seg", t0, f"fixed-batch losses {short(sg['losses'])}; launches "
+                           f"{sg['launches']}, {sg['per_forward']} an eval forward; parity: "
+                           f"{sg['parity']}")
+    for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg)):
         for name, rows in res["kernels"].items():
             report[name][path] = rows
 
@@ -2970,7 +3168,7 @@ def main() -> int:
              "train": tr["launches"], "evaluate": ev["launches"],
              "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"],
              "train_bf16": bf["launches"], "evaluate_cls": ce["launches"],
-             "train_dp": dp["launches"]}
+             "train_dp": dp["launches"], "train_seg": sg["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -2990,7 +3188,7 @@ def main() -> int:
                                    "degenerate", "other_r", "bisection_bound_ms",
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
-                                   "evaluate_cls")
+                                   "evaluate_cls", "train_seg")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,16 +7,19 @@
       [--best METRIC] [--untrained] [a.b=v ...]
   python -m rift_tpu_torch.cli evaluate-cls --preset mn40_sph_dg [--ckpt DIR] \
       [--best METRIC] [--rotations K] [--no-hard] [--sweep] [dataset.a=v ...]
+  python -m rift_tpu_torch.cli train-seg --preset shapenet_seg [a.b=v ...]
 
-`train`, `evaluate` and `evaluate-cls` run on the CUDA card (`--device
-cuda`, the default, which fails without one) or, when asked, on the CPU
-with the kernels' plain versions (`--device cpu`). `a.b=v` overrides set
-preset fields (`train/config.py:apply_overrides`). Under torchrun, `train`
-joins the process group of its environment (NCCL between cards, gloo with
-`--device cpu`) and trains data-parallel (`train.data_parallel`). The
-reference's method sweep (`evaluate --methods`), `map-sequence` and
-`train-seg` are not ported yet and exit with the ROADMAP item that ports
-them.
+`train`, `evaluate`, `evaluate-cls` and `train-seg` run on the CUDA card
+(`--device cuda`, the default, which fails without one) or, when asked,
+on the CPU with the kernels' plain versions (`--device cpu`). `a.b=v`
+overrides set preset fields (`train/config.py:apply_overrides`). Under
+torchrun, `train` and `train-seg` join the process group of their
+environment (NCCL between cards, gloo with `--device cpu`) and train
+data-parallel (`train.data_parallel`). `train-seg` resumes from `common`
+in `train.ckpt_dir`, as the reference's does, and trains on the synthetic
+ShapeNet split (the reference's command line passes no data directory).
+The reference's method sweep (`evaluate --methods`) and `map-sequence`
+are not ported yet and exit with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -28,11 +31,11 @@ import torch.distributed as dist
 
 from .parallel import initialize_multihost
 from .train import (apply_overrides, evaluate_classification_ckpt, evaluate_registration,
-                    get_config, presets)
+                    get_config, presets, train_segmentation)
 from .train import train as run_train
 
 # Not ported yet: (subcommand or option, ROADMAP item).
-NOT_PORTED = {"--methods": 10, "map-sequence": 10, "train-seg": 10}
+NOT_PORTED = {"--methods": 10, "map-sequence": 10}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,11 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="accuracy at each corruption level and its mean")
     p_ecls.add_argument("overrides", nargs="*")
 
-    for name, preset in (("map-sequence", "reg_icl_nuim_teaserpp_cu_dg"),
-                         ("train-seg", "shapenet_seg")):
-        p = sub.add_parser(name, parents=[device],
-                           help=f"not ported yet (ROADMAP item {NOT_PORTED[name]})")
-        p.add_argument("--preset", default=preset)
+    p_seg = sub.add_parser("train-seg", parents=[device], help="ShapeNet part segmentation")
+    p_seg.add_argument("--preset", default="shapenet_seg")
+    p_seg.add_argument("overrides", nargs="*")
+
+    p_map = sub.add_parser("map-sequence", parents=[device],
+                           help=f"not ported yet (ROADMAP item {NOT_PORTED['map-sequence']})")
+    p_map.add_argument("--preset", default="reg_icl_nuim_teaserpp_cu_dg")
 
     sub.add_parser("presets", help="list experiment presets")
     return parser
@@ -101,10 +106,13 @@ def main(argv: list[str] | None = None) -> int:
 
     config = get_config(args.preset)
     apply_overrides(config, args.overrides)
-    if args.command == "train":
+    if args.command in ("train", "train-seg"):
         joined = not dist.is_initialized() and initialize_multihost(args.device) is not None
         try:
-            run_train(config, resume=not args.no_resume, device=args.device)
+            if args.command == "train":
+                run_train(config, resume=not args.no_resume, device=args.device)
+            else:
+                train_segmentation(config, device=args.device)
         finally:
             if joined:
                 dist.destroy_process_group()

@@ -1,7 +1,9 @@
 """Data: numpy registration pairs (synthetic, the indoor sequence's
-adjacent scans, the h5 test files), the synthetic indoor sequence and
-the synthetic ModelNet40 split (copies of the reference's)."""
+adjacent scans, the h5 test files), the synthetic indoor sequence, the
+ModelNet40 split and the ShapeNet part segmentation split (copies of the
+reference's)."""
 from .modelnet40 import ModelNet40, ModelNet40Config, get_datasets  # noqa: F401
+from .shapenet import ShapeNet, ShapeNetConfig, get_shapenet  # noqa: F401
 from .sequences import (SequenceConfig, SyntheticSequence, get_sequence,  # noqa: F401
                         make_room_scene, make_trajectory)
 from .synthetic_pairs import (H5TestPairs, PairBatch, SequencePairs,  # noqa: F401

@@ -4,7 +4,11 @@
 Ported: centring; the 'change_coords' preprocess (`lrf_kind` 'pca' or
 'reference', or a basis given to `forward` as `lrf`), with
 `extra_feature_channels=4` appending the global PPF of
-each point (features [new_coords, global_ppf], 7 channels);
+each point (features [new_coords, global_ppf], 7 channels); the other
+preprocesses of the reference (`invariant_features`): 'ppf' (the global
+PPF, 4 channels), 'new_ppf' (it and the median pairwise azimuth, 5),
+'pca' (`pca_align`, 3) and None (the raw inputs, `in_channels` of them:
+flax reads the width from the input, a torch model is built with it);
 `use_new_coords_for_voxel`, which voxelizes the canonical coordinates
 instead of the centred raw ones (the local-PPF branch stays in the raw
 frame, as in the reference); the local-PPF
@@ -14,8 +18,9 @@ reference's rows); the backbone of spherical or cube PVConv blocks
 (`pointnet_kernel` or `dgcnn_kernel` point branch; the cube grid with
 `normalize=False`, as the reference builds it) and SharedMLP blocks; and, with
 `is_classify=True`, the head max-pool -> Dense 512 -> BN -> ReLU ->
-Dropout 0.2 -> Dense 256 -> BN -> ReLU -> Dense num_classes. The other
-branches raise NotImplementedError until a later slice ports them.
+Dropout 0.2 -> Dense 256 -> BN -> ReLU -> Dense num_classes. The local
+features 'change_coords' and 'fpfh' and `with_transform_fine_tune` raise
+NotImplementedError until a later slice ports them.
 
 `dtype="bfloat16"` is the reference's bf16 mode (bench.py's model): every
 SharedMLP and PVConv computes in bf16 with f32 parameters, while the
@@ -34,18 +39,32 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ..nn.batch_norm import BatchNorm
+from ..nn.dropout import train_dropout
 from ..nn.pvconv import PVConv
 from ..nn.shared_mlp import SharedMLP
-from ..ops.lrf import change_coords, lrf_basis
+from ..ops.lrf import change_coords, lrf_basis, pca_align
 from ..ops.neighbors import ball_query, ball_query_group, grouping
-from ..ops.ppf import global_ppf, local_ppf
+from ..ops.ppf import global_ppf, local_ppf, new_ppf
 
 DEFAULT_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
 DTYPES = {None: None, "bfloat16": torch.bfloat16}
+PREPROCESSES = ("change_coords", "ppf", "new_ppf", "pca", None)
+# The widths of the preprocesses that need no model field to size them.
+INVARIANT_CHANNELS = {"ppf": 4, "new_ppf": 5, "pca": 3}
+
+
+def invariant_features(mode: str, coords: torch.Tensor,
+                       normals: torch.Tensor | None) -> torch.Tensor:
+    """The preprocess `mode` of INVARIANT_CHANNELS on coords [b, n, 3]
+    (and normals, which 'ppf' and 'new_ppf' need)."""
+    if mode == "pca":
+        return pca_align(coords)
+    if normals is None:
+        raise ValueError(f"the {mode!r} preprocess needs normals: inputs [b, n, 6]")
+    return global_ppf(coords, normals) if mode == "ppf" else new_ppf(coords, normals)
 
 
 class PVCNNClassifier(nn.Module):
@@ -57,7 +76,8 @@ class PVCNNClassifier(nn.Module):
     `dropout` is the head's rate (the reference's 0.2); in train mode its
     mask is drawn from the `generator` given to `forward` (under
     `group`, the global batch's mask, this rank's rows). `dtype` is None
-    (f32) or "bfloat16", as the reference's field."""
+    (f32) or "bfloat16", as the reference's field. `in_channels` is the
+    inputs' width, read by the preprocess None alone."""
 
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
                  dim_k: int = 512,
@@ -76,12 +96,11 @@ class PVCNNClassifier(nn.Module):
                  local_fuse_dim: int = 64,
                  dropout: float = 0.2,
                  dtype: str | None = None,
-                 use_new_coords_for_voxel: bool = False):
+                 use_new_coords_for_voxel: bool = False,
+                 in_channels: int = 6):
         super().__init__()
-        if rot_invariant_preprocess != "change_coords" or extra_feature_channels not in (0, 4):
-            raise NotImplementedError(
-                f"preprocess {rot_invariant_preprocess!r} with "
-                f"{extra_feature_channels} extra channels is not ported yet")
+        if rot_invariant_preprocess not in PREPROCESSES:
+            raise ValueError(f"unknown rot_invariant_preprocess {rot_invariant_preprocess!r}")
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be None or 'bfloat16', got {dtype!r}")
         if with_local_feat not in ("ppf", None):
@@ -95,7 +114,10 @@ class PVCNNClassifier(nn.Module):
         self.local_neighbors = local_neighbors
         self.dtype = DTYPES[dtype]
         layers = {}
-        in_ch = 3 + extra_feature_channels
+        if rot_invariant_preprocess == "change_coords":
+            in_ch = 7 if self.global_ppf else 3
+        else:
+            in_ch = INVARIANT_CHANNELS.get(rot_invariant_preprocess, in_channels)
         n_mlp = 0
         self._local = None
         if with_local_feat == "ppf":
@@ -143,14 +165,24 @@ class PVCNNClassifier(nn.Module):
         flip hypotheses of `train.loop.evaluate_registration`)."""
         coords = inputs[..., :3]
         coords = coords - coords.mean(-2, keepdim=True)
-        basis = lrf if lrf is not None else lrf_basis(coords, self.lrf_kind)
-        features = change_coords(coords, basis)
-        voxel_coords = features if self.use_new_coords_for_voxel else coords
-        if (self._local is not None or self.global_ppf) and inputs.shape[-1] < 6:
+        normals = inputs[..., 3:6] if inputs.shape[-1] >= 6 else None
+        voxel_coords = coords
+        mode = self.rot_invariant_preprocess
+        if mode == "change_coords":
+            basis = lrf if lrf is not None else lrf_basis(coords, self.lrf_kind)
+            features = change_coords(coords, basis)
+            if self.use_new_coords_for_voxel:
+                voxel_coords = features
+            if self.global_ppf:
+                if normals is None:
+                    raise ValueError("PPF features need normals: inputs [b, n, 6]")
+                features = torch.cat([features, global_ppf(coords, normals)], dim=-1)
+        elif mode is None:
+            features = inputs
+        else:
+            features = invariant_features(mode, coords, normals)
+        if self._local is not None and normals is None:
             raise ValueError("PPF features need normals: inputs [b, n, 6]")
-        normals = inputs[..., 3:6]
-        if self.global_ppf:
-            features = torch.cat([features, global_ppf(coords, normals)], dim=-1)
         if self._local is not None:
             with_normals = torch.cat([coords, normals], -1)
             if self.training:
@@ -179,23 +211,6 @@ class PVCNNClassifier(nn.Module):
         pooled = features.amax(-2).to(h["Dense_0"].weight.dtype)  # bf16 features: f32 head
         x = torch.relu(h["BatchNorm_0"](h["Dense_0"](pooled)))
         if self.training and self.dropout > 0.0:
-            if generator is None:
-                raise ValueError("train-mode dropout needs a torch.Generator")
-            keep = 1.0 - self.dropout
-            x = torch.where(self._draw(x.shape, generator, x.device) < keep, x / keep,
-                            torch.zeros_like(x))
+            x = train_dropout(x, self.dropout, generator, self.group)
         x = torch.relu(h["BatchNorm_1"](h["Dense_1"](x)))
         return h["Dense_2"](x)
-
-    def _draw(self, shape: torch.Size, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
-        """Uniform draws for the dropout mask of `shape`; under a process
-        group (a data-parallel step), the draws of the global batch's
-        [world·b, ...] mask, this rank's rows, so that the ranks together
-        drop what one process would."""
-        if self.group is None:
-            return torch.rand(shape, generator=generator, device=device)
-        rank, world = dist.get_rank(self.group), dist.get_world_size(self.group)
-        b = shape[0]
-        full = torch.rand((world * b,) + tuple(shape[1:]), generator=generator, device=device)
-        return full[rank * b:(rank + 1) * b]

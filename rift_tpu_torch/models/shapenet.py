@@ -1,0 +1,160 @@
+"""ShapeNet part segmentation PVCNN, twin of
+`rift_tpu/models/shapenet.py:ShapeNetPVCNN`.
+
+Input [b, n, in_channels + num_shapes]: xyz, the normals when
+`in_channels` >= 6, and the one-hot shape id in the last `num_shapes`
+channels. The preprocess is the reference's: 'change_coords' puts the
+centred cloud in the reference LRF (`global_lrf`; the model has no
+`lrf_kind`) and appends the global PPF when there are normals; 'ppf',
+'new_ppf' and 'pca' are the classifier's (`models/pvcnn.py:
+invariant_features`, on the raw coordinates); None passes the
+`in_channels` raw channels. With `with_local_feat`, the local PPF of each
+point's `ball_query` neighbourhood (radius 0.3, `local_neighbors` slots,
+empty slots repeating the first neighbour in both modes, as the reference
+runs it) through SharedMLP[32, 64] and a max over the slots is appended.
+The backbone's PVConv blocks take the raw coordinates, with no SE, no
+coefficient and `normalize=False`; SharedMLP blocks are plain. The one-hot
+id, every block's output and the last block's max over the points
+(broadcast) are concatenated (1488 channels at the default widths) and
+classified per point by SharedMLP 256 -> dropout 0.2 -> SharedMLP 256 ->
+dropout 0.2 -> SharedMLP 128 -> Linear num_classes. In train mode the
+dropout masks ([b, n, 256] each) come from the `generator` given to
+`forward` (under `group`, the global batch's masks, this rank's rows).
+
+Submodules carry the flax names: `layers.SharedMLP_i` (the local branch
+first, then the backbone's, then the head's) and `layers.PVConv_i`, and
+`head.Dense_0`, so `weights.from_flax_shapenet` maps a flax tree by name.
+"""
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+from torch import nn
+
+from ..nn.dropout import train_dropout
+from ..nn.pvconv import PVConv
+from ..nn.shared_mlp import SharedMLP
+from ..ops.lrf import change_coords
+from ..ops.neighbors import ball_query, grouping
+from ..ops.ppf import global_ppf, local_ppf
+from .pvcnn import INVARIANT_CHANNELS, PREPROCESSES, invariant_features
+
+DEFAULT_SEG_BLOCKS = ((64, 1, 32), (128, 1, 32), (256, 1, None), (512, 1, None))
+HEAD_WIDTHS = (256, 256, 128)  # dropout after each but the last
+
+
+class ShapeNetPVCNN(nn.Module):
+    """Field names mirror `rift_tpu.models.ShapeNetPVCNN` (its
+    `extra_feature_channels`, read by nothing there, is left out);
+    `in_channels` is the inputs' width before the one-hot id, which flax
+    reads from the input and a torch model is built with."""
+
+    def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_SEG_BLOCKS,
+                 num_classes: int = 50, num_shapes: int = 16,
+                 point_kernel_formal: str = "dgcnn_kernel",
+                 voxel_shape: str = "spherical",
+                 width_multiplier: float = 1.0,
+                 voxel_resolution_multiplier: float = 1.0,
+                 rot_invariant_preprocess: str | None = "change_coords",
+                 with_local_feat: bool = False,
+                 local_radius: float = 0.3, local_neighbors: int = 128,
+                 local_fuse_dim: int = 64,
+                 in_channels: int = 6,
+                 dropout: float = 0.2):
+        super().__init__()
+        if rot_invariant_preprocess not in PREPROCESSES:
+            raise ValueError(f"unknown rot_invariant_preprocess {rot_invariant_preprocess!r}")
+        self.rot_invariant_preprocess = rot_invariant_preprocess
+        self.num_shapes = num_shapes
+        self.in_channels = in_channels
+        self.with_normals = in_channels >= 6
+        self.local_radius = local_radius
+        self.local_neighbors = local_neighbors
+        self.dropout = dropout
+        self.group = None  # set by parallel.sharded_ops for a data-parallel step
+        if rot_invariant_preprocess == "change_coords":
+            in_ch = 7 if self.with_normals else 3
+        else:
+            in_ch = INVARIANT_CHANNELS.get(rot_invariant_preprocess, in_channels)
+        layers = {}
+        n_mlp = 0
+        self._local = None
+        if with_local_feat:
+            if not self.with_normals:
+                raise ValueError("the local PPF needs normals: in_channels >= 6")
+            self._local = "SharedMLP_0"
+            layers[self._local] = SharedMLP(4, [32, local_fuse_dim])
+            n_mlp += 1
+            in_ch += local_fuse_dim
+        self._backbone: list[list[str]] = []  # the blocks of each entry of `blocks`
+        concat = num_shapes
+        n_pv = 0
+        for out_ch, num_blocks, resolution in blocks:
+            out_ch = int(out_ch * width_multiplier)
+            self._backbone.append([])
+            for _ in range(num_blocks):
+                if resolution is None:
+                    name = f"SharedMLP_{n_mlp}"
+                    layers[name] = SharedMLP(in_ch, [out_ch])
+                    n_mlp += 1
+                else:
+                    name = f"PVConv_{n_pv}"
+                    layers[name] = PVConv(
+                        in_ch, out_ch, point_kernel_formal=point_kernel_formal,
+                        voxel_shape=voxel_shape,
+                        resolution=int(resolution * voxel_resolution_multiplier),
+                        with_coeff=False, with_se=False, normalize=False)
+                    n_pv += 1
+                self._backbone[-1].append(name)
+                in_ch = out_ch
+            concat += in_ch  # the entry's last output
+        concat += in_ch  # the global max
+        self._head: list[str] = []
+        for width in HEAD_WIDTHS:
+            name = f"SharedMLP_{n_mlp}"
+            layers[name] = SharedMLP(concat, [int(width * width_multiplier)])
+            n_mlp += 1
+            concat = int(width * width_multiplier)
+            self._head.append(name)
+        self.layers = nn.ModuleDict(layers)
+        self.head = nn.ModuleDict({"Dense_0": nn.Linear(concat, num_classes)})
+
+    def forward(self, inputs: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """inputs [b, n, in_channels + num_shapes] -> logits [b, n, num_classes]."""
+        if inputs.shape[-1] != self.in_channels + self.num_shapes:
+            raise ValueError(f"inputs have {inputs.shape[-1]} channels, the model "
+                             f"{self.in_channels} + {self.num_shapes}")
+        one_hot = inputs[..., -self.num_shapes:]
+        coords = inputs[..., :3]
+        normals = inputs[..., 3:6] if self.with_normals else None
+        mode = self.rot_invariant_preprocess
+        if mode == "change_coords":
+            features = change_coords(coords - coords.mean(-2, keepdim=True))
+            if normals is not None:
+                features = torch.cat([features, global_ppf(coords, normals)], dim=-1)
+        elif mode is None:
+            features = inputs[..., :self.in_channels]
+        else:
+            features = invariant_features(mode, coords, normals)
+        if self._local is not None:
+            idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
+            nbr = grouping(torch.cat([coords, normals], -1), idx)
+            fused = self.layers[self._local](local_ppf(nbr[..., :3], nbr[..., 3:], coords,
+                                                       normals))
+            features = torch.cat([features, fused.amax(-2)], dim=-1)
+        out = [one_hot]
+        for names in self._backbone:
+            for name in names:
+                layer = self.layers[name]
+                features = (layer(features, coords) if isinstance(layer, PVConv)
+                            else layer(features))
+            out.append(features)
+        out.append(features.amax(-2, keepdim=True).expand(features.shape))
+        x = torch.cat(out, dim=-1)
+        for name in self._head:
+            x = self.layers[name](x)
+            if name != self._head[-1] and self.training and self.dropout > 0.0:
+                x = train_dropout(x, self.dropout, generator, self.group)
+        return self.head["Dense_0"](x)

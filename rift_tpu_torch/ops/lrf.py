@@ -1,12 +1,14 @@
 """Local reference frames: the 'change_coords' rotation-invariant preprocess.
 
 Twin of `rift_tpu/ops/lrf.py` (`global_lrf`, `pca_lrf`, `lrf_basis`,
-`change_coords`, `lrf_flip_hypotheses`). Bases are [..., 3, 3] with ROWS = axes; canonical
-coordinates are coords @ basisᵀ.
+`change_coords`, `lrf_flip_hypotheses`, `pca_align`). Bases are
+[..., 3, 3] with ROWS = axes; canonical coordinates are coords @ basisᵀ.
 """
 from __future__ import annotations
 
 import torch
+
+from .eig3 import eigh_sym3
 
 Tensor = torch.Tensor
 
@@ -87,3 +89,14 @@ def change_coords(coords: Tensor, basis: Tensor | None = None) -> Tensor:
     if basis is None:
         basis = global_lrf(coords)
     return torch.matmul(coords, basis.transpose(-1, -2))
+
+
+def pca_align(coords: Tensor) -> Tensor:
+    """The 'pca' preprocess: the centred cloud [..., n, 3] in the axes of
+    its scatter matrix Σ cᵢcᵢᵀ, by descending eigenvalue. Each axis has a
+    sign of its own choosing in either package: here `ops/eig3.py:
+    eigh_sym3`'s (closed form, no host sync), in the reference LAPACK's."""
+    centered = coords - coords.mean(-2, keepdim=True)
+    cov = torch.matmul(centered.transpose(-1, -2), centered)
+    _, vecs = eigh_sym3(cov)            # columns, ascending eigenvalues
+    return torch.matmul(centered, vecs.flip(-1))

@@ -1,4 +1,5 @@
-"""Neighbour search: squared distances, ball query, grouping, mutual NN.
+"""Neighbour search: squared distances, k nearest neighbours, ball query,
+grouping, the PointNet++ ball grouping and 3-NN interpolation, mutual NN.
 
 Twin of `rift_tpu/ops/neighbors.py`. The TPU shapes of that module (the
 one-hot gathers and the [m, u, n] slot selector of `ball_query_group`,
@@ -23,6 +24,22 @@ def pairwise_sqdist(a: Tensor, b: Tensor) -> Tensor:
     b2 = (b * b).sum(-1, keepdim=True)
     cross = torch.matmul(a, b.transpose(-1, -2))
     return torch.clamp(a2 + b2.transpose(-1, -2) - 2.0 * cross, min=0.0)
+
+
+def knn(queries: Tensor, points: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """The k nearest of `points` [..., m, c] to each of `queries` [..., n, c]:
+    (squared distances [..., n, k] ascending, indices int64 [..., n, k]),
+    the lower index first on ties. With m < k the farthest neighbour
+    repeats in the last slots."""
+    d2 = pairwise_sqdist(queries, points)
+    k_eff = min(k, points.shape[-2])
+    dist, idx = torch.sort(d2, dim=-1, stable=True)
+    dist, idx = dist[..., :k_eff], idx[..., :k_eff]
+    if k_eff < k:
+        pad = k - k_eff
+        dist = torch.cat([dist, dist[..., -1:].expand(dist.shape[:-1] + (pad,))], -1)
+        idx = torch.cat([idx, idx[..., -1:].expand(idx.shape[:-1] + (pad,))], -1)
+    return dist, idx
 
 
 def _first_valid(d2: Tensor, radius: float, u: int) -> tuple[Tensor, Tensor]:
@@ -94,6 +111,33 @@ def ball_query_group(centers: Tensor, points: Tensor, features: Tensor,
     slot_valid = slot < torch.clamp(cnt, min=1)[..., None]
     grouped = grouping(features, idx)
     return grouped * slot_valid[..., None].to(grouped.dtype), slot_valid
+
+
+def ball_group(centers: Tensor, points: Tensor, features: Tensor | None, radius: float,
+               num_neighbors: int, include_coordinates: bool = True) -> Tensor:
+    """The PointNet++ grouping: `ball_query` of `centers` [..., m, 3] among
+    `points` [..., n, 3], each neighbour's offset from its center
+    [..., m, u, 3] (its coordinates without `include_coordinates`), then,
+    when `features` [..., n, c] are given, the neighbours' features
+    (after the offsets with `include_coordinates`, alone without)."""
+    idx = ball_query(centers, points, radius, num_neighbors)
+    nbr = grouping(points, idx)
+    rel = nbr - centers[..., None, :]
+    if features is None:
+        return rel if include_coordinates else nbr
+    feat = grouping(features, idx)
+    return torch.cat([rel, feat], dim=-1) if include_coordinates else feat
+
+
+def three_nn_interpolate(target_coords: Tensor, source_coords: Tensor,
+                         source_features: Tensor) -> Tensor:
+    """`source_features` [..., m, c] at `target_coords` [..., n, 3]: the
+    mean of the 3 nearest of `source_coords` [..., m, 3], weighted by
+    inverse squared distance (floored at 1e-10) -> [..., n, c]."""
+    d2, idx = knn(target_coords, source_coords, 3)
+    inv = 1.0 / torch.clamp(d2, min=1e-10)
+    w = inv / inv.sum(-1, keepdim=True)
+    return (w[..., None] * grouping(source_features, idx)).sum(-2)
 
 
 def mutual_nearest_neighbors(feat1: Tensor, feat2: Tensor

@@ -1,5 +1,5 @@
 """Point-pair features, twin of `rift_tpu/ops/ppf.py` (`ppf`, `global_ppf`,
-`local_ppf`).
+`local_ppf`, `new_ppf`).
 
 Channels-last; points [..., n, 3].
 """
@@ -58,3 +58,31 @@ def local_ppf(neighbor_coords: Tensor, neighbor_normals: Tensor,
     nc = center_normals[..., None, :].expand(d_unit.shape)
     return torch.stack([_angle(neighbor_normals, d_unit), _angle(nc, d_unit),
                         _angle(neighbor_normals, nc), d_norm[..., 0]], dim=-1)
+
+
+def new_ppf(coords: Tensor, normals: Tensor) -> Tensor:
+    """The 'new_ppf' preprocess, [..., n, 5]: `global_ppf` and, per point,
+    the median over every point of the angle between the two points'
+    projections onto the plane normal to the mean normal (an angle of at
+    most 1e-5, the point itself among them, counts as 100). As in the
+    reference, the projection subtracts (p·n̂)·n̄ with n̄ the mean normal
+    *unnormalised*; the median of an even count is the mean of the two
+    middle values, as `jnp.median` takes it. The angle matrix is
+    [..., n, n] (with its [..., n, n, 3] cross products)."""
+    unit = normals / torch.clamp(torch.linalg.vector_norm(normals, dim=-1, keepdim=True),
+                                 min=1e-12)
+    old = global_ppf(coords, normals)
+    center_normals = unit.mean(-2, keepdim=True)
+    ncn = center_normals / torch.clamp(
+        torch.linalg.vector_norm(center_normals, dim=-1, keepdim=True), min=1e-12)
+    norm_coords = coords - coords.mean(-2, keepdim=True)
+    proj = norm_coords - (norm_coords * ncn).sum(-1, keepdim=True) * center_normals
+    cos_alpha = torch.matmul(proj, proj.transpose(-1, -2))
+    sin_alpha = torch.linalg.vector_norm(
+        torch.linalg.cross(proj[..., :, None, :], proj[..., None, :, :]), dim=-1)
+    alpha = torch.atan2(sin_alpha, cos_alpha)
+    alpha = torch.where(alpha <= 1e-5, torch.full_like(alpha, 100.0), alpha)
+    srt = torch.sort(alpha, dim=-1).values
+    n = srt.shape[-1]
+    median = (srt[..., (n - 1) // 2] + srt[..., n // 2]) * 0.5
+    return torch.cat([old, median[..., None]], dim=-1)

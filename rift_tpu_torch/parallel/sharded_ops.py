@@ -4,9 +4,9 @@ of `rift_tpu/parallel/sharded_ops.py`.
 `make_sharded_train_step` is the step of the global batch split over the
 ranks. The reference wraps its jitted step with batch shardings and XLA
 inserts the reductions; here they are written out: under `global_batch`,
-every BatchNorm normalizes with the global batch's statistics and the
-head's dropout draws the global batch's mask (`nn/batch_norm.py`,
-`models/pvcnn.py`); each rank takes the backward of its rows' mean loss;
+every BatchNorm normalizes with the global batch's statistics and every
+dropout draws the global batch's mask (`nn/batch_norm.py`,
+`nn/dropout.py`); each rank takes the backward of its rows' mean loss;
 the gradients are averaged over the ranks, which with equal shards is the
 gradient of the global mean loss, before the shared Adam update; and the
 step's loss and accuracy are averaged too, so every rank reports the
@@ -22,8 +22,6 @@ import contextlib
 import torch
 import torch.distributed as dist
 
-from ..models import PVCNNClassifier
-from ..nn.batch_norm import BatchNorm
 from ..ops.neighbors import pairwise_sqdist
 from ..train.steps import TrainState, apply_update, forward_backward
 
@@ -64,10 +62,12 @@ def sharded_mutual_nn(feat1_tile: Tensor, feat2: Tensor,
 
 @contextlib.contextmanager
 def global_batch(model: torch.nn.Module, group: dist.ProcessGroup | None = None):
-    """Within the context, `model`'s BatchNorms and its head's dropout see
-    the global batch of `group`'s ranks (none outside it)."""
+    """Within the context, `model`'s BatchNorms and its dropouts see the
+    global batch of `group`'s ranks (none outside it): every submodule with
+    a `group` attribute (a BatchNorm, a model that draws dropout masks)
+    gets it."""
     group = _group(group)
-    modules = [m for m in model.modules() if isinstance(m, (BatchNorm, PVCNNClassifier))]
+    modules = [m for m in model.modules() if hasattr(m, "group")]
     for m in modules:
         m.group = group
     try:

@@ -18,8 +18,9 @@
   {dg,pt}`; and the recommended `reg_clean`, `reg_noise`, `reg_partial`
   and `reg_icl_nuim` (cube, `dgcnn_kernel`, 4 global-PPF channels, the
   reference LRF, `ransac+picp`; the `icl_nuim` ones with the scans'
-  solver settings). `shapenet_seg` waits for its trainer (ROADMAP item
-  10).
+  solver settings); and `shapenet_seg`, the part segmentation trainer's
+  (`train/loop.py:train_segmentation`: 8 clouds of 2048 points, 50 part
+  classes, no SE).
 
 The dataclasses have slots, so setting a field the port lacks raises. Of
 the reference's fields only `train.log_every` (a logging cadence) is left
@@ -184,6 +185,12 @@ def _reference_presets() -> dict[str, ExperimentConfig]:
         best = _registration("ransac+picp", mode)
         best.name = f"reg_{mode}"
         out[best.name] = best
+    seg = ExperimentConfig(name="shapenet_seg")
+    seg.model.num_classes = 50
+    seg.model.with_se = False
+    seg.dataset.num_points = 2048
+    seg.train.batch_size = 8
+    out[seg.name] = seg
     return out
 
 

@@ -1,7 +1,10 @@
-"""Classification training and evaluation, registration evaluation, twin
-of `rift_tpu/train/loop.py`: `build_model` (f32 or the bf16 `dtype`
-model), `make_distributed_step`, `train` (one card, or data-parallel over
-a torchrun process group, with the in-training `registration_probe`),
+"""Classification and part segmentation training, classification
+evaluation, registration evaluation, twin of `rift_tpu/train/loop.py`:
+`build_model` (f32 or the bf16 `dtype` model), `make_distributed_step`,
+`train` (one card, or data-parallel over a torchrun process group, with
+the in-training `registration_probe`), `build_seg_model` and
+`train_segmentation` (ShapeNet parts, likewise on one card or
+data-parallel),
 `run_meters`, `update_best`, `_improved`, `evaluate_classification`,
 `evaluate_classification_ckpt` (with `hard_tier_dataset`,
 `rotation_consistency` and the `CORRUPTION_LEVELS` sweep), and
@@ -9,9 +12,8 @@ a torchrun process group, with the in-training `registration_probe`),
 `evaluate_registration` (every method of `registration.METHODS`, with or
 without the flip-hypothesis consensus).
 
-Not ported yet (ROADMAP): `train_segmentation` (item 10) and the
-registration extras (the method sweep, feature extraction, the sequence
-mapping).
+Not ported yet (ROADMAP item 10): the registration extras (the method
+sweep, feature extraction, the sequence mapping).
 """
 from __future__ import annotations
 
@@ -26,9 +28,10 @@ import torch.distributed as dist
 
 from ..data import SyntheticPairs, get_pairs
 from ..data.modelnet40 import ModelNet40, get_datasets
+from ..data.shapenet import ShapeNetConfig, get_shapenet
 from ..data.synthetic_pairs import random_rotation
 from ..device import resolve_device
-from ..models import PVCNNClassifier
+from ..models import PVCNNClassifier, ShapeNetPVCNN
 from ..ops.lrf import lrf_basis, lrf_flip_hypotheses
 from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
@@ -39,7 +42,7 @@ from ..registration import (consensus_match, gnc_pose, pair_errors, register_pai
 from ..registration.pipeline import split_method
 from .checkpoint import CheckpointManager
 from .config import EvalConfig, ExperimentConfig, ModelConfig, apply_overrides
-from .meters import MeterClassification, MeterRegistration
+from .meters import MeterClassification, MeterRegistration, MeterShapeNetIoU
 from .steps import TrainState, create_state, eval_step, init_params, train_step
 from .utils import MetricWriter, get_logger
 
@@ -267,6 +270,100 @@ def train(config: ExperimentConfig, resume: bool = True, meters: dict | None = N
             if main:
                 ckpt.save_common(state, best, config)
     return {"state": state, "best": best, "loss": loss}
+
+
+def build_seg_model(config: ExperimentConfig, in_channels: int = 6) -> ShapeNetPVCNN:
+    """The part segmentation model from exactly the fields the reference's
+    `train_segmentation` reads (`num_classes`, `with_se`, `with_coeff`,
+    `lrf_kind`, `extra_feature_channels` and `dtype` are not among them:
+    50 classes, no SE, no coefficient, the reference LRF, f32), for items
+    of `in_channels` channels before the one-hot id (6 with normals, 3
+    without; flax reads it from the input)."""
+    m = config.model
+    return ShapeNetPVCNN(blocks=tuple(tuple(b) for b in m.blocks),
+                         in_channels=in_channels,
+                         point_kernel_formal=m.point_kernel_formal,
+                         voxel_shape=m.voxel_shape,
+                         rot_invariant_preprocess=m.rot_invariant_preprocess,
+                         with_local_feat=bool(m.with_local_feat),
+                         local_neighbors=m.local_neighbors,
+                         width_multiplier=m.width_multiplier)
+
+
+def train_segmentation(config: ExperimentConfig, shapenet_config: ShapeNetConfig | None = None,
+                       resume: bool = True, device: str | torch.device | None = None) -> dict:
+    """ShapeNet part segmentation training (the card unless `device` says
+    otherwise), as the reference's: the data of `shapenet_config`, else
+    the synthetic split at `dataset.num_points` (`dataset.root` is not
+    read, as in the reference); the model of `build_seg_model`, Adam and
+    the cosine schedule; per epoch `steps_per_epoch` updates of the mean
+    cross-entropy over every point (`train_step`), then the test split's
+    instance mIoU (`MeterShapeNetIoU` through `run_meters`), `best_iou`
+    saved when it is at least the best so far, and `common`. With
+    `resume`, continues from `common` in `ckpt_dir`. Under a process
+    group of more than one rank the global batch runs data-parallel, as
+    `train()` runs it (global BatchNorm statistics and dropout masks; a
+    batch size the ranks do not divide trains each rank alone); rank 0
+    alone evaluates, writes the metric log and the checkpoints, and gives
+    every rank the mIoU.
+    Returns {'state', 'best'}."""
+    device = resolve_device(device)
+    log = get_logger(config.name)
+    rank, world = rank_and_world()
+    main = rank == 0
+    writer = MetricWriter(config.train.ckpt_dir, config.name) if main else None
+    sn_cfg = shapenet_config or ShapeNetConfig(num_points=config.dataset.num_points)
+    datasets = get_shapenet(sn_cfg)
+    steps_per_epoch = max(len(datasets["train"]) // config.train.batch_size, 1)
+    if config.train.steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, config.train.steps_per_epoch)
+    state = create_state(build_seg_model(config, 6 if sn_cfg.with_normals else 3), config,
+                         steps_per_epoch, device,
+                         seed=config.seed)
+    step_fn, group = make_distributed_step(config.train.data_parallel,
+                                           config.train.batch_size, log)
+    ckpt = CheckpointManager(config.train.ckpt_dir)
+    best: dict = {}
+    start_epoch = 0
+    if resume:
+        restored = ckpt.restore(state)
+        if restored is not None:
+            best = restored
+            start_epoch = state.step // steps_per_epoch
+            log.info("seg resumed from step %d (epoch %d)", state.step, start_epoch)
+    if group is not None:
+        replicate(state, group)
+
+    generator = torch.Generator(device=device)  # seeded per update, as in train()
+    for epoch in range(start_epoch, config.optim.num_epochs):
+        t0 = time.time()
+        losses = []
+        for i, (clouds, labels) in enumerate(
+                datasets["train"].batches(config.train.batch_size, seed=epoch)):
+            if i >= steps_per_epoch:
+                break
+            if group is not None:
+                clouds, labels = shard_batch((clouds, labels), group)
+            generator.manual_seed(config.seed * 1_000_003 + state.step)
+            losses.append(step_fn(state, torch.as_tensor(clouds, device=device),
+                                  torch.as_tensor(labels, device=device), generator)["loss"])
+        loss = float(np.mean([float(x) for x in losses]))
+        iou = None
+        if main:
+            iou = run_meters(state, datasets["test"], config, {"iou": MeterShapeNetIoU})["iou"]
+        if world > 1:
+            iou = broadcast_object(iou)
+        if main:
+            writer.write(step=state.step, epoch=epoch, split="train", loss=loss, iou=iou,
+                         sec=time.time() - t0)
+            log.info("seg epoch %d: loss %.4f mIoU %.4f", epoch, loss, iou)
+        if iou >= best.get("iou", -1.0):
+            best["iou"] = iou
+            if main:
+                ckpt.save_best("iou", state, best, config)
+        if main:
+            ckpt.save_common(state, best, config)
+    return {"state": state, "best": best}
 
 
 def load_trained_state(ckpt_dir: str, name: str = "common") -> tuple[dict, dict]:

@@ -104,7 +104,11 @@ def create_state(model: nn.Module, config: ExperimentConfig, steps_per_epoch: in
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return F.cross_entropy(logits, labels.long())
+    """The mean over every labelled row of −log softmax at the label: logits
+    [b, c] with labels [b] (classification), or [b, n, c] with [b, n]
+    (segmentation: the mean over all b·n points). The rows are flattened,
+    since `F.cross_entropy` reads axis 1 as the classes."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long())
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
@@ -148,17 +152,20 @@ def apply_update(state: TrainState) -> None:
 
 def train_step(state: TrainState, clouds: torch.Tensor, labels: torch.Tensor,
                generator: torch.Generator | None = None) -> dict:
-    """One update of `state` in place on a batch (clouds [b, n, 6], labels
-    [b]). `generator` draws the head's dropout mask. Returns the batch's
-    loss and accuracy as 0-d tensors (no host sync); the gradients stay in
-    each parameter's `.grad`."""
+    """One update of `state` in place on a batch: the classifier's (clouds
+    [b, n, 6], labels [b]) or the segmentation model's (clouds [b, n, 22],
+    part labels [b, n]; the reference's `seg_step`). `generator` draws the
+    dropout masks. Returns the batch's loss and accuracy (per cloud or per
+    point) as 0-d tensors (no host sync); the gradients stay in each
+    parameter's `.grad`."""
     loss, acc = forward_backward(state, clouds, labels, generator)
     apply_update(state)
     return {"loss": loss, "acc": acc}
 
 
 def eval_step(state: TrainState, clouds: torch.Tensor) -> torch.Tensor:
-    """Eval-mode logits [b, num_classes] (running BN statistics, no dropout)."""
+    """Eval-mode logits, [b, num_classes] or per point [b, n, num_classes]
+    (running BN statistics, no dropout)."""
     model = state.model
     model.eval()
     with torch.no_grad(), f32_geometry():

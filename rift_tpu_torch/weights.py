@@ -1,5 +1,9 @@
 """Convert a flax parameter tree of `rift_tpu.models.PVCNNClassifier` into a
-`state_dict` of `rift_tpu_torch.models.PVCNNClassifier`.
+`state_dict` of `rift_tpu_torch.models.PVCNNClassifier` (`from_flax`), and
+one of `rift_tpu.models.ShapeNetPVCNN` into one of
+`rift_tpu_torch.models.ShapeNetPVCNN` (`from_flax_shapenet`). The PointNet
+models and PointNet++ modules name their submodules the same way, so
+`from_flax` maps their trees too.
 
 The input is plain nested dicts of numpy arrays (restore the checkpoint
 wherever JAX lives and hand over the arrays); nothing here imports JAX.
@@ -129,3 +133,21 @@ def from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     p.check_all_used()
     s.check_all_used()
     return out
+
+
+def from_flax_shapenet(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """flax `params` and `batch_stats` of `rift_tpu.models.ShapeNetPVCNN`
+    -> state_dict for `rift_tpu_torch.models.ShapeNetPVCNN`: SharedMLP_i
+    (the local branch, the backbone's MLP blocks, the head's three) and
+    PVConv_i (no SE3d, no coefficient: the model builds neither) under
+    `layers`, and the per-point classifier Dense_0 under `head`. Any other
+    top-level name, and any key left unread, raises."""
+    other = [name for name in params
+             if not re.fullmatch(r"SharedMLP_\d+|PVConv_\d+|Dense_0", name)]
+    if other:
+        raise ValueError(f"params: not a ShapeNetPVCNN tree, unexpected {other}")
+    for name in params:
+        if name.startswith("PVConv_") and {"SE3d_0", "coefficient"} & set(params[name]):
+            raise ValueError(f"params: {name} has an SE3d or a coefficient, which "
+                             f"ShapeNetPVCNN's blocks do not")
+    return from_flax(params, batch_stats)

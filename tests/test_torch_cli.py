@@ -1,8 +1,10 @@
 """rift_tpu_torch's command line against rift_tpu's on the CPU: the preset
 table, `apply_overrides` on the same strings, `presets`, `train`,
-`evaluate` and `evaluate-cls` through `cli.main` with `--device cpu`,
-`train` under torchrun on 2 gloo ranks, the card by default, the guard
-against scoring random weights, and the commands not ported yet."""
+`evaluate`, `evaluate-cls` and `train-seg` through `cli.main` with
+`--device cpu`, `train` under torchrun on 2 gloo ranks (`train-seg` joins
+the same group; its data-parallel run is tests/test_torch_dp.py's),
+the card by default, the guard against scoring random weights, and the
+commands not ported yet."""
 import dataclasses
 import json
 import os
@@ -27,7 +29,7 @@ TINY_EVAL = ["evaluate.num_points=128", "evaluate.num_pairs=2"]
 
 def test_preset_table_is_the_reference_s_but_shapenet_seg():
     ours, ref = set(presets()), set(j_presets())
-    assert ref - ours == {"shapenet_seg"}  # its trainer waits (ROADMAP item 10)
+    assert ref - ours == set()  # shapenet_seg too, now that its trainer is ported
     assert ours - ref == {"mn40_sph_pt_r4"}  # the flagship checkpoint's config
     assert {"reg_icl_nuim", "mn40_sph_dg", "mn40_sph_pt"} <= ours
 
@@ -129,7 +131,7 @@ def test_the_cli_takes_the_card_by_default(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["map-sequence", "--loop-stride", "3"], 10),
-    (["train-seg"], 10),
+    (["map-sequence", "--mesh"], 10),
     (["evaluate", "--methods", "ransac,fgr", "--untrained"], 10),
 ])
 def test_commands_not_ported_exit_with_their_roadmap_item(argv, item, capsys):
@@ -197,3 +199,39 @@ def test_train_under_torchrun_is_data_parallel(tmp_path):
     assert [r["split"] for r in dp] == [r["split"] for r in single] == ["train", "valid"]
     assert dp[0]["loss"] == pytest.approx(single[0]["loss"], rel=1e-5, abs=0)
     assert {"common.pt", "best_acc.pt"} <= set(os.listdir(tmp_path / "dp"))
+
+
+def test_shapenet_seg_preset_equals_the_reference():
+    ours = json.loads(json.dumps(dataclasses.asdict(get_config("shapenet_seg"))))
+    ref = json.loads(json.dumps(dataclasses.asdict(j_get_config("shapenet_seg"))))
+    assert ref["train"].pop("log_every") == 10  # the field the port leaves out
+    assert ours == ref
+    m = ours["model"]
+    assert (m["num_classes"], m["with_se"], ours["dataset"]["num_points"],
+            ours["train"]["batch_size"]) == (50, False, 2048, 8)
+
+
+# train-seg of tiny_smoke on the synthetic ShapeNet split at 64 points,
+# one epoch of 2 steps.
+TINY_SEG = ["--preset", "tiny_smoke", "--device", "cpu", "dataset.num_points=64",
+            "optim.num_epochs=1", "train.steps_per_epoch=2"]
+
+
+def test_train_seg_through_the_cli(tmp_path, capsys, monkeypatch):
+    """`train-seg` writes best_iou and common and the epoch's loss and
+    mIoU; run again it resumes from common and trains no further; without
+    --device it takes the card."""
+    ckpt = str(tmp_path / "seg")
+    assert cli.main(["train-seg", *TINY_SEG, f"train.ckpt_dir={ckpt}"]) == 0
+    assert {"best_iou.pt", "common.pt", "common.meta.json"} <= set(os.listdir(ckpt))
+    with open(os.path.join(ckpt, "tiny_smoke.metrics.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    assert len(log) == 1 and log[0]["step"] == 2
+    assert np.isfinite(log[0]["loss"]) and 0.0 <= log[0]["iou"] <= 1.0
+    assert cli.main(["train-seg", *TINY_SEG, f"train.ckpt_dir={ckpt}"]) == 0
+    with open(os.path.join(ckpt, "tiny_smoke.metrics.jsonl")) as f:
+        assert len(f.readlines()) == 1
+    assert cli.build_parser().parse_args(["train-seg"]).preset == "shapenet_seg"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train-seg", "--preset", "tiny_smoke", f"train.ckpt_dir={tmp_path / 'card'}"])

@@ -1,11 +1,18 @@
 """rift_tpu_torch's data-parallel training and sharded matching on the CPU:
 4 gloo ranks (torch.multiprocessing.spawn, a file store in tmp_path) run
 the sharded train step of tiny_smoke (f32 with and without dropout, and
-the bf16 model) on a global batch of 8 and the sharded mutual nearest
-neighbours; the results are held against the
-port's single-process step, against rift_tpu's `make_distributed_step` on
-the virtual 8-device mesh, and against `mutual_nearest_neighbors`."""
+the bf16 model) on a global batch of 8, the sharded step of the part
+segmentation model (with and without its per-point dropout) on 8 ShapeNet
+items, and the sharded mutual nearest neighbours; the results are held
+against the port's single-process step, against rift_tpu's
+`make_distributed_step` on the virtual 8-device mesh (the classifier's
+step, and the segmentation step of its `train_segmentation`), and against
+`mutual_nearest_neighbors`. The ranks also run `train_segmentation`
+together, held against its single-process run. A batch size the ranks do
+not divide trains each rank alone."""
 import dataclasses
+import json
+import logging
 import os
 import time
 
@@ -18,28 +25,47 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from rift_tpu.models import ShapeNetPVCNN as JaxShapeNetPVCNN
 from rift_tpu.ops.neighbors import mutual_nearest_neighbors as j_mutual_nn
 from rift_tpu.train.loop import build_model as jax_build_model
 from rift_tpu.train.loop import make_distributed_step as jax_make_distributed_step
 from rift_tpu.parallel.mesh import replicate as jax_replicate
 from rift_tpu.parallel.mesh import shard_batch as jax_shard_batch
+from rift_tpu.train.steps import TrainState as JaxTrainState
 from rift_tpu.train.steps import create_state as jax_create_state
+from rift_tpu.train.steps import make_optimizer as jax_make_optimizer
 from rift_tpu.train.steps import make_train_step
+from rift_tpu_torch.data.shapenet import ShapeNet, ShapeNetConfig
+from rift_tpu_torch.models import ShapeNetPVCNN
 from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors
 from rift_tpu_torch.parallel import make_sharded_train_step, shard_batch, sharded_mutual_nn
-from rift_tpu_torch.train import build_model
-from rift_tpu_torch.train.steps import (TrainState, forward_backward, make_optimizer,
-                                        train_step)
-from rift_tpu_torch.weights import from_flax
+from rift_tpu_torch.train import build_model, make_distributed_step, train_segmentation
+from rift_tpu_torch.train.steps import TrainState, forward_backward, make_optimizer, train_step
+from rift_tpu_torch.train.utils import get_logger
+from rift_tpu_torch.weights import from_flax, from_flax_shapenet
+from test_torch_seg import _ref_seg_step, _reference_weights
 from test_torch_train import (BF16_FLOOR, BF16_LOSS_RTOL, BF16_RATIO, BF16_SLACK, BF16_ZERO_TOL,
-                              GRAD_FLOOR, GRAD_ZERO_TOL, _no_dropout, _np, _tiny_configs)
+                              GRAD_FLOOR, GRAD_RTOL, GRAD_ZERO_TOL, LOSS_RTOL, SETTLED_PARAM_TOL,
+                              STATS_TOL, _no_dropout, _np, _tiny_configs)
 
 WORLD = 4
 GLOBAL_BATCH = 8
 # The sharded steps each rank takes from the same weights: (tag, dropout,
 # model.dtype).
 RUNS = (("plain", 0.0, None), ("dropout", 0.2, None), ("bf16", 0.0, "bfloat16"))
-SPAWN_TIMEOUT_S = 90  # the 4 ranks import torch, jax and the port, then take 2 steps
+# The segmentation model's sharded steps: (tag, dropout).
+SEG_RUNS = (("seg_plain", 0.0), ("seg_dropout", 0.2))
+SEG_MODEL = dict(blocks=((16, 1, 8), (32, 1, None)), local_neighbors=16, with_local_feat=True)
+# The segmentation model's f32 gradients miss the f64 ones by up to ~2.5e-3
+# of their norm in both the single-process and the sharded step (the local
+# branch's BatchNorm over the PPF angles, arccos of near-parallel normals),
+# so the two steps' sums in another order land either side of each other:
+# a sharded gradient is held within SEG_GRAD_RATIO times the single step's
+# distance from the f64 gradient (or DP_GRAD_RTOL of its norm). Measured:
+# ratios up to 1.42 (the first PVConv's point-branch BatchNorm scale),
+# where the single step's distance is 2.1e-3 of the norm.
+SEG_GRAD_RATIO = 2.0
+SPAWN_TIMEOUT_S = 90  # the 4 ranks import torch, jax and the port, then take 9 steps
 DROPOUT_SEED = 7
 # The port's 4-rank step against its single-process step on the same
 # global batch: the same function, the global BatchNorm statistics
@@ -67,11 +93,29 @@ SETTLED = 1e-2
 # Against rift_tpu's sharded step on the 8-device mesh: the tolerances of
 # tests/test_parallel.py:test_dp_single_step_equivalence.
 REF_LOSS_TOL, REF_STATS_RTOL, REF_STATS_ATOL = 1e-4, 1e-3, 1e-5
+# The reference's f32 segmentation gradients on the 8 × 64 batch miss the
+# f64 gradient of the same step by up to 1.05e-2 of its norm on the mesh
+# (1.40e-2 on one device; a BatchNorm bias of the first PVConv), the port's
+# sharded ones by at most 1.75e-3: the rounding of the ill-conditioned
+# local branch (SEG_GRAD_RATIO's comment), not a difference of functions.
+REF_SEG_GRAD_RTOL = 2e-2
+
+
+def _seg_config(ckpt_dir: str):
+    """train-seg of tiny_smoke on the synthetic ShapeNet split at 64
+    points, one epoch of 2 steps."""
+    cfg, _ = _tiny_configs()
+    cfg.train.ckpt_dir = ckpt_dir
+    cfg.dataset.num_points = 64
+    cfg.optim.num_epochs = 1
+    cfg.train.steps_per_epoch = 2
+    return cfg
 
 
 def _rank_main(rank: int, world: int, workdir: str) -> None:
-    """One rank: the sharded step without and with dropout from the same
-    weights, and the sharded mutual NN; its results saved as rank{r}.pt."""
+    """One rank: the sharded steps without and with dropout from the same
+    weights, the sharded mutual NN and `train_segmentation`; its results
+    saved as rank{r}.pt."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
                             rank=rank, world_size=world)
@@ -91,9 +135,29 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
             out[tag] = {"loss": metrics["loss"], "acc": metrics["acc"],
                         "state": model.state_dict(),
                         "grads": {n: p.grad for n, p in model.named_parameters()}}
+        for tag, dropout in SEG_RUNS:
+            model = ShapeNetPVCNN(**SEG_MODEL)
+            model.load_state_dict(inputs["seg_weights"])
+            model.dropout = dropout
+            state = TrainState(model, *make_optimizer(model, cfg, 1))
+            clouds, labels = shard_batch((inputs["seg_clouds"], inputs["seg_labels"]))
+            gen = torch.Generator().manual_seed(DROPOUT_SEED)
+            metrics = make_sharded_train_step()(state, clouds, labels, gen)
+            out[tag] = {"loss": metrics["loss"], "acc": metrics["acc"],
+                        "state": model.state_dict(),
+                        "grads": {n: p.grad for n, p in model.named_parameters()}}
+        step, group = make_distributed_step(True, GLOBAL_BATCH + 2)
+        out["indivisible_alone"] = step is train_step and group is None
         f1 = inputs["feat1"]
         rows = f1.shape[0] // world
         out["mnn"] = sharded_mutual_nn(f1[rank * rows:(rank + 1) * rows], inputs["feat2"])
+        seg_cfg = _seg_config(os.path.join(workdir, "train_seg"))
+        said = []
+        handler = logging.Handler()
+        handler.emit = lambda record: said.append(record.getMessage())
+        get_logger(seg_cfg.name).addHandler(handler)
+        out["train_seg"] = train_segmentation(seg_cfg, resume=False, device="cpu")["best"]
+        out["train_seg_said"] = said
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -120,8 +184,9 @@ def _spawn(workdir: str) -> list[dict]:
 
 @pytest.fixture(scope="module")
 def dp_run(tmp_path_factory):
-    """The reference's init of tiny_smoke (its create_state), a global
-    batch of 8 clouds and two feature sets, run on 4 gloo ranks."""
+    """The reference's init of tiny_smoke (its create_state) and of the
+    narrow segmentation model, a global batch of 8 clouds, one of 8
+    ShapeNet items and two feature sets, run on 4 gloo ranks."""
     cfg, jcfg = _tiny_configs()
     r = np.random.RandomState(0)
     clouds = r.randn(GLOBAL_BATCH, cfg.dataset.num_points, 6).astype(np.float32)
@@ -133,13 +198,25 @@ def dp_run(tmp_path_factory):
     jmodel = jax_build_model(jcfg)
     jstate, tx = jax_create_state(jmodel, jcfg, jnp.asarray(clouds), steps_per_epoch=1)
     weights = from_flax(_np(jstate.params), _np(jstate.batch_stats))
+    seg_clouds, seg_labels = next(ShapeNet(ShapeNetConfig(
+        num_points=64, synthetic_items={"train": GLOBAL_BATCH, "test": 1}), "train").batches(
+        GLOBAL_BATCH, seed=0))
+    jseg = JaxShapeNetPVCNN(**SEG_MODEL)
+    jseg_params, jseg_stats = _reference_weights(jseg, seg_clouds, seed=jcfg.seed)
+    seg_weights = from_flax_shapenet(jseg_params, jseg_stats)
     workdir = str(tmp_path_factory.mktemp("dp"))
     torch.save({"weights": weights, "clouds": torch.from_numpy(clouds),
                 "labels": torch.from_numpy(labels), "feat1": torch.from_numpy(feat1),
-                "feat2": torch.from_numpy(feat2)}, os.path.join(workdir, "inputs.pt"))
+                "feat2": torch.from_numpy(feat2), "seg_weights": seg_weights,
+                "seg_clouds": torch.from_numpy(seg_clouds),
+                "seg_labels": torch.from_numpy(seg_labels)},
+               os.path.join(workdir, "inputs.pt"))
     ranks = _spawn(workdir)
     return dict(cfg=cfg, jcfg=jcfg, jmodel=jmodel, jstate=jstate, tx=tx, clouds=clouds,
-                labels=labels, feat1=feat1, feat2=feat2, weights=weights, ranks=ranks)
+                workdir=workdir,
+                labels=labels, feat1=feat1, feat2=feat2, weights=weights, ranks=ranks,
+                seg_weights=seg_weights, seg_clouds=seg_clouds, seg_labels=seg_labels,
+                jseg=jseg, jseg_params=jseg_params, jseg_stats=jseg_stats)
 
 
 def _single(run: dict, dropout: float, dtype=torch.float32,
@@ -265,3 +342,146 @@ def test_sharded_mutual_nn_equals_mutual_nearest_neighbors(dp_run):
     np.testing.assert_array_equal(idx2.numpy(), np.asarray(j2))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jm))
     assert bool(mask[3]) != bool(mask[40])  # the tied rows: the lower one is the mutual match
+
+
+def _single_seg(run: dict, dropout: float, dtype=torch.float32) -> tuple[dict, TrainState]:
+    """The segmentation model's train_step on the whole batch in `dtype`
+    (f64: the gradients only)."""
+    model = ShapeNetPVCNN(**SEG_MODEL)
+    model.load_state_dict(run["seg_weights"])
+    model.dropout = dropout
+    model.to(dtype)
+    state = TrainState(model, *make_optimizer(model, run["cfg"], 1))
+    gen = torch.Generator().manual_seed(DROPOUT_SEED)
+    step = train_step if dtype == torch.float32 else forward_backward
+    out = step(state, torch.from_numpy(run["seg_clouds"]).to(dtype),
+               torch.from_numpy(run["seg_labels"]), gen)
+    return out, state
+
+
+@pytest.mark.parametrize("tag, dropout", SEG_RUNS)
+def test_sharded_seg_step_matches_the_single_process_step(dp_run, tag, dropout):
+    """The segmentation model's sharded step on 4 ranks (2 items each):
+    every rank holds the same state; rank 0's loss (the mean over all
+    8·64 points), per-point accuracy, BN statistics, gradients and
+    parameters against train_step on the whole batch, by the rules of the
+    classifier's test above (the gradients by SEG_GRAD_RATIO); with
+    dropout, the ranks' rows of the global
+    [8, 64, 256] masks are the single-process masks."""
+    ranks = dp_run["ranks"]
+    for other in ranks[1:]:
+        assert float(other[tag]["loss"]) == float(ranks[0][tag]["loss"])
+        for k, v in ranks[0][tag]["state"].items():
+            assert torch.equal(other[tag]["state"][k], v), k
+    out, state = _single_seg(dp_run, dropout)
+    got = ranks[0][tag]
+    assert abs(float(got["loss"]) - float(out["loss"])) <= DP_LOSS_RTOL * float(out["loss"])
+    assert abs(float(got["acc"]) - float(out["acc"])) <= 1e-6
+    want = state.model.state_dict()
+    stats = [k for k in want if "running" in k]
+    scale = max(float(want[k].abs().max()) for k in stats)
+    for k in stats:
+        assert float((got["state"][k] - want[k]).abs().max()) <= DP_STATS_TOL * scale, k
+    _, exact = _single_seg(dp_run, dropout, torch.float64)
+    g64 = {n: p.grad for n, p in exact.model.named_parameters()}
+    top = max(float(g.norm()) for g in g64.values())
+    lr = state.schedule(0)
+    for name, p in state.model.named_parameters():
+        g, want_g = got["grads"][name].double(), g64[name]
+        err = float((g - want_g).norm())
+        if float(want_g.norm()) >= GRAD_FLOOR * top:
+            single_err = float((p.grad.double() - want_g).norm())
+            assert err <= max(SEG_GRAD_RATIO * single_err, DP_GRAD_RTOL * float(want_g.norm())), \
+                (name, err / float(want_g.norm()), single_err / float(want_g.norm()))
+        else:
+            assert err <= GRAD_ZERO_TOL * top, (name, err / top)
+        off = (got["state"][name] - p.detach()).abs()
+        settled = (got["grads"][name] - p.grad).abs() <= SETTLED * p.grad.abs()
+        assert float(torch.where(settled, off, 0.0).max()) <= DP_PARAM_TOL, name
+        assert float(off.max()) <= 2.1 * lr, name
+
+
+def test_sharded_seg_step_matches_reference_make_distributed_step(dp_run):
+    """Rank 0's segmentation step (dropout off) against the reference's:
+    rift_tpu's train_segmentation step (`seg_step`, in its data-parallel
+    wrapper) through `make_distributed_step` on the 8-device mesh, dropout
+    off, from the same init and batch; the loss (the mean over all 8·64
+    points), the BN statistics and the updated parameters by the rules of
+    tests/test_torch_seg.py's single-process step; the gradients against
+    the f64 gradient of the same step (the port's `forward_backward` in
+    f64 on the whole batch): the reference's within REF_SEG_GRAD_RTOL of
+    it, which pins the two functions to each other, and the port's at least
+    as close as the reference's (or within DP_GRAD_RTOL)."""
+    jmodel, params = dp_run["jseg"], dp_run["jseg_params"]
+    tx = jax_make_optimizer(dp_run["jcfg"], 1)
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=dp_run["jseg_stats"], opt_state=tx.init(params))
+    seg_step = _ref_seg_step(jmodel, tx)
+
+    def seg2(state, clouds, labels, rng):  # the reference's `_seg2`, with the gradients
+        new_state, loss, grads = seg_step(state, clouds, labels, rng)
+        return new_state, {"loss": loss, "grads": grads}
+
+    dp_step, mesh = jax_make_distributed_step(seg2, True, GLOBAL_BATCH)
+    assert mesh is not None and len(mesh.devices.flat) == 8
+    with fnn.intercept_methods(_no_dropout):
+        j_state, j_metrics = dp_step(jax_replicate(mesh, jstate),
+                                     jax_shard_batch(mesh, jnp.asarray(dp_run["seg_clouds"])),
+                                     jax_shard_batch(mesh, jnp.asarray(dp_run["seg_labels"])),
+                                     jax_replicate(mesh, jax.random.PRNGKey(0)))
+    got = dp_run["ranks"][0]["seg_plain"]
+    np.testing.assert_allclose(float(got["loss"]), float(j_metrics["loss"]), rtol=LOSS_RTOL)
+    stats = _np(j_state.batch_stats)
+    want = from_flax_shapenet(_np(j_state.params), stats)
+    jgrads = from_flax_shapenet(_np(j_metrics["grads"]), stats)
+    running = [k for k in want if "running" in k]
+    assert len(running) == len(jax.tree_util.tree_leaves(j_state.batch_stats))
+    scale = max(float(want[k].abs().max()) for k in running)
+    for k in running:
+        assert float((got["state"][k] - want[k]).abs().max()) <= STATS_TOL * scale, k
+    _, exact = _single_seg(dp_run, 0.0, torch.float64)
+    g64 = {n: p.grad for n, p in exact.model.named_parameters()}
+    top = max(float(g.norm()) for g in g64.values())
+    _, schedule = make_optimizer(ShapeNetPVCNN(**SEG_MODEL), dp_run["cfg"], 1)
+    lr = schedule(0)
+    for name, g in got["grads"].items():
+        want_g, exact_g = jgrads[name], g64[name]
+        norm = float(exact_g.norm())
+        if norm >= GRAD_FLOOR * top:
+            ref_err = float((want_g.double() - exact_g).norm())
+            assert ref_err <= REF_SEG_GRAD_RTOL * norm, (name, ref_err / norm)
+            err = float((g.double() - exact_g).norm())
+            assert err <= max(ref_err, DP_GRAD_RTOL * norm), (name, err / norm, ref_err / norm)
+        else:
+            assert float((g - want_g).norm()) <= GRAD_ZERO_TOL * top, name
+        off = (got["state"][name] - want[name]).abs()
+        settled = (g - want_g).abs() <= SETTLED * want_g.abs()
+        assert float(torch.where(settled, off, 0.0).max()) <= SETTLED_PARAM_TOL, name
+        assert float(off.max()) <= 2.1 * lr, (name, float(off.max()) / lr)
+
+
+def test_train_segmentation_on_the_ranks_is_data_parallel(dp_run, tmp_path):
+    """train_segmentation on the 4 ranks (one item of the global batch of
+    4 each, as each rank logs): rank 0 alone writes the metric log and the
+    checkpoints, the
+    epoch's loss is within DP_LOSS_RTOL of the single-process run's and
+    every rank holds the mIoU that rank 0 evaluated, within 1e-3 of the
+    single-process run's (the same state up to the order of the sums)."""
+    ckpt = os.path.join(dp_run["workdir"], "train_seg")
+    with open(os.path.join(ckpt, "tiny_smoke.metrics.jsonl")) as f:
+        dp = [json.loads(line) for line in f]
+    assert len(dp) == 1 and dp[0]["step"] == 2
+    assert {"common.pt", "best_iou.pt"} <= set(os.listdir(ckpt))
+    for r in dp_run["ranks"]:
+        assert "data-parallel over 4 ranks (gloo)" in r["train_seg_said"]
+        assert r["train_seg"] == {"iou": dp[0]["iou"]}
+    single_dir = str(tmp_path / "single")
+    best = train_segmentation(_seg_config(single_dir), resume=False, device="cpu")["best"]
+    with open(os.path.join(single_dir, "tiny_smoke.metrics.jsonl")) as f:
+        single = [json.loads(line) for line in f]
+    assert abs(dp[0]["loss"] - single[0]["loss"]) <= DP_LOSS_RTOL * single[0]["loss"]
+    assert abs(dp[0]["iou"] - best["iou"]) <= 1e-3
+
+
+def test_a_batch_the_ranks_do_not_divide_trains_each_rank_alone(dp_run):
+    assert all(r["indivisible_alone"] for r in dp_run["ranks"])

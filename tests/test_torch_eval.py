@@ -299,7 +299,8 @@ def test_flip_gate_needs_the_change_coords_preprocess(monkeypatch):
     """register_eval_batch runs the flip hypotheses only when the evaluate
     section asks for them and the trunk's preprocess is 'change_coords'
     (the reference's gate, rift_tpu/train/loop.py:521-522); otherwise one
-    2b forward and register_pair."""
+    2b forward and register_pair. Each preprocess's own trunk, now that
+    all are ported."""
     cfg, model = _tiny_extractor(flips=True)
     batch = next(t_loop.get_pairs(None, 128, "noise", 2).batches(2))
     src, dst = torch.as_tensor(batch.source), torch.as_tensor(batch.target)
@@ -308,9 +309,13 @@ def test_flip_gate_needs_the_change_coords_preprocess(monkeypatch):
                         lambda m, x, b: seen.append("5b") or flip_features(m, x, b))
     monkeypatch.setattr(t_loop, "register_pair",
                         lambda *a, **kw: seen.append("2b") or register_pair(*a, **kw))
-    for preprocess, path in (("change_coords", "5b"), ("pca", "2b"), (None, "2b")):
+    for preprocess, path in (("change_coords", "5b"), ("ppf", "2b"), ("new_ppf", "2b"),
+                             ("pca", "2b"), (None, "2b")):
         seen.clear()
-        model.rot_invariant_preprocess = preprocess
+        cfg.model.rot_invariant_preprocess = preprocess
+        model = t_loop.build_model(cfg)
+        t_loop.init_params(model, 0)
+        model.eval()
         assert t_loop.uses_flips(model, cfg.evaluate) == (path == "5b")
         est = t_loop.register_eval_batch(model, src, dst, cfg.evaluate)
         assert seen == [path] and est.shape == (2, 4, 4)
