@@ -128,6 +128,33 @@ Phases (each prints one line with its wall time):
                points/s, the split, a profiled step, peak memory, the loss
                falling), the eval forward at 32 x 2048 timed, card vs CPU
                on 2 clouds (logits, one step), and K2/K3/K4 at its shapes.
+ 18. map-sequence — `cli.main(["map-sequence", "--preset", MAP_PRESET,
+               "--ckpt", DIR])` on a seeded checkpoint, the preset unchanged
+               (the cube trunk at full width, teaserpp, noise bound 0.05;
+               the sequence's 24 scans x 1024 points, loop stride 6: 29
+               edges, one gated round, 10 GN and 8 BA iterations), twice
+               (the second call warm), then with evaluate.method=
+               ransac+picp, then with sequence.num_scans=96 (125 edges, a
+               576 x 576 pose system): each call's seconds and its stages
+               (features, both registration passes, refresh, both pose
+               graphs, landmarks on the host, BA; each ended by a
+               synchronize), peak memory, K1-K3 launches equal to
+               map_launches, every metric finite; K1 on a feature chunk of
+               16 scans and K2/K3 on its 4-flip stack against their plain
+               versions.
+ 19. map parity — map_sequence on oracle features (world coordinates) of
+               the 24 x 1024 sequence on the card against its CPU run
+               (MAP_TOL); optimize_pose_graph and bundle_adjust on the CPU
+               run's own inputs within SOLVE_TOL of its poses' scale, two
+               card calls bit-equal, both under sync debug mode "error";
+               map_sequence with --mesh's group (one NCCL rank) bit-equal
+               to the unsharded card run.
+ 20. evaluate --methods — `cli.main(["evaluate", "--preset", SWEEP_PRESET,
+               "--ckpt", DIR, "--methods", ...])` (100 pairs, 64 a batch):
+               per-method reg_time and pairs/s, the match pass's ms a batch
+               (median of TIMED_BATCHES), K1-K3 launches a batch; the
+               teaserpp row's poses bit-equal to register_eval_batch's on
+               the same batch; K1-K3 at its shapes.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -442,6 +469,31 @@ def tls_cost(transform, src, dst, mask, noise_bound: float):
     moved = src @ transform[..., :3, :3].transpose(-1, -2) + transform[..., None, :3, 3]
     r2 = ((moved - dst) ** 2).sum(-1) / noise_bound ** 2
     return torch.where(mask, torch.clamp(r2, max=1.0), torch.zeros_like(r2)).sum(-1)
+
+# Multi-scan mapping, `cli map-sequence --preset MAP_PRESET` unchanged, then
+# with each of MAP_RUNS' overrides. K1 runs once per feature chunk of
+# MAP_CHUNK scans (extract_features_flips) and, with '+picp', once per edge
+# batch of MAP_EDGE_BATCH in each of the 2 registration passes (the
+# targets' normals); K2 and K3 twice per chunk's 4-flip forward.
+MAP_PRESET = "reg_icl_nuim_teaserpp_cu_dg"
+# (label, path in the kernels line, overrides); the second call is warm.
+MAP_RUNS = (("teaserpp", "map_sequence", []),
+            ("teaserpp, warm", "map_sequence_warm", []),
+            ("ransac+picp", "map_sequence_ransac_picp", ["evaluate.method=ransac+picp"]),
+            ("96 scans", "map_sequence_96", ["sequence.num_scans=96"]))
+MAP_CHUNK, MAP_EDGE_BATCH, MAP_LOOP_STRIDE = 16, 16, 6
+# map parity: the pipeline on oracle features, card vs CPU, within MAP_TOL
+# (measurements, graph and BA poses, ATEs; tests/test_torch_sequence.py's
+# tolerance against the reference); the two solves on the CPU run's own
+# inputs within SOLVE_TOL of the largest pose entry.
+MAP_TOL, SOLVE_TOL = 1e-3, 1e-5
+# The method sweep through the command line, from a seeded checkpoint of
+# SWEEP_PRESET (the cube trunk, 100 noise pairs of 1024 points, 64 a batch,
+# flips, canonical voxels). K1 on the 2b clouds and, for '+picp', on the b
+# targets; K2 and K3 twice: SWEEP_LAUNCHES a batch.
+SWEEP_PRESET = "reg_noise_teaserpp_cu_dg"
+SWEEP_METHODS = ("ransac", "fgr", "teaserpp", "ransac+picp")
+SWEEP_LAUNCHES = {"normals_moments": 2, "scatter_mean": 2, "corner_gather": 2}
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -2938,6 +2990,259 @@ def seg_parity(cfg, test) -> str:
                                                f"{SEG_PARITY_CLOUDS} clouds x {SEG_POINTS}")
 
 
+# --- Multi-scan mapping and the method sweep (registration/sequence.py) ----
+
+# The reference's map-sequence result keys, in its order.
+MAP_KEYS = ["num_edges", "mean_edge_inliers", "ate_odometry", "ate_graph", "ate_ba",
+            "mean_step_rre", "max_step_rre", "step_rre_odom", "step_rre_graph", "mean_edge_rre"]
+RESULT_KEYS = ["rre", "rte", "rmse", "succ", "rmse_succ", "reg_time"]
+
+
+def run_cli(argv: list, logger_name: str | None = None) -> tuple[dict, list]:
+    """`cli.main(argv)` in this process (device: the card, the CLI's
+    default): its `key: value` lines as a dict, and the arguments of the
+    records that the preset's logger `logger_name` wrote during the call."""
+    import contextlib
+    import io
+    import logging
+
+    from rift_tpu_torch import cli
+    from rift_tpu_torch.train.utils import get_logger
+
+    records: list = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = get_logger(logger_name) if logger_name else None
+    if log is not None:
+        log.addHandler(handler)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            code = cli.main(argv)
+    finally:
+        if log is not None:
+            log.removeHandler(handler)
+    if code != 0:
+        fail(f"cli {' '.join(argv)} exited {code}: {out.getvalue()}")
+    results = {k: float(v) for k, v in (line.split(": ") for line in out.getvalue().splitlines())}
+    return results, records
+
+
+def map_launches(num_scans: int, picp: bool) -> dict:
+    """The reckoned K1-K3 launches of one map-sequence call."""
+    from rift_tpu_torch.registration import build_edges
+
+    chunks = -(-num_scans // MAP_CHUNK)
+    batches = -(-len(build_edges(num_scans, MAP_LOOP_STRIDE)[0]) // MAP_EDGE_BATCH)
+    return {"normals_moments": chunks + (2 * batches if picp else 0),
+            "scatter_mean": 2 * chunks, "corner_gather": 2 * chunks}
+
+
+def map_phase(wrappers: dict) -> dict:
+    """`cli map-sequence` of MAP_PRESET on the card from a seeded checkpoint,
+    once per MAP_RUNS entry: the call's seconds, its stages' seconds (the
+    'map-sequence seconds' record of run_map_sequence), peak memory,
+    launches against map_launches, and its metrics (the reference's keys,
+    finite); then K1, K2 and K3 at a feature chunk's shapes."""
+    import torch
+
+    from rift_tpu_torch.data import get_sequence
+    from rift_tpu_torch.train import resolve_extractor
+
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = eval_checkpoint(ckpt_dir, MAP_PRESET)
+        for label, path, overrides in MAP_RUNS:
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            metrics, records = run_cli(["map-sequence", "--preset", MAP_PRESET, "--ckpt",
+                                        ckpt_dir, *overrides], cfg.name)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            launches = read_counts(wrappers)
+            num_scans = 96 if "sequence.num_scans=96" in overrides else cfg.sequence.num_scans
+            want = map_launches(num_scans, any("+picp" in o for o in overrides))
+            if any(launches[name] != want.get(name, 0) for name in wrappers):
+                fail(f"map-sequence ({label}): launches {launches}, reckoned {want}")
+            if list(metrics) != MAP_KEYS or not all(math.isfinite(v) for v in metrics.values()):
+                fail(f"map-sequence ({label}) printed {metrics}")
+            seconds = [r.args if isinstance(r.args, dict) else r.args[0] for r in records
+                       if str(r.msg).startswith("map-sequence seconds")]
+            if len(seconds) != 1:
+                fail(f"map-sequence ({label}) logged no stage seconds")
+            method = next((o.split("=", 1)[1] for o in overrides
+                           if o.startswith("evaluate.method=")), cfg.evaluate.method)
+            runs.append(dict(label=label, path=path, method=method, run_s=run_s,
+                             seconds=seconds[0], launches=launches,
+                             reckoned=want, metrics=metrics, num_scans=num_scans,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        model = resolve_extractor(cfg)
+    scans = torch.as_tensor(get_sequence(cfg.sequence).scans[:MAP_CHUNK], device="cuda")
+    return dict(runs=runs, kernels=eval_kernel_times(model, scans, scans[:0]), config=cfg)
+
+
+def oracle_features(seq):
+    """World coordinates as each scan point's descriptor: the nearest
+    physical point is the nearest feature."""
+    import numpy as np
+
+    return np.stack([s @ p[:3, :3].T + p[:3, 3]
+                     for s, p in zip(seq.scans, seq.gt_poses)]).astype(np.float32)
+
+
+def map_parity() -> str:
+    """map_sequence of MAP_PRESET's settings on oracle features of its
+    sequence, card vs CPU (MAP_TOL); the pose graph and BA on the CPU run's
+    own inputs on the card, twice under sync debug mode "error": bit-equal,
+    within SOLVE_TOL of the CPU's poses' scale; then with the one-rank
+    group `--mesh` makes (NCCL), graph and BA bit-equal to the card run."""
+    import numpy as np
+    import torch
+
+    from rift_tpu_torch.data import get_sequence
+    from rift_tpu_torch.parallel.mesh import mesh_group
+    from rift_tpu_torch.registration import bundle_adjust, map_sequence, optimize_pose_graph
+    from rift_tpu_torch.train import get_config
+
+    cfg = get_config(MAP_PRESET)
+    ev = cfg.evaluate
+    seq = get_sequence(cfg.sequence)
+    feats = oracle_features(seq)
+    kw = dict(gt_poses=seq.gt_poses, method=ev.method, noise_bound=ev.noise_bound,
+              num_hypotheses=ev.num_hypotheses, inlier_threshold=ev.inlier_threshold,
+              loop_stride=MAP_LOOP_STRIDE, seed=cfg.seed)
+    t1 = time.perf_counter()
+    card = map_sequence(seq.scans, feats, device="cuda", **kw)
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu = map_sequence(seq.scans, feats, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t1
+    diffs = {k: float(np.abs(getattr(card, k) - getattr(cpu, k)).max())
+             for k in ("measurements", "graph", "ba")}
+    diffs.update({k: abs(card.metrics[k] - cpu.metrics[k])
+                  for k in ("ate_odometry", "ate_graph", "ate_ba")})
+    if max(diffs.values()) > MAP_TOL or not np.array_equal(card.edges[0], cpu.edges[0]):
+        fail(f"map parity: card vs CPU on oracle features {diffs} (tol {MAP_TOL})")
+
+    dev = torch.device("cuda")
+    g = {k: torch.as_tensor(v, device=dev) for k, v in cpu.inputs["graph"].items()}
+    b = {k: torch.as_tensor(v, device=dev) for k, v in cpu.inputs["ba"].items()}
+    edges = (g["i_idx"], g["j_idx"], g["measurements"], b["edge_weights"])
+
+    def graph_solve():
+        return optimize_pose_graph(g["poses"], g["i_idx"], g["j_idx"], g["measurements"],
+                                   g["weights"], num_iterations=10)
+
+    def ba_solve():
+        return bundle_adjust(b["poses"], b["landmarks"], b["obs_pose"], b["obs_local"],
+                             num_iterations=8, huber_delta=1.5 * ev.noise_bound, edges=edges)
+
+    graph_solve(), ba_solve()  # warm-up outside the sync check
+    times, outs = {"graph": [], "ba": []}, {"graph": [], "ba": []}
+    for _ in range(2):
+        for name, fn in (("graph", graph_solve), ("ba", ba_solve)):
+            outs[name].append(run_stage(name, fn, True, None, sync_free=True))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+    (g1, g2), (b1, b2) = outs["graph"], outs["ba"]
+    if not (torch.equal(g1, g2) and torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])):
+        fail("map parity: two card solves on the same inputs differ")
+    scale = max(1.0, float(np.abs(cpu.graph).max()))
+    solve_err = {"graph": float(np.abs(g1.cpu().numpy() - cpu.graph).max()),
+                 "ba": float(np.abs(b1[0].cpu().numpy() - cpu.ba).max())}
+    if max(solve_err.values()) > SOLVE_TOL * scale:
+        fail(f"map parity: the card's solves on the CPU's inputs miss its poses by "
+             f"{solve_err} (tol {SOLVE_TOL} x {scale:.3f})")
+
+    with mesh_group(dev) as group:
+        backend = torch.distributed.get_backend(group)
+        mesh = map_sequence(seq.scans, feats, device="cuda", group=group, **kw)
+    if not (np.array_equal(mesh.graph, card.graph) and np.array_equal(mesh.ba, card.ba)):
+        fail(f"map parity: --mesh's one-rank {backend} solves differ from the unsharded ones "
+             f"by {float(np.abs(mesh.graph - card.graph).max()):.3e} (graph), "
+             f"{float(np.abs(mesh.ba - card.ba).max()):.3e} (BA)")
+    n_lm = cpu.inputs["ba"]["landmarks"].shape[0]
+    return (f"oracle features, {len(seq)} x {seq.scans.shape[1]}: card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s, card vs CPU max diffs {json.dumps({k: float(f'{v:.3g}') for k, v in diffs.items()})} "
+            f"(tol {MAP_TOL}); ATE odometry/graph/BA {card.metrics['ate_odometry']:.4f}/"
+            f"{card.metrics['ate_graph']:.4f}/{card.metrics['ate_ba']:.4f} (CPU "
+            f"{cpu.metrics['ate_ba']:.4f}); on the CPU's inputs ({len(edges[0])} edges, {n_lm} "
+            f"landmarks): pose graph {sorted(times['graph'])[0]:.2f} ms, BA "
+            f"{sorted(times['ba'])[0]:.2f} ms (best of 2), max diff to the CPU "
+            f"{solve_err['graph']:.2e}/{solve_err['ba']:.2e} (tol {SOLVE_TOL * scale:.2e}), "
+            f"two calls bit-equal, no host sync; --mesh ({backend}, one rank) bit-equal")
+
+
+def sweep_phase(wrappers: dict) -> dict:
+    """`cli evaluate --methods` of SWEEP_PRESET on the card from a seeded
+    checkpoint: per-method results (finite), launches (SWEEP_LAUNCHES a
+    batch); then on its first batch the match pass timed (median of
+    TIMED_BATCHES), one staged batch's launches, the teaserpp row's poses
+    bit-equal to register_eval_batch's, and K1-K3 at its shapes."""
+    import dataclasses
+
+    import torch
+
+    from rift_tpu_torch.data import get_pairs
+    from rift_tpu_torch.train import resolve_extractor
+    from rift_tpu_torch.train.loop import match_eval_batch, register_eval_batch, solve_eval_batch
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = eval_checkpoint(ckpt_dir, SWEEP_PRESET)
+        ev = cfg.evaluate
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        results, _ = run_cli(["evaluate", "--preset", SWEEP_PRESET, "--ckpt", ckpt_dir,
+                              "--methods", ",".join(SWEEP_METHODS)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_counts(wrappers)
+        batches = 1 + -(-ev.num_pairs // ev.batch_pairs)  # the warm-up and the timed ones
+        if any(launches[k] != SWEEP_LAUNCHES.get(k, 0) * batches for k in wrappers):
+            fail(f"evaluate --methods: launches {launches} in {batches} batches, expected "
+                 f"{SWEEP_LAUNCHES} a batch")
+        want_keys = [f"{m.replace('+', '_')}_{k}" for m in SWEEP_METHODS for k in RESULT_KEYS]
+        if list(results) != want_keys or not all(math.isfinite(v) for v in results.values()):
+            fail(f"evaluate --methods printed {results}")
+        model = resolve_extractor(cfg)
+    dev = torch.device("cuda")
+    batch = next(get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode,
+                           ev.num_pairs).batches(ev.batch_pairs))
+    src, dst = (torch.as_tensor(a, device=dev) for a in (batch.source, batch.target))
+    times = []
+    for _ in range(TIMED_BATCHES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        matches = match_eval_batch(model, src, dst, ev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    before = read_counts(wrappers)
+    matches = match_eval_batch(model, src, dst, ev)
+    gen = torch.Generator(device=dev)
+    ests = {m: solve_eval_batch(src, dst, matches, ev, m, gen.manual_seed(cfg.seed))
+            for m in SWEEP_METHODS}
+    after = read_counts(wrappers)
+    per_batch = {k: after[k] - before[k] for k in after}
+    if any(per_batch[k] != SWEEP_LAUNCHES.get(k, 0) for k in per_batch):
+        fail(f"evaluate --methods: a staged batch launched {per_batch}, expected "
+             f"{SWEEP_LAUNCHES}")
+    est = register_eval_batch(model, src, dst, dataclasses.replace(ev, method="teaserpp"))
+    if not torch.equal(ests["teaserpp"], est):
+        fail(f"evaluate --methods: the teaserpp row's poses differ from register_eval_batch's "
+             f"by {float((ests['teaserpp'] - est).abs().max()):.3e}")
+    return dict(results=results, run_s=run_s, peak_gb=peak_gb, launches=launches,
+                batches=batches, per_batch=per_batch, match_ms=sorted(times)[len(times) // 2],
+                kernels=eval_kernel_times(model, src, dst, targets_k1=True), evaluate=ev)
+
+
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
     """The result lines of a reg_phase run of `preset`."""
     res, ev = rg["results"], rg["evaluate"]
@@ -3160,7 +3465,44 @@ def main() -> int:
     phase("train-seg", t0, f"fixed-batch losses {short(sg['losses'])}; launches "
                            f"{sg['launches']}, {sg['per_forward']} an eval forward; parity: "
                            f"{sg['parity']}")
-    for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg)):
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp = map_phase(wrappers)
+    for run in mp["runs"]:
+        print(f"map-sequence ({run['label']}): {smi}: {MAP_PRESET} (cube trunk, flips, "
+              f"{run['method']}), {run['num_scans']} scans x {mp['config'].sequence.num_points} points, "
+              f"{int(run['metrics']['num_edges'])} edges: whole call {run['run_s']:.2f} s; "
+              f"stages " + ", ".join(f"{k} {v:.3f} s" for k, v in run["seconds"].items())
+              + f"; peak {run['peak_gb']:.2f} GB; launches {run['launches']} (reckoned "
+              f"{run['reckoned']}); metrics (seeded weights: information only) "
+              f"{json.dumps({k: round(v, 6) for k, v in run['metrics'].items()})}", flush=True)
+    phase("map-sequence", t0, f"{len(mp['runs'])} calls of cli map-sequence, launches as "
+                              "reckoned, metrics finite")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase("map parity", t0, map_parity())
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sw = sweep_phase(wrappers)
+    ev_sw = sw["evaluate"]
+    print(f"evaluate --methods: {smi}: {SWEEP_PRESET} ({', '.join(SWEEP_METHODS)} on one "
+          f"matching pass), {ev_sw.num_pairs} {ev_sw.pairs_mode} pairs x {ev_sw.num_points} "
+          f"points, {ev_sw.batch_pairs} a batch: whole call {sw['run_s']:.2f} s for "
+          f"{sw['batches']} batches with the warm-up; matching {sw['match_ms']:.2f} ms a batch "
+          f"(median of {TIMED_BATCHES}); " + "; ".join(
+              f"{m} reg_time {sw['results'][m.replace('+', '_') + '_reg_time'] * 1e3:.3f} ms a "
+              f"pair ({1.0 / sw['results'][m.replace('+', '_') + '_reg_time']:.2f} pairs/s), "
+              f"rre {sw['results'][m.replace('+', '_') + '_rre']:.3f}"
+              for m in SWEEP_METHODS)
+          + f"; peak {sw['peak_gb']:.2f} GB (seeded weights: information only)", flush=True)
+    phase("evaluate --methods", t0, f"launches {sw['launches']} in {sw['batches']} batches, "
+                                    f"{sw['per_batch']} in a staged one; teaserpp row "
+                                    "bit-equal to register_eval_batch's")
+    for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg),
+                      ("map_sequence", mp), ("evaluate_methods", sw)):
         for name, rows in res["kernels"].items():
             report[name][path] = rows
 
@@ -3168,7 +3510,9 @@ def main() -> int:
              "train": tr["launches"], "evaluate": ev["launches"],
              "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"],
              "train_bf16": bf["launches"], "evaluate_cls": ce["launches"],
-             "train_dp": dp["launches"], "train_seg": sg["launches"]}
+             "train_dp": dp["launches"], "train_seg": sg["launches"],
+             **{run["path"]: run["launches"] for run in mp["runs"]},
+             "evaluate_methods": sw["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -3188,7 +3532,8 @@ def main() -> int:
                                    "degenerate", "other_r", "bisection_bound_ms",
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
-                                   "evaluate_cls", "train_seg")
+                                   "evaluate_cls", "train_seg", "map_sequence",
+                                   "evaluate_methods")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,22 +4,29 @@
   python -m rift_tpu_torch.cli train --preset mn40_sph_dg [--no-resume] [a.b=v ...]
   torchrun --nproc_per_node=4 -m rift_tpu_torch.cli train --preset mn40_sph_dg [...]
   python -m rift_tpu_torch.cli evaluate --preset reg_icl_nuim [--ckpt DIR] \
-      [--best METRIC] [--untrained] [a.b=v ...]
+      [--best METRIC] [--untrained] [--methods ransac,fgr,...] [a.b=v ...]
+  python -m rift_tpu_torch.cli map-sequence --preset reg_icl_nuim_teaserpp_cu_dg \
+      [--ckpt DIR] [--best METRIC] [--loop-stride S] [--landmarks-per-edge L] \
+      [--mesh] [a.b=v ...]
+  torchrun --nproc_per_node=4 -m rift_tpu_torch.cli map-sequence --mesh [...]
   python -m rift_tpu_torch.cli evaluate-cls --preset mn40_sph_dg [--ckpt DIR] \
       [--best METRIC] [--rotations K] [--no-hard] [--sweep] [dataset.a=v ...]
   python -m rift_tpu_torch.cli train-seg --preset shapenet_seg [a.b=v ...]
 
-`train`, `evaluate`, `evaluate-cls` and `train-seg` run on the CUDA card
-(`--device cuda`, the default, which fails without one) or, when asked,
-on the CPU with the kernels' plain versions (`--device cpu`). `a.b=v`
-overrides set preset fields (`train/config.py:apply_overrides`). Under
-torchrun, `train` and `train-seg` join the process group of their
-environment (NCCL between cards, gloo with `--device cpu`) and train
-data-parallel (`train.data_parallel`). `train-seg` resumes from `common`
-in `train.ckpt_dir`, as the reference's does, and trains on the synthetic
-ShapeNet split (the reference's command line passes no data directory).
-The reference's method sweep (`evaluate --methods`) and `map-sequence`
-are not ported yet and exit with the ROADMAP item that ports them.
+Every command but `presets` runs on the CUDA card (`--device cuda`, the
+default, which fails without one) or, when asked, on the CPU with the
+kernels' plain versions (`--device cpu`). `a.b=v` overrides set preset
+fields (`train/config.py:apply_overrides`). Under torchrun, `train` and
+`train-seg` join the process group of their environment (NCCL between
+cards, gloo with `--device cpu`) and train data-parallel
+(`train.data_parallel`), and `map-sequence --mesh` joins it to shard its
+pose-graph and bundle-adjustment solves (every rank runs the rest; rank
+0 prints); without a launcher, `--mesh` runs them on a group of one rank.
+`train-seg` resumes from `common` in `train.ckpt_dir`, as the
+reference's does, and trains on the synthetic ShapeNet split (the
+reference's command line passes no data directory). `evaluate --methods`
+runs every listed method on one matching pass and prints
+`{method}_{metric}` lines ('+' written '_').
 """
 from __future__ import annotations
 
@@ -29,13 +36,11 @@ import sys
 
 import torch.distributed as dist
 
-from .parallel import initialize_multihost
+from .parallel import initialize_multihost, rank_and_world
 from .train import (apply_overrides, evaluate_classification_ckpt, evaluate_registration,
-                    get_config, presets, train_segmentation)
+                    evaluate_registration_sweep, get_config, presets, run_map_sequence,
+                    train_segmentation)
 from .train import train as run_train
-
-# Not ported yet: (subcommand or option, ROADMAP item).
-NOT_PORTED = {"--methods": 10, "map-sequence": 10}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_eval.add_argument("--untrained", action="store_true",
                         help="allow evaluating an untrained model (smoke runs only)")
     p_eval.add_argument("--methods", default=None,
-                        help="comma list: the method sweep (not ported yet)")
+                        help="comma list: every method on ONE matching pass; prints "
+                             "{method}_{metric} lines")
     p_eval.add_argument("overrides", nargs="*")
 
     p_ecls = sub.add_parser("evaluate-cls", parents=[device],
@@ -81,8 +87,16 @@ def build_parser() -> argparse.ArgumentParser:
     p_seg.add_argument("overrides", nargs="*")
 
     p_map = sub.add_parser("map-sequence", parents=[device],
-                           help=f"not ported yet (ROADMAP item {NOT_PORTED['map-sequence']})")
+                           help="multi-scan mapping: pairwise registration -> odometry -> "
+                                "pose graph -> bundle adjustment -> ATE")
     p_map.add_argument("--preset", default="reg_icl_nuim_teaserpp_cu_dg")
+    p_map.add_argument("--ckpt", default=None, metavar="DIR")
+    p_map.add_argument("--best", default=None, metavar="METRIC")
+    p_map.add_argument("--loop-stride", type=int, default=6)
+    p_map.add_argument("--landmarks-per-edge", type=int, default=64)
+    p_map.add_argument("--mesh", action="store_true",
+                       help="shard the pose-graph and BA solves over the process group")
+    p_map.add_argument("overrides", nargs="*")
 
     sub.add_parser("presets", help="list experiment presets")
     return parser
@@ -90,19 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)  # the unported commands' own options
-    if args.command in NOT_PORTED:
-        parser.error(f"{args.command} is not ported yet "
-                     f"(ROADMAP item {NOT_PORTED[args.command]})")
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = parser.parse_args(argv)
     if args.command == "presets":
         for name in sorted(presets()):
             print(name)
         return 0
-    if args.command == "evaluate" and args.methods:
-        parser.error(f"evaluate --methods (the method sweep) is not ported yet "
-                     f"(ROADMAP item {NOT_PORTED['--methods']})")
 
     config = get_config(args.preset)
     apply_overrides(config, args.overrides)
@@ -118,6 +124,21 @@ def main(argv: list[str] | None = None) -> int:
                 dist.destroy_process_group()
         return 0
     ckpt_name = f"best_{args.best}" if args.best else None
+    if args.command == "map-sequence":
+        joined = (args.mesh and not dist.is_initialized()
+                  and initialize_multihost(args.device) is not None)
+        try:
+            results = run_map_sequence(config, ckpt_dir=args.ckpt, ckpt_name=ckpt_name,
+                                       loop_stride=args.loop_stride,
+                                       landmarks_per_edge=args.landmarks_per_edge,
+                                       use_mesh=args.mesh, device=args.device)
+            if rank_and_world()[0] == 0:
+                for key, value in results.items():
+                    print(f"{key}: {value:.6f}")
+        finally:
+            if joined:
+                dist.destroy_process_group()
+        return 0
     if args.command == "evaluate-cls":
         results = evaluate_classification_ckpt(
             config, ckpt_dir=args.ckpt, ckpt_name=ckpt_name, rotations=args.rotations,
@@ -133,6 +154,14 @@ def main(argv: list[str] | None = None) -> int:
         if not (config.evaluate.ckpt_dir or os.path.isfile(probe)):
             parser.error(f"no checkpoint at {probe!r}; pass --ckpt DIR / --best METRIC, "
                          "or --untrained to score random weights")
+    if args.methods:
+        sweep = evaluate_registration_sweep(config, args.methods.split(","), ckpt_dir=args.ckpt,
+                                            ckpt_name=ckpt_name, device=args.device)
+        for method, results in sweep.items():
+            slug = method.replace("+", "_")
+            for key, value in results.items():
+                print(f"{slug}_{key}: {value:.6f}")
+        return 0
     results = evaluate_registration(config, ckpt_dir=args.ckpt, ckpt_name=ckpt_name,
                                     device=args.device)
     for key, value in results.items():

@@ -1,5 +1,6 @@
 """Neighbour search: squared distances, k nearest neighbours, ball query,
-grouping, the PointNet++ ball grouping and 3-NN interpolation, mutual NN.
+grouping, the PointNet++ ball grouping and 3-NN interpolation, mutual NN
+and its motion-gated form.
 
 Twin of `rift_tpu/ops/neighbors.py`. The TPU shapes of that module (the
 one-hot gathers and the [m, u, n] slot selector of `ball_query_group`,
@@ -154,4 +155,21 @@ def mutual_nearest_neighbors(feat1: Tensor, feat2: Tensor
     n1 = feat1.shape[-2]
     arange = torch.arange(n1, device=feat1.device)
     mask = torch.gather(corr21, -1, corr12) == arange
+    return arange, corr12, mask
+
+
+def gated_mutual_nearest_neighbors(feat1: Tensor, feat2: Tensor, spatial_valid: Tensor
+                                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """`mutual_nearest_neighbors` over the candidate pairs that
+    `spatial_valid` [..., n1, n2] allows: the others are left out of both
+    argmins (their distance set to the dtype's largest value), and a point
+    with no allowed candidate comes back masked out."""
+    big = torch.finfo(feat1.dtype).max
+    d = pairwise_sqdist(feat1, feat2).masked_fill(~spatial_valid, big)
+    corr12 = torch.argmin(d, dim=-1)
+    corr21 = torch.argmin(d, dim=-2)
+    n1 = feat1.shape[-2]
+    arange = torch.arange(n1, device=feat1.device)
+    has = torch.gather(spatial_valid, -1, corr12[..., None])[..., 0]
+    mask = (torch.gather(corr21, -1, corr12) == arange) & has
     return arange, corr12, mask

@@ -12,6 +12,7 @@ rank keeps its own rows, and `replicate` makes every rank start from rank
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -36,6 +37,27 @@ def initialize_multihost(device: str | torch.device | None = None
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method="env://")
     return dist.group.WORLD
+
+
+@contextlib.contextmanager
+def mesh_group(device: torch.device, enabled: bool = True):
+    """Context giving the group a sharded solve runs on: None when not
+    `enabled`; the default process group when one exists (torchrun's);
+    else a group of this process alone for the context's length (NCCL on
+    the card, gloo on the CPU, over an in-process store), as the
+    reference's mesh over one device."""
+    if not enabled:
+        yield None
+        return
+    if dist.is_initialized():
+        yield dist.group.WORLD
+        return
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_and_world(group: dist.ProcessGroup | None = None) -> tuple[int, int]:

@@ -14,6 +14,18 @@ global batch's.
 
 `sharded_mutual_nn` is `ops.neighbors.mutual_nearest_neighbors` with the
 distance matrix split by rows over the ranks.
+
+`optimize_pose_graph_sharded` and `bundle_adjust_sharded` are the
+sequence's two solves with the edges, or the landmarks, split over the
+ranks: each rank assembles its shard's normal equations, (H, b) or the
+Schur system (S, b) is all-reduced every iteration and solved on every
+rank alike; BA's edge system is added once after the reduction, its
+guard's landmark costs are all-reduced, and each rank back-substitutes
+its own landmarks. On one rank both are bit-equal to the single solves
+(`registration/pose_graph.py`, `registration/bundle_adjust.py`), whose
+loops they share. (The reference's sharded pose graph damps its system
+by 1e-6 once where its single solve adds `damping` twice; here both add
+it as the single solve does.)
 """
 from __future__ import annotations
 
@@ -23,6 +35,9 @@ import torch
 import torch.distributed as dist
 
 from ..ops.neighbors import pairwise_sqdist
+from ..ops.precision import f32_geometry
+from ..registration.bundle_adjust import _edge_tensors, solve_bundle
+from ..registration.pose_graph import solve_pose_graph
 from ..train.steps import TrainState, apply_update, forward_backward
 
 Tensor = torch.Tensor
@@ -111,3 +126,34 @@ def make_sharded_train_step(group: dist.ProcessGroup | None = None):
         return {"loss": metrics[0], "acc": metrics[1]}
 
     return step
+
+
+def optimize_pose_graph_sharded(poses: Tensor, i_idx: Tensor, j_idx: Tensor,
+                                measurements: Tensor, weights: Tensor,
+                                group: dist.ProcessGroup | None = None,
+                                num_iterations: int = 10, damping: float = 1e-6) -> Tensor:
+    """`optimize_pose_graph` with this rank's shard of the edges (i_idx,
+    j_idx, measurements, weights [E/p, ...], padded as
+    `registration.sequence.pad_to_multiple` pads them: zero-weight
+    self-edges of node 0) and the whole initial poses [N, 4, 4]; (H, b)
+    are all-reduced over `group` every iteration. Returns the poses, the
+    same on every rank."""
+    with torch.no_grad(), f32_geometry():
+        return solve_pose_graph(poses, i_idx.long(), j_idx.long(), measurements, weights,
+                                num_iterations, damping, _group(group))
+
+
+def bundle_adjust_sharded(poses: Tensor, landmarks: Tensor, obs_pose: Tensor,
+                          obs_local: Tensor, group: dist.ProcessGroup | None = None,
+                          num_iterations: int = 10, damping: float = 1e-4,
+                          huber_delta: float | None = 0.05, edges=None
+                          ) -> tuple[Tensor, Tensor]:
+    """`bundle_adjust` with this rank's shard of the landmarks (landmarks,
+    obs_pose, obs_local [Nl/p, ...], padded with landmarks of no
+    observation) and the whole poses and `edges`, which every rank holds:
+    (S, b) and the guard's landmark costs are all-reduced over `group`.
+    Returns (the poses, the same on every rank; this rank's landmarks)."""
+    with torch.no_grad(), f32_geometry():
+        return solve_bundle(poses, landmarks, obs_pose.long(), obs_local, num_iterations,
+                            damping, huber_delta, _edge_tensors(edges, poses.device),
+                            _group(group))

@@ -4,7 +4,8 @@
 The 'change_coords' frame is defined up to the 4 right-handed sign
 assignments of its axes (`ops/lrf.py:lrf_flip_hypotheses`). The source's
 features are taken under each of them; each hypothesis is matched against
-the target by mutual nearest neighbours and scored by rigidity: the
+the target by mutual nearest neighbours (within a motion-prior gate when
+one is given) and scored by rigidity: the
 number of match pairs (a, b) whose within-cloud distances agree,
 |‖p_a − p_b‖ − ‖q_a − q_b‖| < tau. The most rigid hypothesis is kept.
 """
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.neighbors import gather_rows, mutual_nearest_neighbors, pairwise_sqdist
+from ..ops.neighbors import (gated_mutual_nearest_neighbors, gather_rows,
+                             mutual_nearest_neighbors, pairwise_sqdist)
 
 Tensor = torch.Tensor
 
@@ -34,13 +36,20 @@ def rigidity_score(src: Tensor, dst: Tensor, i1: Tensor, i2: Tensor, mask: Tenso
 
 
 def hypothesis_matches(src: Tensor, dst: Tensor, feat_src_h: Tensor, feat_dst: Tensor,
-                       tau: float = 0.04) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+                       tau: float = 0.04, spatial_valid: Tensor | None = None
+                       ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Mutual-NN matches and rigidity score of every hypothesis: src
     [b, n, 3], dst [b, m, 3], feat_src_h [b, H, n, c], feat_dst [b, m, c]
-    -> (i1s, i2s, masks [b, H, n], scores int64 [b, H])."""
+    -> (i1s, i2s, masks [b, H, n], scores int64 [b, H]). `spatial_valid`
+    [b, n, m] restricts every hypothesis to the allowed candidate pairs
+    (`gated_mutual_nearest_neighbors`)."""
     hyps = feat_src_h.shape[1]
-    i1s, i2s, masks = mutual_nearest_neighbors(
-        feat_src_h, feat_dst[:, None].expand(-1, hyps, -1, -1))  # [n], [b, H, n] x2
+    feat_dst_h = feat_dst[:, None].expand(-1, hyps, -1, -1)
+    if spatial_valid is None:
+        i1s, i2s, masks = mutual_nearest_neighbors(feat_src_h, feat_dst_h)  # [n], [b, H, n] x2
+    else:
+        i1s, i2s, masks = gated_mutual_nearest_neighbors(
+            feat_src_h, feat_dst_h, spatial_valid[:, None].expand(-1, hyps, -1, -1))
     i1s = i1s.expand(i2s.shape)
     scores = rigidity_score(src[:, None].expand(-1, hyps, -1, -1),
                             dst[:, None].expand(-1, hyps, -1, -1), i1s, i2s, masks, tau)
@@ -68,10 +77,8 @@ def consensus_match(src: Tensor, dst: Tensor, feat_src_h: Tensor, feat_dst: Tens
     src [b, n, 3], dst [b, m, 3], feat_src_h [b, H, n, c] (the source's
     features under H frame hypotheses), feat_dst [b, m, c] ->
     (i1 [b, n], i2 [b, n], mask [b, n], h [b]): `choose_hypothesis` of
-    `hypothesis_matches`. The motion-gated matching (`spatial_valid`)
-    waits for the sequence slice (ROADMAP item 10).
+    `hypothesis_matches`. `spatial_valid` [b, n, m] (optional) is the
+    motion-prior gate of every hypothesis's matching.
     """
-    if spatial_valid is not None:
-        raise NotImplementedError("gated consensus matching (spatial_valid) is not ported "
-                                  "yet (ROADMAP item 10)")
-    return choose_hypothesis(*hypothesis_matches(src, dst, feat_src_h, feat_dst, tau))
+    return choose_hypothesis(*hypothesis_matches(src, dst, feat_src_h, feat_dst, tau,
+                                                 spatial_valid))

@@ -10,10 +10,10 @@ data-parallel),
 `rotation_consistency` and the `CORRUPTION_LEVELS` sweep), and
 `load_trained_state`, `extractor_from_snapshot`, `resolve_extractor`,
 `evaluate_registration` (every method of `registration.METHODS`, with or
-without the flip-hypothesis consensus).
-
-Not ported yet (ROADMAP item 10): the registration extras (the method
-sweep, feature extraction, the sequence mapping).
+without the flip-hypothesis consensus), `evaluate_registration_sweep`
+(several methods on one matching pass), `extract_features`,
+`extract_features_flips` and `run_map_sequence` (the multi-scan mapping
+of `registration/sequence.py`).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..data import SyntheticPairs, get_pairs
+from ..data import SyntheticPairs, get_pairs, get_sequence
 from ..data.modelnet40 import ModelNet40, get_datasets
 from ..data.shapenet import ShapeNetConfig, get_shapenet
 from ..data.synthetic_pairs import random_rotation
@@ -36,9 +36,10 @@ from ..ops.lrf import lrf_basis, lrf_flip_hypotheses
 from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
 from ..ops.precision import f32_geometry
-from ..parallel.mesh import broadcast_object, rank_and_world, replicate, shard_batch
-from ..registration import (consensus_match, gnc_pose, pair_errors, register_pair,
-                            register_pair_from_matches)
+from ..parallel.mesh import (broadcast_object, mesh_group, rank_and_world, replicate,
+                             shard_batch)
+from ..registration import (consensus_match, gnc_pose, map_sequence, pair_errors,
+                            register_pair, register_pair_from_matches)
 from ..registration.pipeline import split_method
 from .checkpoint import CheckpointManager
 from .config import EvalConfig, ExperimentConfig, ModelConfig, apply_overrides
@@ -451,6 +452,45 @@ def uses_flips(model: PVCNNClassifier, evaluate: EvalConfig) -> bool:
     return evaluate.flip_hypotheses and model.rot_invariant_preprocess == "change_coords"
 
 
+def match_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor, evaluate: EvalConfig
+                     ) -> tuple[Tensor, Tensor, Tensor]:
+    """The matching pass of b pairs [b, n, 3] on the model's device, the
+    part of a registration that no method changes: normals of the 2b
+    clouds; with the flips (`uses_flips`), `flip_features` (one [5b, n, 6]
+    forward) and `consensus_match`; without, one 2b forward and mutual
+    nearest neighbours. Returns the matches (i1, i2, mask) [b, n]."""
+    if model.head is not None:
+        raise ValueError("registration needs a feature extractor (is_classify=False)")
+    b, n = src.shape[:2]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        x = torch.cat([clouds, estimate_normals(clouds)], -1)
+        if not uses_flips(model, evaluate):
+            feats = model(x)
+            i1, i2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+            return i1.expand(i2.shape), i2, mask
+        feats = flip_features(model, x, b)
+        f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
+        i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
+                                          tau=2.0 * evaluate.noise_bound)
+        return i1, i2, mask
+
+
+def solve_eval_batch(src: Tensor, dst: Tensor, matches: tuple[Tensor, Tensor, Tensor],
+                     evaluate: EvalConfig, method: str | None = None,
+                     generator: torch.Generator | None = None) -> Tensor:
+    """Transforms [b, 4, 4] from the matches of `match_eval_batch`:
+    `register_pair_from_matches` with `method` (default
+    `evaluate.method`) and `evaluate`'s solver fields; RANSAC draws from
+    `generator` (seeded with 0 when None)."""
+    with torch.no_grad():
+        return register_pair_from_matches(
+            src, dst, *matches, method=method or evaluate.method,
+            noise_bound=evaluate.noise_bound, inlier_threshold=evaluate.inlier_threshold,
+            num_hypotheses=evaluate.num_hypotheses, irls_iterations=evaluate.ransac_irls,
+            irls_shrink=evaluate.ransac_irls_shrink, generator=generator)[0]
+
+
 def register_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor,
                         evaluate: EvalConfig, generator: torch.Generator | None = None
                         ) -> Tensor:
@@ -460,24 +500,35 @@ def register_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor,
     `register_pair_from_matches`; without, one 2b forward and
     `register_pair`. `evaluate`'s method and its RANSAC fields go to the
     solver, and RANSAC draws from `generator` (seeded with 0 when None)."""
+    if uses_flips(model, evaluate):
+        return solve_eval_batch(src, dst, match_eval_batch(model, src, dst, evaluate), evaluate,
+                                generator=generator)
     if model.head is not None:
         raise ValueError("registration needs a feature extractor (is_classify=False)")
-    b, n = src.shape[:2]
+    b = src.shape[0]
     kw = dict(method=evaluate.method, noise_bound=evaluate.noise_bound,
               inlier_threshold=evaluate.inlier_threshold,
               num_hypotheses=evaluate.num_hypotheses, irls_iterations=evaluate.ransac_irls,
               irls_shrink=evaluate.ransac_irls_shrink, generator=generator)
     with torch.no_grad(), f32_geometry():
         clouds = torch.cat([src, dst], 0)
-        x = torch.cat([clouds, estimate_normals(clouds)], -1)
-        if not uses_flips(model, evaluate):
-            feats = model(x)
-            return register_pair(src, dst, feats[:b], feats[b:], **kw)[0]
-        feats = flip_features(model, x, b)
-        f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
-        i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
-                                          tau=2.0 * evaluate.noise_bound)
-        return register_pair_from_matches(src, dst, i1, i2, mask, **kw)[0]
+        feats = model(torch.cat([clouds, estimate_normals(clouds)], -1))
+        return register_pair(src, dst, feats[:b], feats[b:], **kw)[0]
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card's queue (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _pad_batch(src: Tensor, dst: Tensor, batch_pairs: int) -> tuple[Tensor, Tensor]:
+    """The tail batch padded to `batch_pairs` with copies of its first pair."""
+    pad = batch_pairs - src.shape[0]
+    if pad <= 0:
+        return src, dst
+    return (torch.cat([src, src[:1].expand(pad, -1, -1)], 0),
+            torch.cat([dst, dst[:1].expand(pad, -1, -1)], 0))
 
 
 def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | None = None,
@@ -500,33 +551,24 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
     split_method(ev.method)  # an unknown method fails before the forward
     pairs = get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode, ev.num_pairs)
     model = resolve_extractor(config, model, ckpt_dir, ckpt_name, device, log)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     meter = MeterRegistration()
     generator = torch.Generator(device=device).manual_seed(config.seed)
     batch_pairs = max(min(int(ev.batch_pairs), len(pairs)), 1)
     warmed = False
     for batch in pairs.batches(batch_pairs):
         n_real = batch.source.shape[0]
-        src = torch.as_tensor(batch.source, device=device)
-        dst = torch.as_tensor(batch.target, device=device)
+        src, dst = _pad_batch(torch.as_tensor(batch.source, device=device),
+                              torch.as_tensor(batch.target, device=device), batch_pairs)
         gt = torch.as_tensor(batch.transform, device=device)
-        if n_real < batch_pairs:  # pad the tail to the batch's shape
-            pad = batch_pairs - n_real
-            src = torch.cat([src, src[:1].expand(pad, -1, -1)], 0)
-            dst = torch.cat([dst, dst[:1].expand(pad, -1, -1)], 0)
         if not warmed:
             state = generator.get_state()
             register_eval_batch(model, src, dst, ev, generator)
-            sync()
+            _sync(device)
             generator.set_state(state)
             warmed = True
         t0 = time.perf_counter()
         est = register_eval_batch(model, src, dst, ev, generator)
-        sync()
+        _sync(device)
         reg_time = time.perf_counter() - t0
         errors = pair_errors(src[:n_real], gt, est[:n_real])
         meter.update({k: v.cpu().numpy() for k, v in errors.items()},
@@ -534,6 +576,157 @@ def evaluate_registration(config: ExperimentConfig, model: PVCNNClassifier | Non
     results = meter.compute()
     log.info("registration eval [%s/%s]: %s", ev.pairs_mode, ev.method, results)
     return results
+
+
+def evaluate_registration_sweep(config: ExperimentConfig, methods: list[str],
+                                model: PVCNNClassifier | None = None,
+                                ckpt_dir: str | None = None, ckpt_name: str | None = None,
+                                device: str | torch.device | None = None) -> dict[str, dict]:
+    """Several robust estimators over one shared matching pass (the card
+    unless `device` says otherwise): per batch of `batch_pairs` pairs (the
+    tail padded), `match_eval_batch` once, then `solve_eval_batch` with
+    each method on the same matches. Every method of a batch draws from
+    the same generator state (the reference gives every method of a batch
+    the same keys); the next batch starts from the state after RANSAC's
+    draw (unchanged when no method draws), so a sweep of one method is
+    `evaluate_registration`. One untimed warm-up batch goes first, its
+    draws given back. A method's `reg_time` is the batch's match time
+    plus its solve time, each ended by a synchronize, times the share of
+    real pairs. Returns {method: MeterRegistration's results}."""
+    device = resolve_device(device)
+    log = get_logger(config.name)
+    ev = config.evaluate
+    for m in methods:
+        split_method(m)  # an unknown method fails before the forward
+    pairs = get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode, ev.num_pairs)
+    model = resolve_extractor(config, model, ckpt_dir, ckpt_name, device, log)
+    meters = {m: MeterRegistration() for m in methods}
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    batch_pairs = max(min(int(ev.batch_pairs), len(pairs)), 1)
+
+    def run(src, dst):
+        """(match seconds, {method: (transform, solve seconds)}), the
+        generator left after the batch's draws."""
+        t0 = time.perf_counter()
+        matches = match_eval_batch(model, src, dst, ev)
+        _sync(device)
+        t_match = time.perf_counter() - t0
+        start = generator.get_state()
+        after, out = start, {}
+        for m in methods:
+            generator.set_state(start)
+            t0 = time.perf_counter()
+            est = solve_eval_batch(src, dst, matches, ev, m, generator)
+            _sync(device)
+            out[m] = (est, time.perf_counter() - t0)
+            state = generator.get_state()
+            if not torch.equal(state, start):
+                after = state
+        generator.set_state(after)
+        return t_match, out
+
+    warmed = False
+    match_s = []
+    for batch in pairs.batches(batch_pairs):
+        n_real = batch.source.shape[0]
+        src, dst = _pad_batch(torch.as_tensor(batch.source, device=device),
+                              torch.as_tensor(batch.target, device=device), batch_pairs)
+        gt = torch.as_tensor(batch.transform, device=device)
+        if not warmed:
+            state = generator.get_state()
+            run(src, dst)
+            generator.set_state(state)
+            warmed = True
+        t_match, out = run(src, dst)
+        match_s.append(t_match)
+        for m, (est, t_solve) in out.items():
+            errors = pair_errors(src[:n_real], gt, est[:n_real])
+            meters[m].update({k: v.cpu().numpy() for k, v in errors.items()},
+                             (t_match + t_solve) * n_real / src.shape[0])
+    results = {m: meters[m].compute() for m in methods}
+    log.info("registration sweep [%s]: matching %.2f ms a batch (mean of %d)", ev.pairs_mode,
+             1e3 * float(np.mean(match_s)), len(match_s))
+    for m in methods:
+        log.info("registration sweep [%s/%s]: %s", ev.pairs_mode, m, results[m])
+    return results
+
+
+def _chunks(model: PVCNNClassifier, clouds, batch_size: int, forward) -> Tensor:
+    """forward(x [b, n, 6]) over `clouds` [m, n, 3] in chunks of
+    `batch_size` (the tail padded with copies of its first cloud), x the
+    clouds with their estimated normals, on the model's device; the
+    results of the real clouds concatenated."""
+    device = next(model.parameters()).device
+    clouds = torch.as_tensor(clouds, dtype=torch.float32, device=device)
+    m = clouds.shape[0]
+    b = min(batch_size, m)
+    outs = []
+    with torch.no_grad(), f32_geometry():
+        for start in range(0, m, b):
+            chunk = clouds[start:start + b]
+            n_real = chunk.shape[0]
+            if n_real < b:
+                chunk = torch.cat([chunk, chunk[:1].expand(b - n_real, -1, -1)], 0)
+            x = torch.cat([chunk, estimate_normals(chunk)], -1)
+            outs.append(forward(x)[:n_real])
+    return torch.cat(outs, 0)
+
+
+def extract_features(model: PVCNNClassifier, clouds, batch_size: int = 32) -> Tensor:
+    """Per-point features [m, n, c] of clouds [m, n, 3] on the model's
+    device: normals, then one forward a chunk of `batch_size`."""
+    return _chunks(model, clouds, batch_size, model)
+
+
+def extract_features_flips(model: PVCNNClassifier, clouds, batch_size: int = 16) -> Tensor:
+    """Per-point features [m, 4, n, c] of every cloud under the 4
+    right-handed sign assignments of its LRF (`flip_features` with every
+    cloud a source, one [4b, n, 6] forward a chunk). Slot 0 is the
+    primary frame, so `out[:, 0]` is what `extract_features` gives."""
+    def forward(x):
+        b, n = x.shape[:2]
+        return flip_features(model, x, b).reshape(b, 4, n, -1)
+
+    return _chunks(model, clouds, batch_size, forward)
+
+
+def run_map_sequence(config: ExperimentConfig, ckpt_dir: str | None = None,
+                     ckpt_name: str | None = None, loop_stride: int = 6,
+                     landmarks_per_edge: int = 64, use_mesh: bool = False,
+                     device: str | torch.device | None = None) -> dict:
+    """The multi-scan mapping pipeline (the card unless `device` says
+    otherwise): the scans of `config.sequence`, their features from the
+    trunk of `resolve_extractor` (under the 4 flips when `uses_flips`),
+    then `registration.map_sequence` with `config.evaluate`'s method and
+    solver fields. With `use_mesh`, the pose-graph and BA solves are
+    sharded over the default process group (torchrun's), or over a group
+    of this process alone when there is none. Logs every stage's seconds
+    and returns the map's metrics."""
+    device = resolve_device(device)
+    log = get_logger(config.name)
+    seq = get_sequence(config.sequence)
+    model = resolve_extractor(config, None, ckpt_dir, ckpt_name, device, log)
+    t0 = time.perf_counter()
+    flip_feats = None
+    if uses_flips(model, config.evaluate):
+        flip_feats = extract_features_flips(model, seq.scans)
+        feats = flip_feats[:, 0]
+    else:
+        feats = extract_features(model, seq.scans)
+    _sync(device)
+    features_s = time.perf_counter() - t0
+    ev = config.evaluate
+    with mesh_group(device, enabled=use_mesh) as group:
+        result = map_sequence(
+            seq.scans, feats, gt_poses=seq.gt_poses, method=ev.method,
+            noise_bound=ev.noise_bound, num_hypotheses=ev.num_hypotheses,
+            inlier_threshold=ev.inlier_threshold, loop_stride=loop_stride,
+            landmarks_per_edge=landmarks_per_edge, group=group, seed=config.seed,
+            flip_features=flip_feats, device=device)
+    log.info("map-sequence [%d scans, %d edges]: %s", len(seq), len(result.edges[0]),
+             result.metrics)
+    log.info("map-sequence seconds: %s", {"features": features_s, **result.seconds})
+    return result.metrics
 
 
 def rotation_consistency(state: TrainState, dataset, num_items: int = 64,

@@ -3,8 +3,9 @@ table, `apply_overrides` on the same strings, `presets`, `train`,
 `evaluate`, `evaluate-cls` and `train-seg` through `cli.main` with
 `--device cpu`, `train` under torchrun on 2 gloo ranks (`train-seg` joins
 the same group; its data-parallel run is tests/test_torch_dp.py's),
-the card by default, the guard against scoring random weights, and the
-commands not ported yet."""
+the card by default, the guard against scoring random weights,
+`map-sequence` (with `--mesh` on a group of one rank) and
+`evaluate --methods`."""
 import dataclasses
 import json
 import os
@@ -129,16 +130,53 @@ def test_the_cli_takes_the_card_by_default(monkeypatch, tmp_path):
         cli.main(["evaluate", "--preset", "tiny_smoke", "--untrained", *TINY_EVAL])
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["map-sequence", "--loop-stride", "3"], 10),
-    (["map-sequence", "--mesh"], 10),
-    (["evaluate", "--methods", "ransac,fgr", "--untrained"], 10),
-])
-def test_commands_not_ported_exit_with_their_roadmap_item(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+# The reference's map-sequence result keys, in its order
+# (rift_tpu/registration/sequence.py:map_sequence with ground truth).
+MAP_KEYS = ["num_edges", "mean_edge_inliers", "ate_odometry", "ate_graph", "ate_ba",
+            "mean_step_rre", "max_step_rre", "step_rre_odom", "step_rre_graph", "mean_edge_rre"]
+# tiny_smoke's trunk as a feature extractor (seeded weights) on a 6-scan
+# sequence of 128 points.
+TINY_MAP = ["--preset", "tiny_smoke", "--device", "cpu", "model.is_classify=False",
+            "sequence.num_scans=6", "sequence.num_points=128", "sequence.scene_points=4096"]
+
+
+def test_map_sequence_prints_the_reference_keys(capsys):
+    """`map-sequence` runs the whole pipeline (flip features, registration,
+    the gated round, pose graph, BA) and prints the reference's metric
+    keys; the parser's defaults are the reference's."""
+    assert cli.main(["map-sequence", *TINY_MAP, "--loop-stride", "3",
+                     "--landmarks-per-edge", "8"]) == 0
+    results = _results(capsys.readouterr().out)
+    assert list(results) == MAP_KEYS and all(np.isfinite(list(results.values())))
+    assert results["num_edges"] == 5 + 3  # 5 consecutive edges; loops (0, 3), (1, 4), (2, 5)
+    args = cli.build_parser().parse_args(["map-sequence"])
+    assert (args.preset, args.loop_stride, args.landmarks_per_edge, args.mesh, args.device) == (
+        "reg_icl_nuim_teaserpp_cu_dg", 6, 64, False, "cuda")
+
+
+def test_map_sequence_mesh_runs_on_a_one_rank_group(capsys):
+    """Without a launcher, `--mesh` shards the solves over a gloo group of
+    this process alone: the same metrics as without it (bit for bit on
+    one rank), and no group is left behind."""
+    import torch.distributed as dist
+
+    assert cli.main(["map-sequence", *TINY_MAP, "--mesh"]) == 0
+    mesh = _results(capsys.readouterr().out)
+    assert not dist.is_initialized()
+    assert cli.main(["map-sequence", *TINY_MAP]) == 0
+    assert _results(capsys.readouterr().out) == mesh
+
+
+def test_evaluate_methods_prints_one_result_a_method(capsys):
+    """`evaluate --methods ransac,fgr,teaserpp+icp --untrained` prints the
+    six result keys of each method, prefixed with its name ('+' as '_')."""
+    assert cli.main(["evaluate", "--preset", "tiny_smoke", "--device", "cpu", "--untrained",
+                     "--methods", "ransac,fgr,teaserpp+icp", "model.is_classify=False",
+                     "evaluate.num_hypotheses=64", *TINY_EVAL]) == 0
+    results = _results(capsys.readouterr().out)
+    assert list(results) == [f"{m}_{k}" for m in ("ransac", "fgr", "teaserpp_icp")
+                             for k in RESULT_KEYS]
+    assert all(np.isfinite(list(results.values())))
 
 
 def test_the_cli_runs_as_a_module():

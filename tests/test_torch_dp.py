@@ -9,7 +9,10 @@ against the port's single-process step, against rift_tpu's
 step, and the segmentation step of its `train_segmentation`), and against
 `mutual_nearest_neighbors`. The ranks also run `train_segmentation`
 together, held against its single-process run. A batch size the ranks do
-not divide trains each rank alone."""
+not divide trains each rank alone. In a second spawn the 4 ranks run the
+sequence's sharded solves (`optimize_pose_graph_sharded`,
+`bundle_adjust_sharded`) and `map_sequence` with the group, held within
+1e-3 of the single solves and of the single-process map."""
 import dataclasses
 import json
 import logging
@@ -163,10 +166,11 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
         dist.destroy_process_group()
 
 
-def _spawn(workdir: str) -> list[dict]:
-    """Run WORLD ranks of _rank_main; a rank that hangs fails the test
-    after SPAWN_TIMEOUT_S (its processes are killed)."""
-    ctx = mp.spawn(_rank_main, args=(WORLD, workdir), nprocs=WORLD, join=False)
+def _spawn(workdir: str, main=_rank_main, saved: str = "rank") -> list[dict]:
+    """Run WORLD ranks of `main`, then load what each saved as
+    `{saved}{rank}.pt`; a rank that hangs fails the test after
+    SPAWN_TIMEOUT_S (its processes are killed)."""
+    ctx = mp.spawn(main, args=(WORLD, workdir), nprocs=WORLD, join=False)
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     try:
         while not ctx.join(timeout=1.0):
@@ -178,7 +182,7 @@ def _spawn(workdir: str) -> list[dict]:
                 p.kill()
                 p.join(timeout=10)
     assert not any(p.is_alive() for p in ctx.processes)
-    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
+    return [torch.load(os.path.join(workdir, f"{saved}{r}.pt"), weights_only=True)
             for r in range(WORLD)]
 
 
@@ -485,3 +489,114 @@ def test_train_segmentation_on_the_ranks_is_data_parallel(dp_run, tmp_path):
 
 def test_a_batch_the_ranks_do_not_divide_trains_each_rank_alone(dp_run):
     assert all(r["indivisible_alone"] for r in dp_run["ranks"])
+
+
+# --- The sequence's sharded solves -------------------------------------
+
+SEQ_TOL = 1e-3  # tests/test_pose_graph.py:78-97,137-146 and tests/test_sequence.py:104-106
+SEQ_MAP_KW = dict(noise_bound=0.08, loop_stride=4, landmarks_per_edge=16, batch_edges=8, seed=0)
+
+
+def _seq_rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank: its shard of the pose graph's edges and of BA's landmarks
+    (padded as the sequence pads them), the two sharded solves, and
+    map_sequence with the group; its results saved as seq{r}.pt."""
+    from rift_tpu_torch.parallel import bundle_adjust_sharded, optimize_pose_graph_sharded
+    from rift_tpu_torch.registration.sequence import map_sequence, pad_to_multiple
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        inp = torch.load(os.path.join(workdir, "seq_inputs.pt"), weights_only=False)
+        pg = pad_to_multiple([inp["i_idx"], inp["j_idx"], inp["meas"], inp["w"]], world,
+                             [np.int32(0), np.int32(0), np.eye(4, dtype=np.float32),
+                              np.float32(0.0)])
+        shard = shard_batch(pg)
+        graph = optimize_pose_graph_sharded(torch.from_numpy(inp["init"]),
+                                            *map(torch.from_numpy, shard), num_iterations=8)
+        k = inp["obs_pose"].shape[1]
+        ba = pad_to_multiple([inp["lms"], inp["obs_pose"], inp["obs_local"]], world,
+                             [np.zeros(3, np.float32), -np.ones(k, np.int32),
+                              np.zeros((k, 3), np.float32)])
+        edges = tuple(map(torch.from_numpy, inp["edges"]))
+        poses, lms = bundle_adjust_sharded(torch.from_numpy(inp["poses"]),
+                                           *map(torch.from_numpy, shard_batch(ba)),
+                                           num_iterations=5, edges=edges)
+        m = map_sequence(inp["scans"], inp["feats"], gt_poses=inp["gt"], group=dist.group.WORLD,
+                         device="cpu", **SEQ_MAP_KW)
+        torch.save({"graph": graph, "poses": poses, "lms": lms,
+                    "map_graph": torch.from_numpy(m.graph), "map_ba": torch.from_numpy(m.ba),
+                    "ate_ba": torch.tensor(m.metrics["ate_ba"], dtype=torch.float64)},
+                   os.path.join(workdir, f"seq{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def seq_run(tmp_path_factory):
+    """A drifting pose graph of 6 nodes (its 8 edges do not split over 4
+    ranks), a BA problem of 66 landmarks joint with 4 edges, and the
+    oracle-feature sequence of 8 scans x 128 points, on 4 gloo ranks."""
+    from test_pose_graph import _make_ba_problem, _make_trajectory
+
+    from rift_tpu_torch.data.sequences import SequenceConfig, SyntheticSequence
+
+    rng = np.random.RandomState(0)
+    gt, i_idx, j_idx, meas = _make_trajectory(rng, 6, drift=0.02)
+    gt_poses, gt_lms, obs_pose, obs_local = _make_ba_problem(rng, num_landmarks=66, noise=0.01)
+    lms = (gt_lms + rng.randn(*gt_lms.shape) * 0.05).astype(np.float32)
+    e_i, e_j = np.array([0, 1, 2, 0], np.int32), np.array([1, 2, 3, 3], np.int32)
+    rel = np.stack([np.linalg.inv(gt_poses[a]) @ gt_poses[b]
+                    for a, b in zip(e_i, e_j)]).astype(np.float32)
+    seq = SyntheticSequence(SequenceConfig(num_scans=8, num_points=128, scene_points=2048,
+                                           seed=4))
+    feats = np.stack([s @ p[:3, :3].T + p[:3, 3] for s, p in zip(seq.scans, seq.gt_poses)])
+    inp = dict(init=np.stack([np.eye(4, dtype=np.float32)] * 6), i_idx=i_idx, j_idx=j_idx,
+               meas=meas, w=np.ones(len(i_idx), np.float32), poses=gt_poses, lms=lms,
+               obs_pose=obs_pose, obs_local=obs_local,
+               edges=(e_i, e_j, rel, np.array([10.0, 20.0, 5.0, 1.0], np.float32)),
+               scans=seq.scans, feats=feats.astype(np.float32), gt=seq.gt_poses)
+    workdir = str(tmp_path_factory.mktemp("seq_dp"))
+    torch.save(inp, os.path.join(workdir, "seq_inputs.pt"))
+    return inp, _spawn(workdir, _seq_rank_main, "seq")
+
+
+def test_sharded_pose_graph_matches_the_single_solve(seq_run):
+    from rift_tpu_torch.registration import optimize_pose_graph
+
+    inp, ranks = seq_run
+    single = optimize_pose_graph(*(torch.from_numpy(inp[k])
+                                   for k in ("init", "i_idx", "j_idx", "meas", "w")),
+                                 num_iterations=8)
+    for r in ranks:
+        torch.testing.assert_close(r["graph"], ranks[0]["graph"], rtol=0, atol=0)
+        np.testing.assert_allclose(r["graph"].numpy(), single.numpy(), rtol=0, atol=SEQ_TOL)
+
+
+def test_sharded_bundle_adjust_matches_the_single_solve(seq_run):
+    """Poses on every rank, and the ranks' landmark shards put back
+    together (the padding dropped), within SEQ_TOL of the single solve."""
+    from rift_tpu_torch.registration import bundle_adjust
+
+    inp, ranks = seq_run
+    poses, lms = bundle_adjust(*(torch.from_numpy(inp[k])
+                                 for k in ("poses", "lms", "obs_pose", "obs_local")),
+                               num_iterations=5, edges=tuple(map(torch.from_numpy, inp["edges"])))
+    assert not torch.equal(lms, torch.from_numpy(inp["lms"]))  # the guard accepted
+    for r in ranks:
+        np.testing.assert_allclose(r["poses"].numpy(), poses.numpy(), rtol=0, atol=SEQ_TOL)
+    gathered = torch.cat([r["lms"] for r in ranks])[:lms.shape[0]]
+    np.testing.assert_allclose(gathered.numpy(), lms.numpy(), rtol=0, atol=SEQ_TOL)
+
+
+def test_map_sequence_on_the_ranks_matches_one_process(seq_run):
+    from rift_tpu_torch.registration.sequence import map_sequence
+
+    inp, ranks = seq_run
+    single = map_sequence(inp["scans"], inp["feats"], gt_poses=inp["gt"], device="cpu",
+                          **SEQ_MAP_KW)
+    for r in ranks:
+        np.testing.assert_allclose(r["map_graph"].numpy(), single.graph, rtol=0, atol=SEQ_TOL)
+        np.testing.assert_allclose(r["map_ba"].numpy(), single.ba, rtol=0, atol=SEQ_TOL)
+        assert abs(float(r["ate_ba"]) - single.metrics["ate_ba"]) < SEQ_TOL

@@ -270,7 +270,8 @@ def test_rigidity_score_matches_reference(rng):
 
 def test_consensus_match_matches_reference(rng):
     """Features of 4 hypotheses of which one (a different one per pair)
-    matches the target: the same matches, masks and hypothesis."""
+    matches the target: the same matches, masks and hypothesis, without
+    and with a spatial gate."""
     from rift_tpu.registration.consensus import consensus_match as j_consensus
     from rift_tpu_torch.registration import consensus_match
 
@@ -289,9 +290,20 @@ def test_consensus_match_matches_reference(rng):
         assert int(want[3]) == int(got[3][i]) == h
         for g, w in zip(got[:3], want[:3]):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        consensus_match(*map(torch.from_numpy, (src, dst, feat_src_h, feat_dst)),
-                        spatial_valid=torch.ones(b, n, n, dtype=torch.bool))
+    # A motion-prior gate (the sequence's re-registration), some rows with
+    # no allowed candidate: the same matches, masks and hypothesis.
+    gate = rng.rand(b, n, n) < 0.6
+    gate[:, :3] = False
+    got = consensus_match(*map(torch.from_numpy, (src, dst, feat_src_h, feat_dst)), tau=tau,
+                          spatial_valid=torch.from_numpy(gate))
+    for i in range(b):
+        want = j_consensus(jnp.asarray(src[i]), jnp.asarray(dst[i]),
+                           jnp.asarray(feat_src_h[i]), jnp.asarray(feat_dst[i]), tau=tau,
+                           spatial_valid=jnp.asarray(gate[i]))
+        assert int(want[3]) == int(got[3][i])
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+        assert not got[2][i, :3].any()
 
 
 def test_hypothesis_matches_scores_every_hypothesis_as_the_reference(rng):

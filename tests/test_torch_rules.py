@@ -46,14 +46,17 @@ def test_port_imports_no_jax_and_nothing_of_rift_tpu():
 
 
 NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops.py",
-               "ops/sampling.py", "data/modelnet40.py", "train/loop.py", "cli.py")
+               "ops/sampling.py", "data/modelnet40.py", "train/loop.py", "cli.py",
+               "ops/se3.py", "registration/pose_graph.py", "registration/bundle_adjust.py",
+               "registration/sequence.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_data_parallel_and_sampling_modules_import_no_jax(module):
-    """The rule above covers `parallel/` and the modules of the classifier's
-    workflow, with the imports inside their functions (`ast.walk` reaches
-    every node, not only the top level)."""
+    """The rule above covers `parallel/`, the modules of the classifier's
+    workflow and those of the sequence mapping, with the imports inside
+    their functions (`ast.walk` reaches every node, not only the top
+    level)."""
     path = os.path.join(ROOT, "rift_tpu_torch", module)
     assert path in _port_files()
     roots = set(_imported_roots(path))
