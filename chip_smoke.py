@@ -155,6 +155,22 @@ Phases (each prints one line with its wall time):
                (median of TIMED_BATCHES), K1-K3 launches a batch; the
                teaserpp row's poses bit-equal to register_eval_batch's on
                the same batch; K1-K3 at its shapes.
+ 21. variants — the model variants at the flagship's full width, seeded
+               weights (VARIANTS: with_local_feat 'fpfh' and
+               'change_coords', with_transform_fine_tune): per variant 10
+               f32 steps on a fixed batch of 16 x 1024 (ms/step, clouds/s,
+               the split, a profiled step, peak memory, K2-K4 launches as
+               reckoned, the loss falling), one evaluate batch of the
+               flagship's evaluate section (64 pairs after the warm-up:
+               pairs/s by reg_time, ms a batch, peak memory, the staged
+               split and the variant's branch on its own, K1-K3 launches as
+               reckoned, the staged pose bit-equal to
+               register_eval_batch's), K2-K4 at its training shapes and
+               K1-K3 at its evaluate shapes against their plain versions,
+               card vs CPU on grid clouds (features, one step, the updated
+               parameters) and, for 'fpfh', FPFH on one neighbour list
+               with the share of points whose self decision the two
+               devices' knn make apart.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -494,6 +510,40 @@ MAP_TOL, SOLVE_TOL = 1e-3, 1e-5
 SWEEP_PRESET = "reg_noise_teaserpp_cu_dg"
 SWEEP_METHODS = ("ransac", "fgr", "teaserpp", "ransac+picp")
 SWEEP_LAUNCHES = {"normals_moments": 2, "scatter_mean": 2, "corner_gather": 2}
+# The model variants: the flagship preset (mn40_sph_pt_r4) at full width
+# with one override each, as `cli train`/`cli evaluate` apply it; (label,
+# overrides, the branch timed on its own in the staged batch).
+VARIANTS = (("fpfh", ["model.with_local_feat=fpfh"], "fpfh + fuser"),
+            ("local_lrf", ["model.with_local_feat=change_coords"],
+             "ball query + local_lrf + fuser + max"),
+            ("fine_tune", ["model.with_transform_fine_tune=True"], "fine-tune block"))
+# Each trains TRAIN_STEPS steps of TRAIN_BATCH clouds on one fixed batch
+# (STEP_LAUNCHES a step) and evaluates one VARIANT_EVAL_PAIRS-pair batch of
+# the flagship's evaluate section after its warm-up batch
+# (EVALUATE_LAUNCHES a batch). Card vs CPU, at PARITY_CLOUDS clouds: the
+# eval forward's features by FEAT_POINT_TOL and FEAT_POINT_SHARE and the
+# median point within FEAT_MEDIAN (tests/test_torch_model.py's _compare),
+# and one train step by train_parity's rules (the BN statistics within
+# STATS_RTOL of the model's largest one), plus its updated parameters
+# (within 2.1 lr everywhere, SETTLED_PARAM_TOL where the gradients Adam
+# reads, g + weight_decay·p, agree within SETTLED). These clouds lie on a
+# GRID_STEP grid with a coordinate sum of 0: FPFH counts a point as its
+# own neighbour where its d² to itself rounds above 1e-12, and cuBLAS
+# rounds ‖a‖² + ‖b‖² − 2a·b in another order than the CPU, so on other
+# clouds the two devices' descriptors part by up to a whole sub-histogram
+# at the points they decide apart (the share is printed, on the flagship's
+# pairs); on the grid, centring and every d² are exact on both. FPFH
+# itself on one neighbour list computed on the CPU and fed to both: within
+# FPFH_TOL (1e-4 of the descriptor's scale of 100) once θ's two end bins
+# are summed. θ = atan2(y, x) wraps at ±π: a neighbour whose normal is
+# antiparallel to the point's has y at rounding level, and its sign sends
+# the neighbour's θ mass to bin 0 or to bin 10 (f32 against f64 on the
+# CPU: 0.37% of these points, by up to 0.32); the share of points where
+# the end bins differ is printed.
+VARIANT_EVAL_PAIRS = 64
+FEAT_MEDIAN = 1e-5
+GRID_STEP = 2.0 ** -8
+FPFH_TOL = 1e-4 * 100.0
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -1492,18 +1542,20 @@ def stage_split(model, src, dst) -> dict:
 # --- The flagship's registration evaluation (train/loop.py) ---------------
 
 
-def eval_checkpoint(ckpt_dir: str, preset: str = "mn40_sph_pt_r4", seed: int = 0):
-    """The preset's model (the flagship's classifier by default) with seeded
+def eval_checkpoint(ckpt_dir: str, preset: str = "mn40_sph_pt_r4", seed: int = 0,
+                    overrides: tuple = ()):
+    """The preset's model (the flagship's classifier by default; with
+    `overrides` applied as the command line applies them) with seeded
     weights, saved by the port's CheckpointManager as `common` in
-    `ckpt_dir` (with the preset as its config snapshot): the checkpoint
-    evaluate_registration restores from train.ckpt_dir. Returns the preset
+    `ckpt_dir` (with the config as its snapshot): the checkpoint
+    evaluate_registration restores from train.ckpt_dir. Returns the config
     with that train.ckpt_dir."""
     import torch
 
-    from rift_tpu_torch.train import build_model, create_state, get_config
+    from rift_tpu_torch.train import apply_overrides, build_model, create_state, get_config
     from rift_tpu_torch.train.checkpoint import CheckpointManager
 
-    cfg = get_config(preset)
+    cfg = apply_overrides(get_config(preset), list(overrides))
     cfg.train.ckpt_dir = ckpt_dir
     state = create_state(build_model(cfg), cfg, 1, torch.device("cpu"), seed=seed)
     seeded_model(seed, state.model)
@@ -1773,8 +1825,9 @@ def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
     the [2b, n, 3] clouds (`k1_row`), and with `targets_k1` also on the
     [b, n, 3] targets ('+picp's normals); K2 and K3 on the canonical
     coordinates of the [5b, n] clouds (each source under its 4 flips) in
-    the model's voxel grid, spherical or cube, K2 at the two blocks' input
-    widths and K3 at their output widths."""
+    the model's voxel grid, spherical or cube (turned by the model's
+    fine-tune block when it has one), K2 at the two blocks' input widths
+    and K3 at their output widths."""
     import torch
 
     from rift_tpu_torch.ops.cuda import onehot_ops as oh
@@ -1798,6 +1851,8 @@ def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
         lrf_all = torch.cat([lrf_flip_hypotheses(basis[:b]).reshape(-1, 3, 3), basis[b:]], 0)
         pts = torch.cat([centred[:b].repeat_interleave(4, dim=0), centred[b:]], 0)
         canonical = change_coords(pts, lrf_all)
+        if model.fine_tune is not None:  # the voxels follow the fine-tuned frame
+            canonical = model.transform_fine_tune(pts, canonical)
         if blocks[0].cube:
             grid_coords = normalize_coords_cube(canonical, r, normalize=blocks[0].normalize)
             inds = cube_voxel_indices(grid_coords, r)
@@ -2383,11 +2438,15 @@ def train_parity() -> str:
     return step_parity(cpu, card, clouds, labels, f"{PARITY_CLOUDS} clouds x {NUM_POINTS}")
 
 
-def step_parity(cpu, card, clouds, labels, what: str) -> str:
+def step_parity(cpu, card, clouds, labels, what: str, stats_of_model: bool = False) -> str:
     """One train_step of the CPU state `cpu` and of its copy `card` on the
     card, on the batch (clouds, labels) (numpy): the loss, the gradients
     (GRAD_COS above GRAD_NORM_FLOOR, GRAD_DIFF_TOL below, a line printed per
-    parameter below the floor) and the BN statistics (STATS_RTOL)."""
+    parameter below the floor) and the BN statistics (STATS_RTOL of each
+    buffer's largest value; with `stats_of_model`, of the model's largest
+    running statistic, as tests/test_torch_train.py holds them: a running
+    mean that is a cancellation, as the local-LRF fuser's first one over
+    neighbourhoods centred on their mean, has no scale of its own)."""
     import torch
 
     from rift_tpu_torch.train.steps import train_step
@@ -2413,9 +2472,11 @@ def step_parity(cpu, card, clouds, labels, what: str) -> str:
         print(f"  below the floor: {name}: norm {norm:.3e}, cosine {cos:.6f}, "
               f"|card - CPU| {diff:.3e}", flush=True)
     bufs_c = dict(cpu.model.named_buffers())
+    top_stat = max(float(b.abs().max()) for k, b in bufs_c.items() if "running" in k)
     worst_stat, worst_stat_name = 0.0, ""
     for name, buf in card.model.named_buffers():
-        err = float((buf.cpu() - bufs_c[name]).abs().max()) / float(bufs_c[name].abs().max())
+        scale = top_stat if stats_of_model else float(bufs_c[name].abs().max())
+        err = float((buf.cpu() - bufs_c[name]).abs().max()) / scale
         if err > worst_stat:
             worst_stat, worst_stat_name = err, name
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
@@ -3243,6 +3304,241 @@ def sweep_phase(wrappers: dict) -> dict:
                 kernels=eval_kernel_times(model, src, dst, targets_k1=True), evaluate=ev)
 
 
+# --- The model variants (models/pvcnn.py) -----------------------------------
+
+
+def on_grid(pts):
+    """pts [b, n, 3] (numpy) rounded to multiples of GRID_STEP, each moved
+    by at most one step so that every cloud's coordinates sum to 0."""
+    import numpy as np
+
+    q = np.round(pts / GRID_STEP).astype(np.int64)
+    q -= np.round(q.mean(1, keepdims=True)).astype(np.int64)
+    for b in range(q.shape[0]):
+        for c in range(3):
+            r = int(q[b, :, c].sum())
+            q[b, :abs(r), c] -= np.sign(r)
+    return (q * GRID_STEP).astype(np.float32)
+
+
+def branch_ms(model, src, dst) -> float:
+    """Wall ms of the variant's own branch on the 5b inputs of a staged
+    batch (the sources under their 4 flips, then the targets), on its own
+    and ended by a synchronize: the local branch, or the fine-tune block
+    on the canonical coordinates."""
+    import torch
+
+    from rift_tpu_torch.ops.lrf import change_coords, lrf_basis, lrf_flip_hypotheses
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+
+    b = src.shape[0]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        normals = estimate_normals(clouds)
+        centred = clouds - clouds.mean(-2, keepdim=True)
+        basis = lrf_basis(centred, model.lrf_kind)
+        lrf_all = torch.cat([lrf_flip_hypotheses(basis[:b]).reshape(-1, 3, 3), basis[b:]], 0)
+        pts = torch.cat([centred[:b].repeat_interleave(4, dim=0), centred[b:]], 0)
+        nrm = torch.cat([normals[:b].repeat_interleave(4, dim=0), normals[b:]], 0)
+        if model.fine_tune is not None:
+            canonical = change_coords(pts, lrf_all)
+            fn = lambda: model.transform_fine_tune(pts, canonical)  # noqa: E731
+        else:
+            fn = lambda: model.local_features(pts, nrm)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t1) * 1e3
+
+
+def variant_eval(wrappers: dict, overrides: list) -> dict:
+    """evaluate_registration of the flagship preset with `overrides`, cut
+    to VARIANT_EVAL_PAIRS pairs (the warm-up batch and one timed batch of
+    64), from a seeded checkpoint: launches, finite results, reg_time,
+    peak memory; then the staged batch (eval_stages, its pose bit-equal to
+    register_eval_batch's) with the branch's own ms, and K1-K3 at its
+    shapes."""
+    import torch
+
+    from rift_tpu_torch.data import get_pairs
+    from rift_tpu_torch.train import evaluate_registration, resolve_extractor
+    from rift_tpu_torch.train.loop import register_eval_batch
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = eval_checkpoint(ckpt_dir, overrides=tuple(overrides))
+        cfg.evaluate.num_pairs = VARIANT_EVAL_PAIRS
+        ev = cfg.evaluate
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        results = evaluate_registration(cfg)  # device=None: the card
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = read_counts(wrappers)
+        batches = 1 + -(-ev.num_pairs // ev.batch_pairs)
+        reckoned = {k: EVALUATE_LAUNCHES.get(k, 0) * batches for k in wrappers}
+        if launches != reckoned:
+            fail(f"variant evaluate {overrides}: launches {launches}, reckoned {reckoned}")
+        if not all(math.isfinite(v) for v in results.values()):
+            fail(f"variant evaluate {overrides}: non-finite results {results}")
+        model = resolve_extractor(cfg)
+    dev = torch.device("cuda")
+    batch = next(get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode,
+                           ev.num_pairs).batches(ev.batch_pairs))
+    src, dst = (torch.as_tensor(a, device=dev) for a in (batch.source, batch.target))
+    est = register_eval_batch(model, src, dst, ev)
+    split: dict = {}
+    stages = eval_stages(model, src, dst, ev.noise_bound, timed=split)
+    if not torch.equal(stages["transform"], est):
+        fail(f"variant evaluate {overrides}: the staged batch's poses differ from "
+             f"register_eval_batch's")
+    split["total"] = sum(split.values())
+    return dict(results=results, run_s=run_s, peak_gb=peak_gb, launches=launches,
+                reckoned=reckoned, batches=batches, split=split,
+                branch_ms=branch_ms(model, src, dst), model=model, src=src, dst=dst,
+                kernels=eval_kernel_times(model, src, dst))
+
+
+def variant_parity(cfg, model) -> str:
+    """Card vs CPU at PARITY_CLOUDS grid clouds (the rules at VARIANTS):
+    the eval features of the seeded extractor `model` (on the card) and
+    one train step of `cfg`'s classifier from a seeded init."""
+    import numpy as np
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.train import build_model
+    from rift_tpu_torch.train.steps import TrainState, create_state, make_optimizer
+
+    clouds, labels = next(ModelNet40(cfg.dataset, "valid").batches(PARITY_CLOUDS, seed=1))
+    clouds = np.concatenate([on_grid(clouds[..., :3]), clouds[..., 3:]], -1)
+    x = torch.as_tensor(clouds)
+    with torch.no_grad(), f32_geometry():
+        got = model(x.cuda()).cpu().double()
+        want = copy.deepcopy(model).cpu()(x).double()
+    err = (got - want).abs().amax(-1) / float(want.abs().max())
+    share, median = float((err > FEAT_POINT_TOL).double().mean()), float(err.median())
+    msg = (f"eval features of {PARITY_CLOUDS} grid clouds x {clouds.shape[1]}: share of points "
+           f"off by > {FEAT_POINT_TOL:g} {share:.4f} (tol {FEAT_POINT_SHARE}), median "
+           f"{median:.3e} (tol {FEAT_MEDIAN:g})")
+    if share > FEAT_POINT_SHARE or median > FEAT_MEDIAN:
+        fail("variant parity: " + msg)
+    cpu = create_state(build_model(cfg), cfg, TRAIN_LOOP_STEPS, torch.device("cpu"),
+                       seed=cfg.seed + 1)
+    cpu.model.dropout = 0.0
+    card_model = copy.deepcopy(cpu.model).cuda()
+    card = TrainState(card_model, *make_optimizer(card_model, cfg, TRAIN_LOOP_STEPS))
+    before = {k: v.detach().clone() for k, v in cpu.model.named_parameters()}
+    msg += "; one step, " + step_parity(cpu, card, clouds, labels,
+                                        f"{PARITY_CLOUDS} grid clouds", stats_of_model=True)
+    lr, wd = cpu.schedule(0), cfg.optim.weight_decay
+    p_cpu = dict(cpu.model.named_parameters())
+    worst, worst_settled = 0.0, 0.0
+    for name, p in card.model.named_parameters():
+        off = (p.detach().cpu() - p_cpu[name].detach()).abs()
+        g_cpu = p_cpu[name].grad + wd * before[name]
+        settled = (p.grad.cpu() + wd * before[name] - g_cpu).abs() <= SETTLED * g_cpu.abs()
+        worst = max(worst, float(off.max()) / lr)
+        worst_settled = max(worst_settled, float(torch.where(settled, off, 0.0).max()))
+    msg += (f"; updated parameters: max |card - CPU| {worst:.3f} lr (tol 2.1), "
+            f"{worst_settled:.3e} where the gradients agree within {SETTLED:g} (tol "
+            f"{SETTLED_PARAM_TOL:g})")
+    if worst > 2.1 or worst_settled > SETTLED_PARAM_TOL:
+        fail("variant parity: " + msg)
+    return msg
+
+
+def fpfh_parity(src, dst) -> str:
+    """FPFH on the card against the CPU on the flagship's 4 + 4 clouds and
+    their normals, both on one neighbour list from the CPU's knn (within
+    FPFH_TOL with θ's end bins summed; the rule at VARIANTS); and, as
+    information, the share of points whose self decision (d² to itself >
+    1e-12) differs between the card's knn and the CPU's."""
+    import torch
+
+    from rift_tpu_torch.ops.fpfh import fpfh_from_knn
+    from rift_tpu_torch.ops.neighbors import knn
+    from rift_tpu_torch.ops.normals import estimate_normals
+
+    p = EVAL_PARITY_PAIRS
+    pts = torch.cat([src[:p], dst[:p]], 0).cpu()
+    nrm = estimate_normals(pts)
+    d2, idx = knn(pts, pts, 64)
+    want = fpfh_from_knn(pts, nrm, d2, idx, 0.3)
+    got = fpfh_from_knn(pts.cuda(), nrm.cuda(), d2.cuda(), idx.cuda(), 0.3).cpu()
+
+    def fold(desc):  # θ's bin 0 (-π) and bin 10 (+π) summed
+        return torch.cat([desc[..., :22], desc[..., 22:23] + desc[..., 32:], desc[..., 23:32]],
+                         -1)
+
+    err = float((fold(got) - fold(want)).abs().max())
+    wrapped = float(((got - want).abs().amax(-1) > FPFH_TOL).double().mean())
+    d2_g, idx_g = knn(pts.cuda(), pts.cuda(), 64)
+    own = torch.arange(pts.shape[1])[None, :, None]
+
+    def counts_self(d, i):
+        return ((i == own) & (d > 1e-12)).any(-1)
+
+    self_cpu, self_card = counts_self(d2, idx), counts_self(d2_g.cpu(), idx_g.cpu())
+    differ = float((self_cpu != self_card).double().mean())
+    msg = (f"fpfh of {2 * p} clouds x {pts.shape[1]} on the CPU's neighbour list: max |card - "
+           f"CPU| {err:.3e} with θ's end bins summed (tol {FPFH_TOL:g}), points whose end bins "
+           f"differ {wrapped:.4f}; points counting themselves: CPU "
+           f"{float(self_cpu.double().mean()):.4f}, card {float(self_card.double().mean()):.4f}, "
+           f"deciding apart {differ:.4f} (information)")
+    if err > FPFH_TOL:
+        fail("fpfh parity: " + msg)
+    return msg
+
+
+def variants_phase(wrappers: dict) -> dict:
+    """Each of VARIANTS at the flagship's full width on seeded weights:
+    TRAIN_STEPS f32 train steps on one fixed batch (fixed_batch_steps), one
+    evaluate batch (variant_eval), K2-K4 at its training shapes, card vs
+    CPU (variant_parity, and fpfh_parity for 'fpfh'). Returns per label
+    its numbers, launches and kernel rows."""
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.train import apply_overrides, build_model, get_config
+
+    out = {}
+    for label, overrides, branch in VARIANTS:
+        cfg = apply_overrides(train_config(), overrides)
+        for fn in wrappers.values():
+            fn.launches = 0
+        tr = fixed_batch_steps(cfg, apply_overrides(get_config("mn40_sph_pt_r4"), overrides),
+                               wrappers)
+        train_launches = read_counts(wrappers)
+        # The TRAIN_STEPS steps, the step split by events and the profiled one.
+        train_reckoned = {k: STEP_LAUNCHES.get(k, 0) * (TRAIN_STEPS + 2) for k in wrappers}
+        if train_launches != train_reckoned:
+            fail(f"variant {label} training: launches {train_launches}, reckoned "
+                 f"{train_reckoned}")
+        model = build_model(cfg).to("cuda")
+        clouds, _ = next(ModelNet40(cfg.dataset, "train").batches(TRAIN_BATCH, seed=0))
+        rows = voxel_kernel_rows(model, torch.as_tensor(clouds[..., :3], device="cuda"),
+                                 k4=True)
+        ev = variant_eval(wrappers, overrides)
+        for name, rs in ev.pop("kernels").items():
+            rows.setdefault(name, []).extend(rs)
+        parity = variant_parity(cfg, ev["model"])
+        if label == "fpfh":
+            parity += "; " + fpfh_parity(ev["src"], ev["dst"])
+        del ev["model"], ev["src"], ev["dst"]
+        out[label] = dict(train=tr, train_launches=train_launches,
+                          train_reckoned=train_reckoned, evaluate=ev, parity=parity,
+                          branch=branch, kernels=rows)
+        torch.cuda.empty_cache()
+    return out
+
+
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
     """The result lines of a reg_phase run of `preset`."""
     res, ev = rg["results"], rg["evaluate"]
@@ -3501,10 +3797,39 @@ def main() -> int:
     phase("evaluate --methods", t0, f"launches {sw['launches']} in {sw['batches']} batches, "
                                     f"{sw['per_batch']} in a staged one; teaserpp row "
                                     "bit-equal to register_eval_batch's")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    vs = variants_phase(wrappers)
+    for label, v in vs.items():
+        tv, ev_v = v["train"], v["evaluate"]
+        res_v = ev_v["results"]
+        print(f"variant {label} train: {smi}: {tv['ms_per_step']:.2f} ms/step (median of steps "
+              f"2-{TRAIN_STEPS} on a fixed batch), {tv['clouds_per_s']:.2f} clouds/s at "
+              f"{TRAIN_BATCH} x {NUM_POINTS}; forward {tv['split_ms'][0]:.2f} ms, backward "
+              f"{tv['split_ms'][1]:.2f} ms, optimizer {tv['split_ms'][2]:.2f} ms; peak "
+              f"{tv['peak_gb']:.2f} GB; launches {v['train_launches']} (reckoned "
+              f"{v['train_reckoned']}); losses {short(tv['losses'])}", flush=True)
+        print(f"variant {label} train profile (one step): {json.dumps(tv['profile'])}",
+              flush=True)
+        print(f"variant {label} evaluate: {smi}: flagship evaluate section, "
+              f"{VARIANT_EVAL_PAIRS} pairs (one batch after the warm-up): "
+              f"{1.0 / res_v['reg_time']:.2f} pairs/s by reg_time "
+              f"({res_v['reg_time'] * VARIANT_EVAL_PAIRS * 1e3:.2f} ms a batch); whole call "
+              f"{ev_v['run_s']:.2f} s; peak {ev_v['peak_gb']:.2f} GB; staged batch: "
+              + ", ".join(f"{k} {val:.2f} ms" for k, val in ev_v["split"].items())
+              + f"; of the forward, {v['branch']} {ev_v['branch_ms']:.2f} ms on its own; "
+              f"launches {ev_v['launches']} (reckoned {ev_v['reckoned']}); result (seeded "
+              f"weights: information only) "
+              f"{json.dumps({k: round(val, 6) for k, val in res_v.items()})}", flush=True)
+    phase("variants", t0, "; ".join(f"{label}: parity: {v['parity']}" for label, v in vs.items()))
     for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg),
                       ("map_sequence", mp), ("evaluate_methods", sw)):
         for name, rows in res["kernels"].items():
             report[name][path] = rows
+    for label, v in vs.items():
+        for name, rows in v["kernels"].items():
+            report[name].setdefault("variants", {})[label] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
@@ -3512,7 +3837,9 @@ def main() -> int:
              "train_bf16": bf["launches"], "evaluate_cls": ce["launches"],
              "train_dp": dp["launches"], "train_seg": sg["launches"],
              **{run["path"]: run["launches"] for run in mp["runs"]},
-             "evaluate_methods": sw["launches"]}
+             "evaluate_methods": sw["launches"],
+             **{f"train_{label}": v["train_launches"] for label, v in vs.items()},
+             **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()}}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -3533,7 +3860,7 @@ def main() -> int:
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
                                    "evaluate_cls", "train_seg", "map_sequence",
-                                   "evaluate_methods")
+                                   "evaluate_methods", "variants")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

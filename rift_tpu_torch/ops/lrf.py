@@ -1,8 +1,8 @@
 """Local reference frames: the 'change_coords' rotation-invariant preprocess.
 
-Twin of `rift_tpu/ops/lrf.py` (`global_lrf`, `pca_lrf`, `lrf_basis`,
-`change_coords`, `lrf_flip_hypotheses`, `pca_align`). Bases are
-[..., 3, 3] with ROWS = axes; canonical coordinates are coords @ basisᵀ.
+Twin of `rift_tpu/ops/lrf.py` (`global_lrf`, `local_lrf`, `pca_lrf`,
+`lrf_basis`, `change_coords`, `lrf_flip_hypotheses`, `pca_align`). Bases
+are [..., 3, 3] with ROWS = axes; canonical coordinates are coords @ basisᵀ.
 """
 from __future__ import annotations
 
@@ -43,6 +43,26 @@ def global_lrf(coords: Tensor) -> Tensor:
     base_x = _unit(base_x - base_y * (base_x * base_y).sum(-1, keepdim=True))
     base_z = _unit(torch.linalg.cross(base_x, base_y))
     return torch.stack([base_x, base_y, base_z], dim=-2)
+
+
+def local_lrf(neighbor_coords: Tensor) -> Tensor:
+    """Each neighbourhood [..., n, k, 3] in its own LRF -> [..., n, k, 3]:
+    centred by its mean, base_x the farthest point (the first on ties),
+    base_y the first non-collinear one down the norm ranking, then base_y
+    orthogonalized against base_x (the global frame's order reversed) and
+    base_z = x × y. The centred points are projected in their own order."""
+    centered = neighbor_coords - neighbor_coords.mean(-2, keepdim=True)
+    norms = torch.linalg.vector_norm(centered, dim=-1)
+    order = torch.argsort(-norms, dim=-1, stable=True)
+    sorted_pts = torch.gather(centered, -2, order[..., None].expand(centered.shape))
+    sorted_norms = torch.gather(norms, -1, order)
+    units = sorted_pts / torch.clamp(sorted_norms[..., None], min=1e-20)
+    base_x = units[..., 0, :]
+    base_y = _pick_base_y(units, sorted_norms, base_x)
+    base_y = _unit(base_y - base_x * (base_x * base_y).sum(-1, keepdim=True), 1e-10)
+    base_z = _unit(torch.linalg.cross(base_x, base_y))
+    basis = torch.stack([base_x, base_y, base_z], dim=-2)
+    return torch.matmul(centered, basis.transpose(-1, -2))
 
 
 def pca_lrf(coords: Tensor) -> Tensor:

@@ -52,8 +52,6 @@ Tensor = torch.Tensor
 
 def build_model(config: ExperimentConfig) -> PVCNNClassifier:
     m = config.model
-    if m.with_transform_fine_tune:
-        raise NotImplementedError("with_transform_fine_tune is not ported yet (ROADMAP item 10)")
     return PVCNNClassifier(
         blocks=tuple(tuple(b) for b in m.blocks),
         dim_k=m.dim_k,
@@ -69,6 +67,7 @@ def build_model(config: ExperimentConfig) -> PVCNNClassifier:
         rot_invariant_preprocess=m.rot_invariant_preprocess,
         lrf_kind=m.lrf_kind,
         with_local_feat=m.with_local_feat,
+        with_transform_fine_tune=m.with_transform_fine_tune,
         local_neighbors=m.local_neighbors,
         use_new_coords_for_voxel=m.use_new_coords_for_voxel,
         dtype=m.dtype)

@@ -11,6 +11,11 @@ Flax's automatic names map explicitly:
 
   top level  SharedMLP_i / PVConv_i      -> layers.<same name>
              Dense_i / BatchNorm_i       -> head.<same name> (the classifier head)
+             with `fine_tune`: SharedMLP_0, Dense_0, BatchNorm_0, Dense_1
+                                         -> fine_tune.<same name> (the 6-D
+                                            rotation block, which flax
+                                            creates first; the indices of
+                                            the rest follow it)
   SharedMLP  Dense_i, BatchNorm_i        -> layers.i.dense, layers.i.bn
   PVConv     Conv_i, BatchNorm_i         -> convs.i, bns.i
              SE3d_0/Dense_0, /Dense_1    -> se.fc1, se.fc2
@@ -24,9 +29,10 @@ Flax's automatic names map explicitly:
   BatchNorm scale, bias + mean, var      -> weight, bias, running_mean, running_var
 
 Any key that no rule consumes raises, so a tree from another configuration
-(a fine-tune transform, a third conv in a block) fails loudly instead of
-loading partly; a width that differs from the torch model's fails in
-`load_state_dict`.
+(a third conv in a block) fails loudly instead of loading partly; a width
+that differs from the torch model's fails in `load_state_dict`, and so
+does a fine-tune tree converted without `fine_tune` (its block lands in
+`head.`, which the model has not or holds at other widths).
 """
 from __future__ import annotations
 
@@ -115,21 +121,32 @@ def _pvconv(out, prefix, params, stats, path):
         out[f"{prefix}coefficient"] = _t(params.get(*path, "coefficient")).reshape(())
 
 
-def from_flax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+FINE_TUNE = ("SharedMLP_0", "Dense_0", "BatchNorm_0", "Dense_1")
+
+
+def from_flax(params: dict, batch_stats: dict,
+              fine_tune: bool = False) -> dict[str, torch.Tensor]:
     """flax `params` and `batch_stats` (nested dicts of numpy arrays) ->
-    state_dict for `rift_tpu_torch.models.PVCNNClassifier`."""
+    state_dict for `rift_tpu_torch.models.PVCNNClassifier`; `fine_tune`
+    says the tree is of a model with `with_transform_fine_tune` (its
+    FINE_TUNE modules go to `fine_tune.`, and must be there)."""
     p = _Tree(params, "params")
     s = _Tree(batch_stats, "batch_stats")
     out: dict[str, torch.Tensor] = {}
+    if fine_tune:
+        for name in FINE_TUNE:
+            if not p.has(name):
+                raise KeyError(f"params: no {name}, which a fine-tune tree has")
     for name in params:
+        group = "fine_tune" if fine_tune and name in FINE_TUNE else None
         if re.fullmatch(r"SharedMLP_\d+", name):
-            _shared_mlp(out, f"layers.{name}.", p, s, (name,))
+            _shared_mlp(out, f"{group or 'layers'}.{name}.", p, s, (name,))
         elif re.fullmatch(r"PVConv_\d+", name):
             _pvconv(out, f"layers.{name}.", p, s, (name,))
         elif re.fullmatch(r"Dense_\d+", name):
-            _dense(out, f"head.{name}.", p, (name,))
+            _dense(out, f"{group or 'head'}.{name}.", p, (name,))
         elif re.fullmatch(r"BatchNorm_\d+", name):
-            _bn(out, f"head.{name}.", p, s, (name,))
+            _bn(out, f"{group or 'head'}.{name}.", p, s, (name,))
     p.check_all_used()
     s.check_all_used()
     return out

@@ -161,3 +161,46 @@ def test_evaluate_registration_on_the_cube_checkpoint_matches_reference(cu_dg_ck
     else:
         both = _hold(t_res, got, j_res, want, EVAL_SMALL["num_pairs"])
     assert both.any(), (got["rre"], want["rre"])  # the trained trunk recovers pairs
+
+
+MAP_PRESET = "reg_icl_nuim_teaserpp_cu_dg"  # map-sequence's default: this cube trunk
+MAP_SCENE = 512
+
+
+def test_map_sequence_on_the_cube_checkpoint_matches_reference(cu_dg_ckpt, monkeypatch):
+    """run_map_sequence of MAP_PRESET (teaserpp, flips, canonical voxels)
+    on the trained rank_mn40_cu_dg trunk, 8 scans of 256 points, against
+    rift_tpu's on its own checkpoint: the same edges, and measurements,
+    odometry, graph and BA poses and every ATE within
+    tests/test_torch_sequence.py's MAP_TOL. Each package extracts its own
+    features, so this holds the map a trained trunk gives, not oracle
+    features. The room is sampled from MAP_SCENE points, so that a scan
+    of 256 holds half of them and an edge keeps ~60% inliers: from the
+    preset's 16384, two 256-point scans share almost no point within the
+    noise bound, TEASER ends on 2-7 inliers, and rounding picks its fixed
+    point in either package (ROADMAP §3), which no pose rule can hold."""
+    import rift_tpu.registration.sequence as j_seq
+    import rift_tpu.train.loop as j_loop
+    from test_torch_sequence import MAP_TOL
+
+    ckpt_dir, _ = cu_dg_ckpt
+    cfg, jcfg = get_config(MAP_PRESET), j_get_config(MAP_PRESET)
+    for c in (cfg, jcfg):
+        c.sequence.num_scans, c.sequence.num_points, c.sequence.scene_points = 8, 256, MAP_SCENE
+    results = {}
+    for key, module in (("port", t_loop), ("ref", j_seq)):
+        run = module.map_sequence
+        monkeypatch.setattr(module, "map_sequence", lambda *a, run=run, key=key, **kw:
+                            results.setdefault(key, run(*a, **kw)))
+    got_m = t_loop.run_map_sequence(cfg, ckpt_dir=ckpt_dir, ckpt_name="best_acc", device="cpu")
+    want_m = j_loop.run_map_sequence(jcfg, ckpt_dir=CUBE_DIRS["dg"], ckpt_name="best_acc")
+    got, want = results["port"], results["ref"]
+    assert list(got_m) == list(want_m) and got_m["num_edges"] == want_m["num_edges"] == 8
+    for a, b in zip(got.edges, want.edges):
+        np.testing.assert_array_equal(a, b)
+    for k in ("measurements", "odometry", "graph", "ba"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k), rtol=0, atol=MAP_TOL,
+                                   err_msg=k)
+    for k in ("ate_odometry", "ate_graph", "ate_ba"):
+        assert abs(got_m[k] - want_m[k]) < MAP_TOL, k
+    assert got_m["ate_ba"] < 0.05 and got_m["mean_edge_inliers"] > 0.3  # the trunk maps the room

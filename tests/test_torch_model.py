@@ -1,8 +1,10 @@
 """rift_tpu_torch's PVCNN against rift_tpu's on the same weights: a narrow
 feature extractor with JAX-initialised parameters, the shipped flagship
 checkpoint (mn40_sph_pt_r4) as feature extractor and as classifier, the
-dgcnn_kernel block and the sph_dg checkpoint (mn40_sph_dg_r3), and
-bench.py's headline model in bf16, each converted by `weights.from_flax`."""
+dgcnn_kernel block and the sph_dg checkpoint (mn40_sph_dg_r3), the other
+spherical checkpoints (UNTESTED below) as feature extractors and as
+classifiers, and bench.py's headline model in bf16, each converted by
+`weights.from_flax`."""
 import json
 import os
 
@@ -22,7 +24,12 @@ from rift_tpu_torch.weights import from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_DIR = os.path.join(ROOT, "checkpoints", "mn40_sph_pt_r4")
-SPH_DG_DIR = os.path.join(ROOT, "checkpoints", "mn40_sph_dg_r3")
+# The committed spherical checkpoints that no other port test reads: the
+# earlier sph_dg runs (r2 with 4 global-PPF channels; r2, r2b with no
+# lrf_kind in their metas), r5 of the flagship, and the ranking runs (one
+# without the local branch).
+UNTESTED = ("mn40_sph_dg_r2", "mn40_sph_dg_r2b", "mn40_sph_pt_r5", "rank_ablate_no_local",
+            "rank_mn40_sph_dg", "rank_mn40_sph_pt")
 PORTED = ("blocks", "dim_k", "point_kernel_formal", "voxel_shape", "with_coeff", "with_se",
           "extra_feature_channels", "width_multiplier", "voxel_resolution_multiplier",
           "rot_invariant_preprocess", "lrf_kind", "with_local_feat", "local_neighbors")
@@ -173,8 +180,11 @@ def test_flagship_checkpoint_matches_reference(rng, flagship):
     _compare(got, want)
 
 
-def test_flagship_classifier_logits_match_reference(rng, flagship):
-    cfg, raw = flagship
+@pytest.mark.parametrize("name", ("mn40_sph_pt_r4",) + UNTESTED)
+def test_flagship_classifier_logits_match_reference(rng, name):
+    directory = os.path.join(ROOT, "checkpoints", name)
+    cfg = _load_config(directory)
+    raw = _restore(directory)
     x = _inputs(rng, 2, 256)
     want = np.asarray(JaxPVCNN(**cfg, is_classify=True).apply(
         {"params": raw["params"], "batch_stats": raw["batch_stats"]}, jnp.asarray(x),
@@ -194,9 +204,17 @@ def test_flagship_classifier_logits_match_reference(rng, flagship):
 def _load_config(directory):
     with open(os.path.join(directory, "best_acc.meta.json")) as f:
         meta = json.load(f)["config"]["model"]
-    cfg = {k: meta[k] for k in PORTED}
+    # A meta written before the field existed (mn40_sph_dg_r2, r2b) has no
+    # lrf_kind: its run had ModelConfig's default, 'reference'.
+    cfg = {k: meta.get(k, "reference") if k == "lrf_kind" else meta[k] for k in PORTED}
     cfg["blocks"] = tuple(tuple(b) for b in cfg["blocks"])
     return cfg
+
+
+def _restore(directory):
+    from rift_tpu.train.checkpoint import CheckpointManager
+
+    return CheckpointManager(directory).restore_raw("best_acc")
 
 
 @pytest.mark.parametrize("with_coeff", [True, False])
@@ -246,18 +264,23 @@ def test_dgcnn_model_with_global_ppf_matches_reference_in_f32(rng, lrf_kind):
     _compare(got, want)
 
 
-def test_sph_dg_checkpoint_matches_reference(rng):
-    """The dgcnn_kernel checkpoint's trunk: from_flax maps every leaf of it
-    (it raises on any it leaves unused) and the features agree."""
-    from rift_tpu.train.checkpoint import CheckpointManager
-
-    cfg = _load_config(SPH_DG_DIR)
-    assert cfg["point_kernel_formal"] == "dgcnn_kernel"
-    raw = CheckpointManager(SPH_DG_DIR).restore_raw("best_acc")
+@pytest.mark.parametrize("name", ("mn40_sph_dg_r3",) + UNTESTED)
+def test_sph_dg_checkpoint_matches_reference(rng, name):
+    """The checkpoint's trunk (the dgcnn_kernel sph_dg_r3, and the
+    UNTESTED trees): from_flax maps every leaf of it (it raises on any it
+    leaves unused) and the features agree."""
+    directory = os.path.join(ROOT, "checkpoints", name)
+    cfg = _load_config(directory)
+    raw = _restore(directory)
     trunk = ("PVConv_", "SharedMLP_")
     params = {k: v for k, v in raw["params"].items() if k.startswith(trunk)}
     stats = {k: v for k, v in raw["batch_stats"].items() if k.startswith(trunk)}
-    assert np.shape(params["PVConv_0"]["SharedMLP_0"]["Dense_0"]["kernel"]) == (2 * 67, 64)
+    # xyz' (+ 4 global-PPF channels) (+ the 64 local-PPF channels), doubled
+    # by a dgcnn_kernel's edge features.
+    c_in = (3 + 4 * (cfg["extra_feature_channels"] == 4)
+            + 64 * (cfg["with_local_feat"] is not None))
+    edge = 2 if cfg["point_kernel_formal"] == "dgcnn_kernel" else 1
+    assert np.shape(params["PVConv_0"]["SharedMLP_0"]["Dense_0"]["kernel"]) == (edge * c_in, 64)
     x = _inputs(rng, 1, 256)
     want = np.asarray(JaxPVCNN(**cfg, is_classify=False).apply(
         {"params": params, "batch_stats": stats}, jnp.asarray(x), train=False))

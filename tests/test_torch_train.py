@@ -247,13 +247,14 @@ def test_schedule_and_clip_match_optax(rng, max_norm):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), rtol=1e-6)
 
 
-def _sync(state: TrainState, jstate) -> None:
+def _sync(state: TrainState, jstate, fine_tune: bool = False) -> None:
     """Load rift_tpu's TrainState (params, batch_stats, Adam moments, step)
-    into the port's."""
+    into the port's (`fine_tune`: a model with the fine-tune block)."""
     stats = _np(jstate.batch_stats)
-    state.model.load_state_dict(from_flax(_np(jstate.params), stats))
+    state.model.load_state_dict(from_flax(_np(jstate.params), stats, fine_tune=fine_tune))
     adam = jstate.opt_state[1][0]
-    mu, nu = from_flax(_np(adam.mu), stats), from_flax(_np(adam.nu), stats)
+    mu = from_flax(_np(adam.mu), stats, fine_tune=fine_tune)
+    nu = from_flax(_np(adam.nu), stats, fine_tune=fine_tune)
     state.optimizer.state.clear()
     count = int(adam.count)
     for name, p in state.model.named_parameters():
