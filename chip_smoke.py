@@ -10,8 +10,10 @@ then the classifier's own workflow: bf16 training of the reference's
 default preset through the command line, `evaluate-cls` of its
 checkpoint, and the data-parallel step on a one-rank NCCL group; then
 ShapeNet part segmentation training through the command line at the
-`shapenet_seg` preset's full width; and compare every path with its CPU
-run.
+`shapenet_seg` preset's full width; the mapping, the method sweep and the
+model variants; the auxiliaries (weak scaling on this card, the RPM-Net
+pairs and metrics, the port's trace, grid subsampling); and compare every
+path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -171,6 +173,20 @@ Phases (each prints one line with its wall time):
                parameters) and, for 'fpfh', FPFH on one neighbour list
                with the share of points whose self decision the two
                devices' knn make apart.
+ 22. aux    — the auxiliaries (the rules at AUX_PAIRS): weak scaling
+               (parallel.registration_weak_scaling at mesh size 1, the
+               flagship at full width, seeded; 16 pairs x 1024 a call,
+               ransac+picp with 256 hypotheses; pairs/s, ms a call, K1-K3
+               launches as reckoned), the RPM-Net pairs (64 'crop' pairs of
+               data.ModelNetHdf's stand-in in one batch: pairs/s, ms a
+               batch, peak memory, rpmnet_metrics through MeterRPMNet, the
+               staged split with its pose bit-equal to the pipeline's, 4
+               pairs against the CPU on the card's RANSAC samples, the
+               chamfer distance against the CPU's, K1 on the clouds and the
+               targets and K2/K3 at the 2b forward's shapes against their
+               plain versions), train.profiling.trace around one call (K1-K3
+               and the annotate range in the trace), and grid_subsample
+               built by g++ and run twice on 16384 points, bit-equal.
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
@@ -544,6 +560,31 @@ VARIANT_EVAL_PAIRS = 64
 FEAT_MEDIAN = 1e-5
 GRID_STEP = 2.0 ** -8
 FPFH_TOL = 1e-4 * 100.0
+# The auxiliaries (aux): parallel.registration_weak_scaling on this one card
+# (mesh size 1) with the flagship at full width, seeded (seeded_model),
+# AUX_PAIRS pairs of NUM_POINTS points, AUX_REPS timed calls after a
+# warm-up; each call runs K1 on the 2b clouds and on the b targets
+# ('+picp's normals), and K2 and K3 twice (AUX_LAUNCHES). Then
+# AUX_RPMNET_PAIRS pairs of data.ModelNetHdf's synthetic stand-in in 'crop'
+# mode through the same pipeline in one batch (warm-up, then AUX_REPS timed
+# batches), registration.rpmnet_metrics and train.MeterRPMNet on the card,
+# a staged batch whose pose must be bit-equal to the pipeline's from the
+# same generator seed, and EVAL_PARITY_PAIRS of its pairs against the CPU on
+# the card's RANSAC samples (the reg_parity rules). The chamfer distance of
+# the [64, 1024] x [64, 1024] aligned clouds is held against the CPU's plain
+# run within AUX_CHAMFER_RTOL of each pair's value: both form d² as
+# ‖a‖² + ‖b‖² − 2a·b in strict f32 (no TF32), so each d² is off by a few
+# ulps of ‖a‖² + ‖b‖² (~1e-7 here), against chamfer values of ~1e-3 and
+# more. Then train.profiling.trace around one pipeline call, whose trace
+# must name K1-K3's kernels (AUX_TRACE_KERNELS) and the annotate range; and
+# data.grid_subsample (host C++, built by g++ at its first call) on
+# AUX_GRID_POINTS points with features and labels, bit-equal over two calls.
+AUX_PAIRS, AUX_REPS, AUX_RPMNET_PAIRS = 16, 3, 64
+AUX_LAUNCHES = {"normals_moments": 2, "scatter_mean": 2, "corner_gather": 2}
+AUX_CHAMFER_RTOL = 1e-3
+AUX_TRACE_KERNELS = {"normals_moments": "moments_kernel", "scatter_mean": "voxel_sum_kernel",
+                     "corner_gather": "corner_gather_kernel"}
+AUX_GRID_POINTS, AUX_GRID_DL = 16384, 0.05
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -3539,6 +3580,258 @@ def variants_phase(wrappers: dict) -> dict:
     return out
 
 
+def aux_ev():
+    """The RANSAC and '+picp' settings of the weak-scaling pipeline, in the
+    fields ransac_picp reads."""
+    from types import SimpleNamespace
+
+    from rift_tpu_torch.parallel import scaling
+
+    return SimpleNamespace(inlier_threshold=0.08, ransac_irls=3, ransac_irls_shrink=1.0,
+                           noise_bound=scaling.NOISE_BOUND, num_hypotheses=scaling.NUM_HYPOTHESES)
+
+
+def aux_stages(model, src, dst, generator=None, samples=None, timed: dict | None = None) -> dict:
+    """parallel.scaling's pipeline split at its stages, in its order, each
+    ended by a synchronize and its wall ms added to `timed` when given:
+    normals, the 2b forward, mutual NN, RANSAC (ransac_samples from
+    `generator`, or the given `samples`; ransac_from_samples), then
+    refine_pose's '+picp' (icp_pose, normals of the targets,
+    icp_plane_pose). RANSAC and both ICPs run under sync debug mode
+    "error" on the card. Returns the intermediate tensors."""
+    import torch
+
+    from rift_tpu_torch.ops.neighbors import gather_rows, mutual_nearest_neighbors
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import (icp_plane_pose, icp_pose, ransac_from_samples,
+                                             ransac_samples)
+
+    def stage(name, fn, sync_free=False):
+        return run_stage(name, fn, src.device.type == "cuda", timed, sync_free)
+
+    ev = aux_ev()
+    b = src.shape[0]
+    with torch.no_grad(), f32_geometry():
+        clouds = torch.cat([src, dst], 0)
+        normals = stage("normals", lambda: estimate_normals(clouds))
+        feats = stage("forward 2b", lambda: model(torch.cat([clouds, normals], -1)))
+
+        def matches():
+            i1, i2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+            return i1.expand(i2.shape), i2, mask
+
+        i1, i2, mask = stage("mutual NN", matches)
+        if samples is None:
+            samples = stage("RANSAC sampling",
+                            lambda: ransac_samples(mask, ev.num_hypotheses, generator),
+                            sync_free=True)
+        t_ransac, _, rscore = stage(
+            "RANSAC scoring, refit, IRLS",
+            lambda: ransac_from_samples(gather_rows(src, i1), gather_rows(dst, i2), mask, samples,
+                                        ev.inlier_threshold, irls_iterations=ev.ransac_irls,
+                                        irls_shrink=ev.ransac_irls_shrink), sync_free=True)
+        t_icp = stage("ICP point-to-point", lambda: icp_pose(src, dst, init_transform=t_ransac),
+                      sync_free=True)
+        dst_normals = stage("normals of the targets", lambda: estimate_normals(dst))
+        transform = stage("ICP point-to-plane", lambda: icp_plane_pose(
+            src, dst, dst_normals, init_transform=t_icp, max_correspondence_distance=0.05),
+            sync_free=True)
+    return dict(feats=feats, i1=i1, i2=i2, mask=mask, samples=samples, rscore=rscore,
+                t_ransac=t_ransac, transform=transform)
+
+
+def aux_parity(model, src, dst, stages: dict, pairs: int = EVAL_PARITY_PAIRS) -> str:
+    """The first `pairs` pairs of the staged aux batch against aux_stages
+    on the CPU (a copy of the model) on the card's RANSAC samples, under
+    reg_parity's rules without its flip hypotheses: features, mutual-NN
+    agreement, RANSAC's scores and winner on the same matches and samples,
+    and RANSAC's and '+picp''s poses on the CPU run's matches (card vs
+    CPU) and end to end, where a nudge of the targets leaves the CPU's pose
+    in place."""
+    import torch
+
+    p, b = pairs, src.shape[0]
+    ev = aux_ev()
+    cpu_model = copy.deepcopy(model).cpu()
+    src_c, dst_c = src[:p].cpu(), dst[:p].cpu()
+    samples = stages["samples"][:p].cpu()
+    c = aux_stages(cpu_model, src_c, dst_c, samples=samples)
+    clouds = torch.cat([torch.arange(p), b + torch.arange(p)]).to(src.device)
+    f_g = stages["feats"][clouds].cpu()
+    g = {k: stages[k][:p].cpu() for k in ("i2", "mask", "rscore", "t_ransac", "transform")}
+    point_err = (f_g - c["feats"]).abs().amax(-1) / float(c["feats"].abs().max())
+    bad_share = float((point_err > FEAT_POINT_TOL).float().mean())
+    same = (g["mask"] == c["mask"]).all(-1) & (g["i2"] == c["i2"]).all(-1)
+    agree = float((g["mask"] == c["mask"]).float().mean())
+    score_off = (g["rscore"] != c["rscore"]).sum(-1)
+    win_g, win_c = g["rscore"].argmax(-1), c["rscore"].argmax(-1)
+    win_ok = (win_g == win_c) | ((score_off > 0) & (
+        torch.gather(c["rscore"], 1, win_g[:, None])[:, 0] >= c["rscore"].amax(-1) - 1))
+    base, spread = nudge_spread(
+        lambda d: ransac_picp(src_c, d, c["i1"], c["i2"], c["mask"], samples, ev),
+        dst_c, REG_NUDGE_TRIES, 3)
+    t_solver = ransac_picp(src[:p], dst[:p], c["i1"].to(src.device), c["i2"].to(src.device),
+                           c["mask"].to(src.device), samples.to(src.device), ev).cpu()
+    determined = spread <= TRANSFORM_TOL  # [2, p]: RANSAC, then '+picp'
+    solver_diff = (t_solver - base).abs().amax((-2, -1))
+    t_diff = torch.stack([(g[k] - c[k]).abs().amax((-2, -1)) for k in ("t_ransac", "transform")])
+    held = determined & (same & (win_g == win_c))[None]
+    msg = (f"{p} pairs ({2 * p} clouds): features, share of points off by > "
+           f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}), median point err "
+           f"{float(point_err.median()):.3e}; mutual-NN agreement {agree:.4f} (tol "
+           f"{MASK_AGREE}), same matches {same.tolist()}; RANSAC on the same samples: "
+           f"hypotheses scored apart {score_off.tolist()} of {g['rscore'].shape[1]}, winner "
+           f"card {win_g.tolist()} CPU {win_c.tolist()}; on the CPU's matches, RANSAC's pose max "
+           f"abs diff {short(solver_diff[0])} and after +picp {short(solver_diff[1])}; end to "
+           f"end {short(t_diff[0])} and {short(t_diff[1])} (tol {TRANSFORM_TOL}; CPU pose "
+           f"spread under a {NUDGE:g} nudge of the targets {short(spread[0])} and "
+           f"{short(spread[1])}, determined {determined.tolist()})")
+    if bad_share > FEAT_POINT_SHARE or agree < MASK_AGREE \
+            or not bool(torch.isfinite(c["transform"]).all()):
+        fail("aux parity: " + msg)
+    if bool((~win_ok & same).any()) or int(determined[0].sum()) * 2 < p \
+            or bool((solver_diff[determined] > TRANSFORM_TOL).any()) \
+            or bool((t_diff[held] > TRANSFORM_TOL).any()):
+        fail("aux parity: " + msg)
+    return msg
+
+
+def timed_calls(fn, reps: int) -> tuple[float, object]:
+    """(median wall ms of `reps` calls of fn(), each ended by a
+    synchronize; the last result), after one warm-up call."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def aux_phase(wrappers: dict) -> dict:
+    """The auxiliaries on the card (the rules at AUX_PAIRS): weak scaling at
+    mesh size 1, the RPM-Net pairs with their metrics, parity and kernel
+    rows, the trace, and grid subsampling."""
+    import numpy as np
+    import torch
+
+    from rift_tpu_torch.data import Mn40HdfConfig, ModelNetHdf
+    from rift_tpu_torch.data.grid_subsample import grid_subsample, library_path
+    from rift_tpu_torch.ops.losses import chamfer_distance
+    from rift_tpu_torch.ops.se3 import transform_points
+    from rift_tpu_torch.parallel import registration_weak_scaling
+    from rift_tpu_torch.parallel.scaling import _build_pipeline, shard_generator
+    from rift_tpu_torch.registration import rpmnet_metrics
+    from rift_tpu_torch.registration import ransac as ransac_module
+    from rift_tpu_torch.train import MeterRPMNet, annotate, trace
+
+    dev = torch.device("cuda")
+    model = seeded_model(0).to(dev)
+    out: dict = {}
+
+    # (a) Weak scaling on this card.
+    for fn in wrappers.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    ws = registration_weak_scaling(mesh_sizes=(1,), pairs_per_device=AUX_PAIRS,
+                                   num_points=NUM_POINTS, reps=AUX_REPS, model=model)
+    out["ws_s"] = time.perf_counter() - t1
+    launches = read_counts(wrappers)
+    reckoned = {k: AUX_LAUNCHES.get(k, 0) * (1 + AUX_REPS) for k in wrappers}
+    if launches != reckoned:
+        fail(f"aux weak scaling: launches {launches}, reckoned {reckoned}")
+    if not bool(torch.isfinite(ws.transforms[1]).all()):
+        fail("aux weak scaling: non-finite transforms")
+    out.update(ws=ws, ws_launches=launches, ws_reckoned=reckoned)
+
+    # (b) The RPM-Net pairs, one batch.
+    t1 = time.perf_counter()
+    ds = ModelNetHdf(Mn40HdfConfig(mode="crop", num_points=NUM_POINTS,
+                                   synthetic_items=AUX_RPMNET_PAIRS))
+    rs = np.random.RandomState(0)
+    items = [ds.get_pair(i, rs) for i in range(AUX_RPMNET_PAIRS)]
+    out["data_s"] = time.perf_counter() - t1
+    src, dst, gt = (torch.as_tensor(np.stack([it[k] for it in items]), device=dev)
+                    for k in ("points_src", "points_ref", "transform_gt"))
+    pipeline = _build_pipeline(model)
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, est = timed_calls(lambda: pipeline(src, dst, shard_generator(dev, 0)), AUX_REPS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_counts(wrappers)
+    reckoned = {k: AUX_LAUNCHES.get(k, 0) * (1 + AUX_REPS) for k in wrappers}
+    if launches != reckoned:
+        fail(f"aux rpmnet: launches {launches}, reckoned {reckoned}")
+    metrics = rpmnet_metrics(src, dst, gt, est)
+    meter = MeterRPMNet()
+    meter.update(metrics)
+    result = meter.compute()
+    if not all(math.isfinite(v) for v in result.values()):
+        fail(f"aux rpmnet: non-finite metrics {result}")
+    split: dict = {}
+    stages = aux_stages(model, src, dst, generator=shard_generator(dev, 0), timed=split)
+    if not torch.equal(stages["transform"], est):
+        fail("aux rpmnet: the staged batch's poses differ from the pipeline's")
+    split["total"] = sum(split.values())
+    aligned = transform_points(est, src)
+    got = chamfer_distance(aligned, dst).cpu()
+    want = chamfer_distance(aligned.cpu(), dst.cpu())
+    chamfer_rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    if chamfer_rel > AUX_CHAMFER_RTOL:
+        fail(f"aux rpmnet: chamfer card vs CPU rel err {chamfer_rel:.3e} (tol "
+             f"{AUX_CHAMFER_RTOL:g})")
+    out.update(ms=ms, launches=launches, reckoned=reckoned, result=result, split=split,
+               chamfer_rel=chamfer_rel, parity=aux_parity(model, src, dst, stages))
+    clouds = torch.cat([src, dst], 0)
+    rows = {"normals_moments": [k1_row(clouds), k1_row(dst)],
+            **voxel_kernel_rows(model, clouds, k4=False)}
+    for row in rows["normals_moments"]:
+        print(f"    normals_moments at {row['shape']}: rel err {row['max_rel_err']:.3e} (tol "
+              f"{TOL['normals_moments']:g}); kernel {row['ms']:.4f} ms per call, "
+              f"{row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['neighbours_per_query']:.2f} neighbours per query",
+              flush=True)
+    out["kernels"] = rows
+
+    # (c) The port's trace sees its kernels.
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            with annotate("aux_pipeline"):
+                pipeline(src[:EVAL_PARITY_PAIRS], dst[:EVAL_PARITY_PAIRS], shard_generator(dev, 0))
+            torch.cuda.synchronize()
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            text = f.read()
+        names = [e.name for e in prof.events()]
+    missing = [k for k, mark in AUX_TRACE_KERNELS.items() if mark not in text]
+    if missing or "aux_pipeline" not in text:
+        fail(f"aux trace: kernels {missing} or the annotate range not in the trace")
+    out["trace"] = {k: sum(mark in n for n in names) for k, mark in AUX_TRACE_KERNELS.items()}
+    out["trace_mb"] = len(text) / 1e6
+
+    # (d) Grid subsampling, built by g++ here.
+    gen = np.random.RandomState(3)
+    pts = gen.uniform(-1, 1, (AUX_GRID_POINTS, 3)).astype(np.float32)
+    feats = gen.randn(AUX_GRID_POINTS, 8).astype(np.float32)
+    labels = gen.randint(0, 13, AUX_GRID_POINTS).astype(np.int32)
+    t1 = time.perf_counter()
+    first = grid_subsample(pts, feats, labels, sample_dl=AUX_GRID_DL)
+    out["grid_first_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    again = grid_subsample(pts, feats, labels, sample_dl=AUX_GRID_DL)
+    out["grid_s"] = time.perf_counter() - t1
+    if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+        fail("aux grid_subsample: two calls differ")
+    out["grid_cells"] = int(first[0].shape[0])
+    out["grid_lib"] = os.path.relpath(library_path(), os.path.dirname(os.path.abspath(__file__)))
+    return out
+
+
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
     """The result lines of a reg_phase run of `preset`."""
     res, ev = rg["results"], rg["evaluate"]
@@ -3823,6 +4116,34 @@ def main() -> int:
               f"weights: information only) "
               f"{json.dumps({k: round(val, 6) for k, val in res_v.items()})}", flush=True)
     phase("variants", t0, "; ".join(f"{label}: parity: {v['parity']}" for label, v in vs.items()))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ax = aux_phase(wrappers)
+    ws = ax["ws"]
+    print(f"weak scaling: {smi}: registration_weak_scaling on one card (mesh size 1), flagship "
+          f"(mn40_sph_pt_r4, seeded), ransac+picp (256 hypotheses), {AUX_PAIRS} pairs x "
+          f"{NUM_POINTS} points a card, {AUX_REPS} timed calls after a warm-up: "
+          f"{ws.pairs_per_s[0]:.2f} pairs/s, {AUX_PAIRS / ws.pairs_per_s[0] * 1e3:.2f} ms a call; "
+          f"whole call {ax['ws_s']:.2f} s; launches {ax['ws_launches']} (reckoned "
+          f"{ax['ws_reckoned']})", flush=True)
+    res_ax = ax["result"]
+    print(f"rpmnet: {smi}: ModelNetHdf 'crop' stand-in, {AUX_RPMNET_PAIRS} pairs x {NUM_POINTS} "
+          f"points in one batch through the weak-scaling pipeline: "
+          f"{AUX_RPMNET_PAIRS / ax['ms'] * 1e3:.2f} pairs/s, {ax['ms']:.2f} ms a batch (median of "
+          f"{AUX_REPS}), peak {ax['peak_gb']:.2f} GB; staged batch: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ax["split"].items())
+          + f"; the pairs built in {ax['data_s']:.2f} s on the host; metrics (seeded weights: "
+          f"information only) {json.dumps({k: round(v, 6) for k, v in res_ax.items()})}",
+          flush=True)
+    phase("aux", t0, f"rpmnet launches {ax['launches']} (reckoned {ax['reckoned']}); chamfer "
+                     f"card vs CPU rel err {ax['chamfer_rel']:.3e} (tol {AUX_CHAMFER_RTOL:g}); "
+                     f"staged pose bit-equal to the pipeline's; parity: {ax['parity']}; trace "
+                     f"({ax['trace_mb']:.1f} MB) kernel events {ax['trace']} and the annotate "
+                     f"range; grid_subsample of {AUX_GRID_POINTS} points -> "
+                     f"{ax['grid_cells']} cells, first call (g++ build) "
+                     f"{ax['grid_first_s']:.2f} s, "
+                     f"then {ax['grid_s'] * 1e3:.2f} ms, bit-equal, library {ax['grid_lib']}")
     for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg),
                       ("map_sequence", mp), ("evaluate_methods", sw)):
         for name, rows in res["kernels"].items():
@@ -3830,6 +4151,8 @@ def main() -> int:
     for label, v in vs.items():
         for name, rows in v["kernels"].items():
             report[name].setdefault("variants", {})[label] = rows
+    for name, rows in ax["kernels"].items():
+        report[name]["aux"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
@@ -3839,7 +4162,8 @@ def main() -> int:
              **{run["path"]: run["launches"] for run in mp["runs"]},
              "evaluate_methods": sw["launches"],
              **{f"train_{label}": v["train_launches"] for label, v in vs.items()},
-             **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()}}
+             **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()},
+             "weak_scaling": ax["ws_launches"], "rpmnet": ax["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -3860,7 +4184,7 @@ def main() -> int:
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
                                    "evaluate_cls", "train_seg", "map_sequence",
-                                   "evaluate_methods", "variants")
+                                   "evaluate_methods", "variants", "aux")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

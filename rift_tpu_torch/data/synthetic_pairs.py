@@ -5,7 +5,8 @@ indoor trajectory (the 'icl_nuim' mode, `data/sequences.py`);
 `H5TestPairs`, the DeepGMR-format h5 test files (needs h5py); and
 `get_pairs`. With them, the procedural shapes of
 `rift_tpu/data/synthetic.py` and the transforms and crops of
-`rift_tpu/data/transforms.py` they need. The same seed or file gives the
+`rift_tpu/data/transforms.py` (`half_space_crop` and `resample` for
+`data/mn40_hdf.py`). The same seed or file gives the
 same arrays as the original.
 """
 from __future__ import annotations
@@ -215,6 +216,26 @@ def jitter(pcd: np.ndarray, sigma: float = 0.01, clip: float | None = 0.05,
     out = pcd.copy()
     out[:, :3] = out[:, :3] + noise.astype(pcd.dtype)
     return out
+
+
+def half_space_crop(pcd: np.ndarray, p_keep: float,
+                    rs: np.random.RandomState) -> np.ndarray:
+    """RPM-Net crop: keep the p_keep fraction on one side of a random plane
+    through the centroid (its normal uniform on the 2-sphere)."""
+    phi = rs.uniform(0, 2 * np.pi)
+    cos_theta = rs.uniform(-1.0, 1.0)
+    sin_theta = np.sqrt(max(1 - cos_theta**2, 0.0))
+    direction = np.array([sin_theta * np.cos(phi), sin_theta * np.sin(phi), cos_theta])
+    pts = pcd[:, :3] - pcd[:, :3].mean(0, keepdims=True)
+    dist = pts @ direction
+    thresh = np.percentile(dist, (1 - p_keep) * 100.0)
+    return pcd[dist > thresh]
+
+
+def resample(pcd: np.ndarray, num_points: int,
+             rs: np.random.RandomState) -> np.ndarray:
+    """`num_points` rows of `pcd` by `randchoice`."""
+    return pcd[randchoice(rs, pcd.shape[0], num_points)]
 
 
 def zbuffer_crop(pcd: np.ndarray, grid_num: int = 200) -> np.ndarray:

@@ -64,7 +64,7 @@ from ..nn.dropout import train_dropout
 from ..nn.pvconv import PVConv
 from ..nn.shared_mlp import SharedMLP
 from ..ops.fpfh import fpfh
-from ..ops.lrf import change_coords, local_lrf, lrf_basis, pca_align
+from ..ops.lrf import change_coords, global_lrf, local_lrf, lrf_basis, pca_align
 from ..ops.neighbors import ball_query, ball_query_group, grouping
 from ..ops.ppf import global_ppf, local_ppf, new_ppf
 
@@ -278,3 +278,9 @@ class PVCNNClassifier(nn.Module):
         fused = mlp(local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals))
         fill = float("-inf") if fused.dtype == torch.float32 else torch.finfo(fused.dtype).min
         return fused.masked_fill(~slot_ok[..., None], fill).amax(-2)
+
+
+def global_lrf_basis(coords: torch.Tensor) -> torch.Tensor:
+    """The canonical frame itself: `ops.lrf.global_lrf` of coords
+    [..., n, 3] -> [..., 3, 3]."""
+    return global_lrf(coords)

@@ -1,4 +1,5 @@
-"""Neighbour search: squared distances, k nearest neighbours, ball query,
+"""Neighbour search: squared distances, k nearest neighbours (one way,
+both ways and PVCNN's knn combinations), ball query,
 grouping, the PointNet++ ball grouping and 3-NN interpolation, mutual NN
 and its motion-gated form.
 
@@ -41,6 +42,32 @@ def knn(queries: Tensor, points: Tensor, k: int) -> tuple[Tensor, Tensor]:
         dist = torch.cat([dist, dist[..., -1:].expand(dist.shape[:-1] + (pad,))], -1)
         idx = torch.cat([idx, idx[..., -1:].expand(idx.shape[:-1] + (pad,))], -1)
     return dist, idx
+
+
+def bilateral_knn(xyz1: Tensor, xyz2: Tensor, k: int
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """`knn` both ways: (squared distances of xyz1's queries among xyz2
+    [..., n, k], of xyz2's among xyz1 [..., m, k], and their indices)."""
+    d1, i1 = knn(xyz1, xyz2, k)
+    d2, i2 = knn(xyz2, xyz1, k)
+    return d1, d2, i1, i2
+
+
+def knn_select(xyz1: Tensor, xyz2: Tensor, k: int, bilateral: bool = True,
+               return_distance: bool = True, return_index: bool = True):
+    """The combinations of `bilateral_knn` that PVCNN's knn module returns,
+    with euclidean (not squared) distances: (d1, d2, i1, i2), or without
+    `bilateral` xyz1's side alone, with distances, indices or both; None
+    when neither is asked for."""
+    d1, d2, i1, i2 = bilateral_knn(xyz1, xyz2, k)
+    d1, d2 = torch.sqrt(d1), torch.sqrt(d2)
+    if return_distance and return_index:
+        return (d1, d2, i1, i2) if bilateral else (d1, i1)
+    if return_distance:
+        return (d1, d2) if bilateral else d1
+    if return_index:
+        return (i1, i2) if bilateral else i1
+    return None
 
 
 def _first_valid(d2: Tensor, radius: float, u: int) -> tuple[Tensor, Tensor]:

@@ -2,7 +2,10 @@
 exp_so3 and the Lie maps of the pose graph and bundle adjustment
 (log_so3, _v_matrix, exp_se3, log_se3), make_se3, rot_of, trans_of,
 inverse, concatenate, transform_points, rotation_error_deg,
-translation_error, registration_rmse.
+translation_error, registration_rmse, and the random draws
+random_rotation, random_so3 and uniform_2_sphere (from a
+`torch.Generator`, each through a `*_from_uniforms` or `*_from_normals`
+function that takes the draws themselves).
 
 Every function broadcasts over leading dims, so it also runs per sample
 under `torch.func.vmap`/`jacfwd` (the solves' Jacobians). The safe forms
@@ -158,3 +161,61 @@ def registration_rmse(points: Tensor, gt_transform: Tensor,
     a = transform_points(est_transform, points)
     b = transform_points(gt_transform, points)
     return torch.linalg.vector_norm(a - b, dim=-1).mean(-1)
+
+
+def random_rotation_from_uniforms(x: Tensor, u_degree: Tensor, u_amp: Tensor,
+                                  max_degree: float = 360.0, max_amp: float = 3.0) -> Tensor:
+    """`random_rotation` from given U[0, 1) draws: x [..., 6] (the axis and
+    the translation direction, each normalized), u_degree and u_amp [...]
+    (the angle in [0, max_degree] degrees and the amplitude in [0, max_amp])
+    -> transform [..., 4, 4]."""
+    degree = (u_degree * max_degree * math.pi / 180.0)[..., None]
+    amp = (u_amp * max_amp)[..., None]
+    w, v = x[..., :3], x[..., 3:]
+    w = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-12) * degree
+    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12) * amp
+    return make_se3(exp_so3(w), v)
+
+
+def random_rotation(generator: torch.Generator, max_degree: float = 360.0,
+                    max_amp: float = 3.0, dtype: torch.dtype = torch.float32) -> Tensor:
+    """Random SE(3) [4, 4] drawn from `generator` (on its device): the
+    reference's distribution, whose axis and translation direction are
+    U[0, 1)³ normalized (so not uniform over SO(3): the reference's
+    training distribution), with an angle uniform in [0, max_degree]
+    degrees and an amplitude uniform in [0, max_amp]."""
+    u = torch.rand(8, generator=generator, dtype=dtype, device=generator.device)
+    return random_rotation_from_uniforms(u[:6], u[6], u[7], max_degree, max_amp)
+
+
+def random_so3_from_normals(q: Tensor) -> Tensor:
+    """The rotation [..., 3, 3] of the normalized quaternion of q [..., 4]
+    (w, x, y, z); q drawn from a standard normal gives a uniform rotation."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def random_so3(generator: torch.Generator, dtype: torch.dtype = torch.float32) -> Tensor:
+    """Uniform random rotation [3, 3] from `generator` (on its device)."""
+    q = torch.randn(4, generator=generator, dtype=dtype, device=generator.device)
+    return random_so3_from_normals(q)
+
+
+def uniform_2_sphere_from_uniforms(u_phi: Tensor, u_cos: Tensor) -> Tensor:
+    """The point [..., 3] of the unit 2-sphere at azimuth 2π·u_phi and
+    cos(polar angle) 2·u_cos − 1, from U[0, 1) draws [...]."""
+    phi = torch.clamp(u_phi * (2.0 * math.pi), min=0.0)
+    cos_theta = torch.clamp(u_cos * 2.0 - 1.0, min=-1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta ** 2, min=0.0))
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1)
+
+
+def uniform_2_sphere(generator: torch.Generator, dtype: torch.dtype = torch.float32) -> Tensor:
+    """Uniform point [3] on the unit 2-sphere from `generator`."""
+    u = torch.rand(2, generator=generator, dtype=dtype, device=generator.device)
+    return uniform_2_sphere_from_uniforms(u[0], u[1])

@@ -1,6 +1,6 @@
 """Cube voxelization (scatter-mean) and trilinear devoxelization, twin of
-`rift_tpu/ops/voxelize.py` (`normalize_coords_cube`, `cube_voxel_indices`,
-`avg_voxelize`, `trilinear_devoxelize`).
+`rift_tpu/ops/voxelize.py` (`scatter_mean`, `normalize_coords_cube`,
+`cube_voxel_indices`, `avg_voxelize`, `trilinear_devoxelize`).
 
 Grids are channels-last [b, r, r, r, c] with axes (x, y, z), flat index
 x·r² + y·r + z. Every point falls in a cell (coordinates are clamped to
@@ -21,6 +21,18 @@ import torch
 from .voxel_autograd import CornerGather, ScatterMean
 
 Tensor = torch.Tensor
+
+
+def scatter_mean(features: Tensor, indices: Tensor, num_segments: int,
+                 valid: Tensor | None = None) -> Tensor:
+    """The mean of the features [b, n, c] of each of `num_segments` slots
+    -> [b, num_segments, c] (0 where a slot is empty): K2 forward, its row
+    gather backward (`ScatterMean`). Points where `valid` [b, n] is False,
+    or whose index is outside [0, num_segments), are dropped. bf16
+    features are summed in f32 and the result is f32."""
+    if valid is not None:
+        indices = torch.where(valid, indices, torch.full_like(indices, -1))
+    return ScatterMean.apply(features, indices, num_segments)[0]
 
 
 def normalize_coords_cube(coords: Tensor, resolution: int, normalize: bool = True,

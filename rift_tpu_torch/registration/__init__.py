@@ -7,7 +7,7 @@ from .consensus import (choose_hypothesis, consensus_match, hypothesis_matches, 
 from .gnc import compatibility_core, fgr_pose, gnc_pose, teaser_pose  # noqa: F401
 from .icp import icp_plane_pose, icp_pose  # noqa: F401
 from .kabsch import rotation_from_h, weighted_kabsch  # noqa: F401
-from .metrics import pair_errors  # noqa: F401
+from .metrics import pair_errors, rpmnet_metrics  # noqa: F401
 from .pipeline import (METHODS, register_batch, register_pair,  # noqa: F401
                        register_pair_from_matches)
 from .ransac import ransac_from_samples, ransac_pose, ransac_samples  # noqa: F401

@@ -331,8 +331,8 @@ def map_sequence(scans, features, gt_poses: np.ndarray | None = None,
     inlier count times `edge_anchor`, and keeps its result only if the
     cost falls. With `group`, the pose-graph and BA solves are sharded
     over its ranks. `RIFT_MAP_DUMP=path` saves the trajectories and
-    measurements as an npz. `seconds` holds each stage's wall time, ended
-    by a synchronize.
+    measurements as an npz (under `group`, rank 0 alone writes it).
+    `seconds` holds each stage's wall time, ended by a synchronize.
     """
     device = resolve_device(device)
     scans_np = np.asarray(scans.cpu() if isinstance(scans, Tensor) else scans, np.float32)
@@ -442,7 +442,7 @@ def map_sequence(scans, features, gt_poses: np.ndarray | None = None,
     lap("bundle adjustment")
 
     dump = os.environ.get("RIFT_MAP_DUMP")
-    if dump:
+    if dump and (group is None or dist.get_rank(group) == 0):
         np.savez(dump, measurements=measurements, i_idx=i_idx, j_idx=j_idx, edge_w=edge_w,
                  odom=odom, graph=graph, ba=ba_poses,
                  gt=(gt_poses if gt_poses is not None else np.zeros(0)))

@@ -1,9 +1,13 @@
 """Meters, copies of `rift_tpu/train/meters.py`: `MeterClassification`
 (accuracy), `MeterRegistration` (per-pair registration errors and solver
-time) and `MeterShapeNetIoU` (part segmentation's instance mIoU)."""
+time), `MeterRPMNet` (the RPM-Net family of `registration.rpmnet_metrics`),
+`MeterReflection` (the 4-way reflection head's accuracy) and
+`MeterShapeNetIoU` (part segmentation's instance mIoU). `MeterRPMNet`
+takes tensors on any device as well as numpy arrays."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class MeterClassification:
@@ -42,6 +46,59 @@ class MeterRegistration:
     def compute(self) -> dict:
         n = max(self.num, 1)
         return {k: v / n for k, v in self.sums.items()}
+
+
+def _numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class MeterRPMNet:
+    """Means over pairs of `registration.rpmnet_metrics`' dicts; r_mse and
+    t_mse are reported as their square roots (RMSE), the rest as means."""
+
+    KEYS = ("r_mse", "r_mae", "t_mse", "t_mae", "err_r_deg", "err_t", "chamfer")
+
+    def __init__(self):
+        self.sums = {k: 0.0 for k in self.KEYS}
+        self.num = 0
+
+    def update(self, metrics: dict) -> None:
+        first = _numpy(metrics["err_r_deg"])
+        batch = first.shape[0] if first.ndim else 1
+        for key in self.KEYS:
+            self.sums[key] += float(np.sum(_numpy(metrics[key])))
+        self.num += batch
+
+    def compute(self) -> dict:
+        n = max(self.num, 1)
+        out = {k: v / n for k, v in self.sums.items()}
+        out["r_mse"] = float(np.sqrt(out["r_mse"]))
+        out["t_mse"] = float(np.sqrt(out["t_mse"]))
+        return out
+
+
+class MeterReflection:
+    """Accuracy of the 4-way PCA-reflection head; `labels` are the
+    reflection labels [b], or the (class, reflection) pairs [b, 2] of
+    `data.ModelNet40FourClass`."""
+
+    def __init__(self):
+        self.correct = 0
+        self.num = 0
+
+    def update(self, logits: np.ndarray, labels) -> None:
+        labels = np.asarray(labels)
+        if labels.ndim == 2:
+            labels = labels[:, 1]
+        pred = np.argmax(np.asarray(logits), axis=-1)
+        self.correct += int((pred == labels).sum())
+        self.num += len(labels)
+
+    def compute(self) -> dict:
+        return {"reflect_acc": self.correct / max(self.num, 1)}
 
 
 class MeterShapeNetIoU:

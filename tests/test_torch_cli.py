@@ -167,6 +167,21 @@ def test_map_sequence_mesh_runs_on_a_one_rank_group(capsys):
     assert _results(capsys.readouterr().out) == mesh
 
 
+def test_map_sequence_mesh_dumps_the_trajectories(capsys, tmp_path, monkeypatch):
+    """`RIFT_MAP_DUMP=path` under `--mesh`: rank 0 of the group (here the
+    one-rank group) writes the odometry, pose-graph and BA poses of the run
+    whose metrics it prints (scripts/weak_scaling_check.py reads a
+    multi-rank map's poses from it)."""
+    path = tmp_path / "map.npz"
+    monkeypatch.setenv("RIFT_MAP_DUMP", str(path))
+    assert cli.main(["map-sequence", *TINY_MAP, "--mesh"]) == 0
+    assert list(_results(capsys.readouterr().out)) == MAP_KEYS
+    with np.load(path) as z:
+        for key in ("odom", "graph", "ba"):
+            assert z[key].shape == (6, 4, 4) and np.isfinite(z[key]).all()
+        np.testing.assert_allclose(z["graph"][:, 3], np.tile([0, 0, 0, 1], (6, 1)))
+
+
 def test_evaluate_methods_prints_one_result_a_method(capsys):
     """`evaluate --methods ransac,fgr,teaserpp+icp --untrained` prints the
     six result keys of each method, prefixed with its name ('+' as '_')."""

@@ -500,7 +500,8 @@ SEQ_MAP_KW = dict(noise_bound=0.08, loop_stride=4, landmarks_per_edge=16, batch_
 def _seq_rank_main(rank: int, world: int, workdir: str) -> None:
     """One rank: its shard of the pose graph's edges and of BA's landmarks
     (padded as the sequence pads them), the two sharded solves, and
-    map_sequence with the group; its results saved as seq{r}.pt."""
+    map_sequence with the group (`RIFT_MAP_DUMP` set to a path of its
+    own); its results saved as seq{r}.pt."""
     from rift_tpu_torch.parallel import bundle_adjust_sharded, optimize_pose_graph_sharded
     from rift_tpu_torch.registration.sequence import map_sequence, pad_to_multiple
 
@@ -523,9 +524,12 @@ def _seq_rank_main(rank: int, world: int, workdir: str) -> None:
         poses, lms = bundle_adjust_sharded(torch.from_numpy(inp["poses"]),
                                            *map(torch.from_numpy, shard_batch(ba)),
                                            num_iterations=5, edges=edges)
+        dump = os.path.join(workdir, f"dump{rank}.npz")  # each rank its own path
+        os.environ["RIFT_MAP_DUMP"] = dump
         m = map_sequence(inp["scans"], inp["feats"], gt_poses=inp["gt"], group=dist.group.WORLD,
                          device="cpu", **SEQ_MAP_KW)
-        torch.save({"graph": graph, "poses": poses, "lms": lms,
+        dumped = torch.from_numpy(np.load(dump)["ba"]) if os.path.isfile(dump) else None
+        torch.save({"graph": graph, "poses": poses, "lms": lms, "dumped": dumped,
                     "map_graph": torch.from_numpy(m.graph), "map_ba": torch.from_numpy(m.ba),
                     "ate_ba": torch.tensor(m.metrics["ate_ba"], dtype=torch.float64)},
                    os.path.join(workdir, f"seq{rank}.pt"))
@@ -588,6 +592,14 @@ def test_sharded_bundle_adjust_matches_the_single_solve(seq_run):
         np.testing.assert_allclose(r["poses"].numpy(), poses.numpy(), rtol=0, atol=SEQ_TOL)
     gathered = torch.cat([r["lms"] for r in ranks])[:lms.shape[0]]
     np.testing.assert_allclose(gathered.numpy(), lms.numpy(), rtol=0, atol=SEQ_TOL)
+
+
+def test_map_sequence_dump_is_written_by_rank_0_alone(seq_run):
+    """Under a group, `RIFT_MAP_DUMP` is written by rank 0 only (each rank
+    was given a path of its own: the others write none), with its map."""
+    _, ranks = seq_run
+    assert [r["dumped"] is not None for r in ranks] == [True, False, False, False]
+    assert torch.equal(ranks[0]["dumped"], ranks[0]["map_ba"])
 
 
 def test_map_sequence_on_the_ranks_matches_one_process(seq_run):

@@ -1,9 +1,11 @@
 """The port's ground rules: no JAX anywhere in rift_tpu_torch (its
 `parallel/` package and the imports inside functions included),
-chip_smoke.py or scatter_ab.py; h5py (not on the card's machine) only
-inside the two h5 readers; entry points default to the card and raise
-without one; chip_smoke.py fails where there is no card or no
-package."""
+chip_smoke.py, scatter_ab.py or scripts/weak_scaling_check.py; h5py (not
+on the card's machine) only inside the three h5 readers; the host C++ of
+grid subsampling built by g++ at its first call into the port's build
+directory, never at import and never under cpp/; entry points default to
+the card and raise without one; chip_smoke.py fails where there is no
+card or no package."""
 import ast
 import os
 import shutil
@@ -20,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rift_tpu")
 
 def _port_files():
     pkg = os.path.join(ROOT, "rift_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scatter_ab.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scatter_ab.py"),
+             os.path.join(ROOT, "scripts", "weak_scaling_check.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
@@ -48,14 +51,21 @@ def test_port_imports_no_jax_and_nothing_of_rift_tpu():
 NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops.py",
                "ops/sampling.py", "data/modelnet40.py", "train/loop.py", "cli.py",
                "ops/se3.py", "registration/pose_graph.py", "registration/bundle_adjust.py",
-               "registration/sequence.py", "ops/fpfh.py", "ops/lrf.py", "models/pvcnn.py")
+               "registration/sequence.py", "ops/fpfh.py", "ops/lrf.py", "models/pvcnn.py",
+               "data/mn40_hdf.py", "data/modelnet40_4class.py", "data/grid_subsample.py",
+               "ops/losses.py", "ops/frustum.py", "parallel/scaling.py", "train/profiling.py",
+               "utils/__init__.py", "utils/pair_hash.py", "utils/visualize.py",
+               "registration/metrics.py", "train/meters.py", "ops/neighbors.py",
+               "ops/__init__.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_data_parallel_and_sampling_modules_import_no_jax(module):
     """The rule above covers `parallel/`, the modules of the classifier's
-    workflow, those of the sequence mapping and those of the model
-    variants, with the imports inside
+    workflow, those of the sequence mapping, those of the model variants
+    and the auxiliaries (the RPM-Net pairs and metrics, weak scaling, the
+    4-class set, grid subsampling, the frustum loss, profiling, the
+    utilities), with the imports inside
     their functions (`ast.walk` reaches every node, not only the top
     level)."""
     path = os.path.join(ROOT, "rift_tpu_torch", module)
@@ -94,9 +104,12 @@ def _h5py_imports(path):
 
 
 def test_h5py_is_imported_only_inside_the_two_readers():
+    """The readers of the h5 test pairs, the h5 sequence and, since the
+    RPM-Net pairs were ported, the ModelNet40 h5 shards (a third reader)."""
     where = {(os.path.relpath(p, ROOT), scope) for p in _port_files() for scope in _h5py_imports(p)}
     assert where == {("rift_tpu_torch/data/synthetic_pairs.py", "H5TestPairs.__init__"),
-                     ("rift_tpu_torch/data/sequences.py", "SyntheticSequence.__init__")}
+                     ("rift_tpu_torch/data/sequences.py", "SyntheticSequence.__init__"),
+                     ("rift_tpu_torch/data/mn40_hdf.py", "ModelNetHdf.__init__")}
     # Without h5py the card's paths and the command line still run.
     code = ("import sys\n"
             "sys.modules['h5py'] = None\n"
@@ -107,6 +120,55 @@ def test_h5py_is_imported_only_inside_the_two_readers():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[:2] == ["3", "mn40_cu_dg"] and out.stdout.split()[-1] == "True"
+
+
+def _cpp_state():
+    """The names under cpp/, and (size, mtime) of each but the reference's
+    own library, which `rift_tpu.data.grid_subsample` may rebuild in
+    another test meanwhile."""
+    cpp = os.path.join(ROOT, "cpp")
+    names = sorted(os.listdir(cpp))
+    return names, [(n, os.stat(os.path.join(cpp, n)).st_size,
+                    os.stat(os.path.join(cpp, n)).st_mtime_ns)
+                   for n in names if n != "libgrid_subsample.so"]
+
+
+def test_importing_the_port_compiles_nothing():
+    """Every module of the package imports (after torch) with subprocesses
+    and ctypes' loader unavailable: nothing is built or loaded at import
+    time."""
+    code = ("import subprocess, ctypes, pkgutil, importlib, numpy, torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError(f'started at import: {a[:1]}')\n"
+            "subprocess.run = subprocess.Popen = subprocess.check_call = refuse\n"
+            "ctypes.CDLL = refuse\n"
+            "import rift_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(rift_tpu_torch.__path__, "
+            "'rift_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "print(len(names), 'rift_tpu_torch.data.grid_subsample' in names)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    count, has = out.stdout.split()
+    assert int(count) > 60 and has == "True"
+
+
+def test_grid_subsample_builds_into_the_port_build_directory_only():
+    """The host library is built by g++ from the port's own copy of the
+    source (outside the kernels' csrc/*.cu glob) into rift_tpu_torch/_build,
+    and nothing under cpp/ is written."""
+    from rift_tpu_torch.data import grid_subsample as gs
+    from rift_tpu_torch.ops.cuda import build
+
+    assert os.path.dirname(gs.SOURCE) == os.path.join(build.CSRC, "host")
+    assert gs.SOURCE not in build._sources()
+    before = _cpp_state()
+    pts = np.random.RandomState(0).rand(500, 3).astype(np.float32)
+    assert gs.grid_subsample(pts, sample_dl=0.25).shape[1] == 3
+    assert _cpp_state() == before
+    path = gs.library_path()
+    assert os.path.dirname(path) == build.BUILD_DIR and os.path.isfile(path)
 
 
 def _run(code, cwd=ROOT, env_extra=None):
