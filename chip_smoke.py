@@ -12,8 +12,9 @@ checkpoint, and the data-parallel step on a one-rank NCCL group; then
 ShapeNet part segmentation training through the command line at the
 `shapenet_seg` preset's full width; the mapping, the method sweep and the
 model variants; the auxiliaries (weak scaling on this card, the RPM-Net
-pairs and metrics, the port's trace, grid subsampling); and compare every
-path with its CPU run.
+pairs and metrics, the port's trace, grid subsampling); the roofline of
+the reference's six stages at its report's shapes; and compare every path
+with its CPU run.
 
     python3 chip_smoke.py
 
@@ -187,7 +188,22 @@ Phases (each prints one line with its wall time):
                plain versions), train.profiling.trace around one call (K1-K3
                and the annotate range in the trace), and grid_subsample
                built by g++ and run twice on 16384 points, bit-equal.
-Then one JSON line of per-kernel numbers, and the result line
+ 23. roofline — scripts/roofline_report.py's six stages through the port
+               at its shapes (the rules at ROOFLINE_PAIRS): normals, the
+               bf16 bench model's local branch and its two PVConvs, mutual
+               NN, gnc_pose with each schedule; K1, K2, K3 and K5 against
+               their plain versions at those shapes; each stage's launches
+               from one untimed call as reckoned (ROOFLINE_LAUNCHES); each
+               stage's ms beside train/roofline.py's bound at the card's
+               peaks (a share above 1 fails); the fixed-length schedule
+               under sync debug mode "error" and as one CUDA graph,
+               bit-equal to the early-exit one and timed beside it at 64
+               pairs and on the main batch, with register_batch timed on
+               each; a `roofline:` line with the card's name and power
+               limit (scripts/roofline_report_torch.py runs this phase
+               alone).
+Then one JSON line of per-kernel numbers, with the roofline phase's
+report under "roofline", and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
 
 Imports only torch, numpy and rift_tpu_torch (no JAX).
@@ -195,6 +211,8 @@ Imports only torch, numpy and rift_tpu_torch (no JAX).
 from __future__ import annotations
 
 import copy
+import functools
+import inspect
 import json
 import math
 import os
@@ -202,12 +220,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and f32 outside the
-# tensor cores. Bounds below are stated against these at the 700 W limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 NUM_PAIRS = 16
 NUM_POINTS = 1024
@@ -585,6 +597,39 @@ AUX_CHAMFER_RTOL = 1e-3
 AUX_TRACE_KERNELS = {"normals_moments": "moments_kernel", "scatter_mean": "voxel_sum_kernel",
                      "corner_gather": "corner_gather_kernel"}
 AUX_GRID_POINTS, AUX_GRID_DL = 16384, 0.05
+# The roofline phase, at scripts/roofline_report.py's shapes (:63): 64
+# SyntheticPairs (noise, max_amp 0.5) of 1024 points, 128 clouds through
+# bench.py's model in bf16 (seeded), the local branch's k = 128, 512-wide
+# random features for the matching (the second set the first plus 0.1 of
+# noise), GNC-TLS on the matches they give. Each stage is the port's own
+# code under f32_geometry, as register_batch runs it. K1, K2, K3 and K5 are
+# first held against their plain versions at the shapes these stages give
+# them (b = 128). Each stage is then called once, untimed, with the counts
+# at 0, and its launches must equal ROOFLINE_LAUNCHES; a sync-free stage
+# (all but the early-exit GNC) runs under sync debug mode "error" there.
+# The other stages are timed on the device alone by dev_ms over
+# ROOFLINE_CALLS calls (a stage is tens to hundreds of kernels, and the
+# card takes only so many queued launches); GNC-TLS, a few thousand
+# launches a call, is timed per call by CUDA events (ROOFLINE_REPS), the
+# fixed-length schedule under sync debug mode "error" throughout, and that
+# schedule also as one captured CUDA graph, whose replay dev_ms times on
+# the device alone. A stage's bound is train/roofline.py's
+# (flagship_costs; the fixed schedule's cost_gnc at all of gnc_pose's
+# max_iterations) at the card's peaks: a share of the bound (sol_fraction)
+# above 1 fails, as does a K1 bound from shapes alone outside
+# [ROOFLINE_K1_SHARE, 1] of the one from this run's neighbour count. The
+# two GNC schedules must give bit-equal poses and weights at 64 pairs and
+# at 16 (the main batch's matches, register_batch's GNC inputs), where
+# both are timed too, as is register_batch with each.
+ROOFLINE_PAIRS, ROOFLINE_K, ROOFLINE_DIM = 64, 128, 512
+ROOFLINE_CALLS, ROOFLINE_REPS = 3, 5
+ROOFLINE_K1_SHARE = 0.9
+# Kernel launches of one call of each roofline stage: K1 once a normals
+# call; K2 and K3 once and K5 twice (its two convolutions) a bf16 PVConv;
+# none in the local branch, the matching or GNC.
+ROOFLINE_LAUNCHES = {"normals": {"normals_moments": 1},
+                     "pvconv1": {"scatter_mean": 1, "corner_gather": 1, "conv3d_same": 2},
+                     "pvconv2": {"scatter_mean": 1, "corner_gather": 1, "conv3d_same": 2}}
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -594,6 +639,16 @@ def phase(name: str, t0: float, msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+@functools.lru_cache(maxsize=None)
+def peaks():
+    """The card's published peaks, from the port's one table
+    (`rift_tpu_torch/train/roofline.py:chip_peaks`; raises for a card it
+    does not know): every bound in this script is stated against them."""
+    from rift_tpu_torch.train.roofline import chip_peaks
+
+    return chip_peaks("cuda")
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
@@ -726,6 +781,7 @@ def check_kernels(clouds, report: dict) -> None:
     from rift_tpu_torch.ops.spherical import (normalize_coords_sphere,
                                               spherical_corner_weights,
                                               spherical_voxel_indices)
+    from rift_tpu_torch.train.roofline import cost_normals
 
     dev = clouds.device
     b, n, _ = clouds.shape
@@ -744,15 +800,14 @@ def check_kernels(clouds, report: dict) -> None:
                  torch.cat([w.reshape(b, n, -1) for w in want[:2]], -1))[1]
     abs1 = max(rel_err(got[0], want[0])[0], rel_err(got[1], want[1])[0])
     total_nbrs = float(want[2].sum())
-    # The function's least work: per (query, point) d² 9 operations, one
-    # step of an exact selection and the radius test; 22 per neighbour for
-    # the 13 moments. (The bisection's own work, the earlier bound: d² 9,
-    # 32 steps x (compare, add), the bracket min 3 and the mask 1.) Unfused
-    # f32 operations run at most at half of PEAK_F32_FLOP_PER_S, which
-    # counts a fused multiply-add as two.
-    flops = b * n * n * (9 + 1 + 1) + 22 * total_nbrs
+    # The function's least work (`roofline.cost_normals`): per (query,
+    # point) d² 9 operations, one step of an exact selection and the radius
+    # test; 22 per neighbour for the 13 moments. (The bisection's own work,
+    # the earlier bound: d² 9, 32 steps x (compare, add), the bracket min 3
+    # and the mask 1.) Unfused f32 operations run at most at half of the f32
+    # peak, which counts a fused multiply-add as two.
+    least = cost_normals(b, n, neighbours=total_nbrs)
     bisection_flops = b * n * n * (9 + 64 + 3 + 1) + 22 * total_nbrs
-    bytes_ = b * n * 3 * 4 + b * n * 13 * 4
     report["normals_moments"] = dict(
         source="rift_tpu_torch/csrc/normals_moments.cu",
         replaces="rift_tpu/ops/pallas/normals_kernel.py:40",
@@ -761,8 +816,8 @@ def check_kernels(clouds, report: dict) -> None:
         ms=cuda_time_ms(lambda: nk.neighborhood_moments(clouds, k, r2)),
         dev_ms=dev_ms(lambda: nk.neighborhood_moments(clouds, k, r2)),
         plain_ms=cuda_time_ms(lambda: nk.neighborhood_moments_plain(clouds, k, r2)),
-        flops=flops, bytes=bytes_, library_ms=None, library_dev_ms=None,
-        bisection_bound_ms=bisection_flops / PEAK_F32_FLOP_PER_S * 1e3,
+        flops=least.flops, bytes=least.bytes, library_ms=None, library_dev_ms=None,
+        bisection_bound_ms=bisection_flops / peaks().flops_f32 * 1e3,
         neighbours_per_query=total_nbrs / (b * n))
 
     # K2 at c = 67 and c = 64 over the clouds' spherical voxel indices.
@@ -993,8 +1048,8 @@ def check_kernels(clouds, report: dict) -> None:
     check_conv3d(report)
 
     for name, rep in report.items():
-        bound_bytes = rep["bytes"] / PEAK_BYTES_PER_S * 1e3
-        bound_ops = rep["flops"] / rep.get("peak_flops", PEAK_F32_FLOP_PER_S) * 1e3
+        bound_bytes = rep["bytes"] / peaks().hbm_gbps * 1e3
+        bound_ops = rep["flops"] / rep.get("peak_flops", peaks().flops_f32) * 1e3
         rep["bound_ms"] = max(bound_bytes, bound_ops)
         rep["bound_by"] = "bytes" if bound_bytes >= bound_ops else "operations"
         held = rep.get("max_steps", rep["max_rel_err"])
@@ -1365,7 +1420,7 @@ def check_conv3d(report: dict) -> None:
     rep = dict(source="rift_tpu_torch/csrc/conv3d.cu",
                replaces="scripts/conv3d_kernel_experiment.py:61",
                shapes=f"x [{b},{r},{r},{r},cin] bf16, (cin, cout) in {list(K5_SHAPES)}",
-               tol=TOL["conv3d_same"], peak_flops=PEAK_BF16_FLOP_PER_S,
+               tol=TOL["conv3d_same"], peak_flops=peaks().flops_bf16,
                max_abs_err=0.0, max_rel_err=0.0, max_steps=0.0, equal_share=1.0,
                library_steps=0.0, ms=0.0, dev_ms=0.0, plain_ms=0.0, library_ms=0.0,
                library_dev_ms=0.0, flops=0, bytes=0,
@@ -1395,8 +1450,8 @@ def check_conv3d(report: dict) -> None:
                      library_ms=cuda_time_ms(library), library_dev_ms=dev_ms(library),
                      flops=2 * 27 * r ** 3 * cin * cout * b,
                      bytes=b * r ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2)
-        shape["bound_ms"] = max(shape["flops"] / PEAK_BF16_FLOP_PER_S,
-                                shape["bytes"] / PEAK_BYTES_PER_S) * 1e3
+        shape["bound_ms"] = max(shape["flops"] / peaks().flops_bf16,
+                                shape["bytes"] / peaks().hbm_gbps) * 1e3
         shape["bound_share"] = shape["bound_ms"] / shape["ms"]
         print(f"    K5 {cin}->{cout}: max {steps:.3f} bf16 steps, bit-equal {equal:.6f}, max abs "
               f"err {a:.3e} (rel {rel:.3e}); kernel {shape['ms']:.4f} ms ({shape['dev_ms']:.4f} "
@@ -1835,6 +1890,7 @@ def k1_row(clouds) -> dict:
     import torch
 
     from rift_tpu_torch.ops.cuda import normals_kernel as nk
+    from rift_tpu_torch.train.roofline import cost_normals
 
     k, r2 = 16, 0.1 * 0.1
     got = nk.neighborhood_moments(clouds, k, r2)
@@ -1846,11 +1902,11 @@ def k1_row(clouds) -> dict:
     if not torch.equal(got[2], want[2]) or err > TOL["normals_moments"]:
         fail(f"K1 at the evaluate shape [{cb},{n},3]: neighbour counts differ at "
              f"{int((got[2] != want[2]).sum())} queries, rel err {err:.3e}")
-    # The least work, as in check_kernels: per (query, point) d² 9
-    # operations, a step of an exact selection and the radius test; 22 per
-    # neighbour for the 13 moments; the points read and the moments written.
-    bound_ops = (cb * n * n * (9 + 1 + 1) + 22 * float(want[2].sum())) / PEAK_F32_FLOP_PER_S
-    bound_bytes = (cb * n * 3 * 4 + cb * n * 13 * 4) / PEAK_BYTES_PER_S
+    # The least work, as in check_kernels (`roofline.cost_normals` on the
+    # run's neighbour count).
+    least = cost_normals(cb, n, neighbours=float(want[2].sum()))
+    bound_ops = least.flops / peaks().flops_f32
+    bound_bytes = least.bytes / peaks().hbm_gbps
     return dict(
         shape=f"points [{cb},{n},3] k={k}", max_rel_err=err,
         neighbours_per_query=float(want[2].float().mean()),
@@ -1922,7 +1978,7 @@ def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
             shape=f"[{bb},{n},{c_in}] -> [{bb},{s},{c_in}]", max_rel_err=err,
             ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds, s), reps=5),
             dev_ms=dev_ms(lambda: oh.scatter_mean(feat, inds, s), calls=5),
-            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+            bound_ms=nbytes / peaks().hbm_gbps * 1e3, bound_by="bytes"))
         del feat
         grid = torch.randn((bb, s, c_out), generator=gen, device=src.device)
         out = oh.corner_gather(grid, idx, w)
@@ -1937,7 +1993,7 @@ def eval_kernel_times(model, src, dst, targets_k1: bool = False) -> dict:
             shape=f"[{bb},{s},{c_out}] at [{bb},{n},8] -> [{bb},{n},{c_out}]", max_rel_err=err,
             ms=cuda_time_ms(lambda: oh.corner_gather(grid, idx, w), reps=5),
             dev_ms=dev_ms(lambda: oh.corner_gather(grid, idx, w), calls=5),
-            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+            bound_ms=nbytes / peaks().hbm_gbps * 1e3, bound_by="bytes"))
         del grid
     for name, rs in rows.items():
         for row in rs:
@@ -2591,7 +2647,7 @@ def voxel_kernel_rows(model, coords, k4: bool) -> dict:
             shape=f"[{b},{n},{c_in}] {str(dtype)[6:]} -> [{b},{s},{c_in}]", max_rel_err=err,
             ms=cuda_time_ms(lambda: oh.scatter_mean(feat, inds, s), reps=5),
             dev_ms=dev_ms(lambda: oh.scatter_mean(feat, inds, s), calls=5),
-            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+            bound_ms=nbytes / peaks().hbm_gbps * 1e3, bound_by="bytes"))
         grid = torch.randn((b, s, c_out), generator=gen, device=dev).to(dtype)
         out = oh.corner_gather(grid, idx, w)
         want = oh.corner_gather_plain(grid, idx, w)
@@ -2605,7 +2661,7 @@ def voxel_kernel_rows(model, coords, k4: bool) -> dict:
             max_rel_err=err,
             ms=cuda_time_ms(lambda: oh.corner_gather(grid, idx, w), reps=5),
             dev_ms=dev_ms(lambda: oh.corner_gather(grid, idx, w), calls=5),
-            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+            bound_ms=nbytes / peaks().hbm_gbps * 1e3, bound_by="bytes"))
         if k4:
             dout = torch.randn((b, n, c_out), generator=gen, device=dev)
             out = oh.corner_scatter(dout, idx, w, s)
@@ -2620,7 +2676,7 @@ def voxel_kernel_rows(model, coords, k4: bool) -> dict:
                 max_rel_err=err,
                 ms=cuda_time_ms(lambda: oh.corner_scatter(dout, idx, w, s), reps=5),
                 dev_ms=dev_ms(lambda: oh.corner_scatter(dout, idx, w, s), calls=5),
-                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes"))
+                bound_ms=nbytes / peaks().hbm_gbps * 1e3, bound_by="bytes"))
     rows = {k: v for k, v in rows.items() if v}
     for name, rs in rows.items():
         for row in rs:
@@ -2628,6 +2684,35 @@ def voxel_kernel_rows(model, coords, k4: bool) -> dict:
                   f"{TOL[name]:g}); kernel {row['ms']:.4f} ms per call, {row['dev_ms']:.4f} "
                   f"device only, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
                   f"{row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
+    return rows
+
+
+def k5_block_rows(blocks, b: int, gen) -> list:
+    """K5 against its plain version at each convolution of the bf16 PVConv
+    `blocks` at batch b (at most TOL's bf16 steps, check_conv3d's rule),
+    timed per call and on the device alone, with its bound."""
+    from rift_tpu_torch.ops.cuda.conv3d import conv3d_same
+
+    rows = []
+    for block in blocks:
+        for conv in block.convs:
+            cin, cout = conv.in_channels, conv.out_channels
+            x, w, _, _, steps, equal, a, rel = k5_held(gen, b, block.resolution, cin, cout)
+            flops = 2 * 27 * block.resolution ** 3 * cin * cout * b
+            nbytes = b * block.resolution ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2
+            row = dict(shape=f"[{b},{block.resolution}^3,{cin}] -> {cout}", max_steps=steps,
+                       equal_share=equal, max_abs_err=a, max_rel_err=rel,
+                       ms=cuda_time_ms(lambda: conv3d_same(x, w), reps=5),
+                       dev_ms=dev_ms(lambda: conv3d_same(x, w), calls=5),
+                       bound_ms=max(flops / peaks().flops_bf16,
+                                    nbytes / peaks().hbm_gbps) * 1e3, bound_by="operations")
+            print(f"    conv3d_same at {row['shape']}: max {steps:.3f} bf16 steps (tol "
+                  f"{TOL['conv3d_same']:g}), bit-equal {equal:.6f}; kernel {row['ms']:.4f} ms "
+                  f"per call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms, "
+                  f"share {row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
+            if steps > TOL["conv3d_same"]:
+                fail(f"K5 at {row['shape']}: {steps:.3f} bf16 steps from its plain version")
+            rows.append(row)
     return rows
 
 
@@ -2786,7 +2871,6 @@ def cls_eval_phase(wrappers: dict, ckpt_dir: str) -> dict:
     import rift_tpu_torch.train.loop as loop
     from rift_tpu_torch import cli
     from rift_tpu_torch.data.modelnet40 import ModelNet40
-    from rift_tpu_torch.ops.cuda.conv3d import conv3d_same
     from rift_tpu_torch.train import apply_overrides, build_model, load_trained_state
     from rift_tpu_torch.train.config import ModelConfig
 
@@ -2856,29 +2940,9 @@ def cls_eval_phase(wrappers: dict, ckpt_dir: str) -> dict:
     for name, rs in voxel_kernel_rows(model, torch.as_tensor(hard_clouds[..., :3],
                                                              device="cuda"), k4=False).items():
         rows[name] += rs
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    k5_rows = []
-    b = cfg.train.eval_batch_size
-    for block in (model.layers[n] for n in model._backbone if n.startswith("PVConv")):
-        for conv in block.convs:
-            cin, cout = conv.in_channels, conv.out_channels
-            x, w, _, _, steps, equal, a, rel = k5_held(gen, b, block.resolution, cin, cout)
-            flops = 2 * 27 * block.resolution ** 3 * cin * cout * b
-            nbytes = b * block.resolution ** 3 * (cin + cout) * 2 + 27 * cin * cout * 2
-            row = dict(shape=f"[{b},{block.resolution}^3,{cin}] -> {cout}", max_steps=steps,
-                       equal_share=equal, max_abs_err=a, max_rel_err=rel,
-                       ms=cuda_time_ms(lambda: conv3d_same(x, w), reps=5),
-                       dev_ms=dev_ms(lambda: conv3d_same(x, w), calls=5),
-                       bound_ms=max(flops / PEAK_BF16_FLOP_PER_S,
-                                    nbytes / PEAK_BYTES_PER_S) * 1e3, bound_by="operations")
-            print(f"    conv3d_same at {row['shape']}: max {steps:.3f} bf16 steps (tol "
-                  f"{TOL['conv3d_same']:g}), bit-equal {equal:.6f}; kernel {row['ms']:.4f} ms "
-                  f"per call, {row['dev_ms']:.4f} device only, bound {row['bound_ms']:.4f} ms, "
-                  f"share {row['bound_ms'] / row['dev_ms']:.3f}", flush=True)
-            if steps > TOL["conv3d_same"]:
-                fail(f"K5 at {row['shape']}: {steps:.3f} bf16 steps from its plain version")
-            k5_rows.append(row)
-    rows["conv3d_same"] = k5_rows
+    rows["conv3d_same"] = k5_block_rows(
+        [model.layers[n] for n in model._backbone if n.startswith("PVConv")],
+        cfg.train.eval_batch_size, torch.Generator(device="cuda").manual_seed(7))
 
     # Parity: the card's logits against the CPU's on the first test clouds.
     x = torch.as_tensor(clouds[:CLS_PARITY_CLOUDS], device="cuda")
@@ -3832,6 +3896,237 @@ def aux_phase(wrappers: dict) -> dict:
     return out
 
 
+def gnc_schedules(src, matched, mask, label: str) -> dict:
+    """gnc_pose's two TLS schedules on the same matches: the fixed-length
+    one (early_exit=False) must give poses and weights bit-equal to the
+    default's and raise nothing under sync debug mode "error", as must its
+    CUDA graph, captured once. Each schedule is timed per call by CUDA
+    events (ROOFLINE_REPS), the graph's replay by dev_ms."""
+    import torch
+
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import gnc_pose
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+
+    def exit_call():
+        return gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND)
+
+    def fixed_call():
+        return gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND, early_exit=False)
+
+    def fixed_strict():  # every call of the fixed schedule under sync debug mode "error"
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fixed_call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    with torch.no_grad(), f32_geometry():
+        t_exit, w_exit = exit_call()
+        t_fixed, w_fixed = fixed_strict()
+        torch.cuda.synchronize()
+        if not (torch.equal(t_exit, t_fixed) and torch.equal(w_exit, w_fixed)):
+            fail(f"gnc_pose's schedules part at {label}: poses by "
+                 f"{float((t_exit - t_fixed).abs().max()):.3e}, weights by "
+                 f"{float((w_exit - w_fixed).abs().max()):.3e}")
+        exit_ms = cuda_time_ms(exit_call, reps=ROOFLINE_REPS)
+        fixed_ms = cuda_time_ms(fixed_strict, reps=ROOFLINE_REPS)
+        # The fixed schedule captured once as a CUDA graph: its replay is
+        # the same kernels without the host's launches.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fixed_strict()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            t_graph, w_graph = fixed_call()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(t_graph, t_fixed) and torch.equal(w_graph, w_fixed)):
+            fail(f"the fixed GNC schedule's CUDA graph parts from its eager run at {label}")
+        graph_ms = dev_ms(graph.replay, calls=ROOFLINE_CALLS)
+        del graph
+    return dict(shape=label, bit_equal=True,
+                inliers_per_pair=float((w_fixed > 0.5).sum(-1).float().mean()),
+                early_exit_ms=exit_ms, fixed_ms=fixed_ms, fixed_graph_dev_ms=graph_ms)
+
+
+def register_schedules(model, src, dst) -> dict:
+    """register_batch with each GNC schedule on the main batch: bit-equal
+    transforms, each timed per call by CUDA events (ROOFLINE_REPS)."""
+    import torch
+
+    from rift_tpu_torch.registration import register_batch
+
+    exit_t = register_batch(model, src, dst)
+    fixed_t = register_batch(model, src, dst, early_exit=False)
+    torch.cuda.synchronize()
+    if not torch.equal(exit_t, fixed_t):
+        fail(f"register_batch's GNC schedules part by {float((exit_t - fixed_t).abs().max()):.3e}")
+    return dict(early_exit_ms=cuda_time_ms(lambda: register_batch(model, src, dst),
+                                           reps=ROOFLINE_REPS),
+                fixed_ms=cuda_time_ms(lambda: register_batch(model, src, dst, early_exit=False),
+                                      reps=ROOFLINE_REPS))
+
+
+def roofline_phase(model, src16, dst16, wrappers: dict, smi: str) -> dict:
+    """The reference's per-stage roofline report (scripts/roofline_report.py)
+    through the port on the card, by the rules at ROOFLINE_PAIRS: K1, K2,
+    K3 and K5 held against their plain versions at the stages' shapes, each
+    stage's launches from one untimed call held to ROOFLINE_LAUNCHES, its
+    time beside its bound from train/roofline.py at the card's peaks, and
+    GNC-TLS's two schedules held bit-equal and timed at 64 pairs and on the
+    main batch. `model` is the flagship on the card and src16/dst16 the
+    main batch. Prints a line a stage and the `roofline:` line; returns the
+    phase's report."""
+    import torch
+
+    from rift_tpu_torch.data import SyntheticPairs
+    from rift_tpu_torch.models import bench_model
+    from rift_tpu_torch.ops.cuda import normals_kernel as nk
+    from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors
+    from rift_tpu_torch.ops.normals import estimate_normals
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration import gnc_pose
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+    from rift_tpu_torch.train.roofline import StageCost, cost_gnc, cost_normals, flagship_costs
+
+    dev = torch.device("cuda")
+    bp, n, k, dim_k = ROOFLINE_PAIRS, NUM_POINTS, ROOFLINE_K, ROOFLINE_DIM
+    b = 2 * bp
+    pk = peaks()
+    costs = flagship_costs(bp, n, k, dim_k, bf16=True)
+    # The fixed schedule runs all of gnc_pose's max_iterations.
+    fixed = cost_gnc(bp, n, iters=inspect.signature(gnc_pose).parameters["max_iterations"].default)
+    costs["gnc_fixed"] = StageCost("gnc_fixed", fixed.flops, fixed.bytes, fixed.dtype)
+
+    src_np, dst_np, _ = SyntheticPairs(num_pairs=bp, num_points=n, mode="noise", max_amp=0.5,
+                                       seed=0).arrays()
+    src = torch.as_tensor(src_np, device=dev)
+    dst = torch.as_tensor(dst_np, device=dev)
+    clouds = torch.cat([src, dst], 0)
+    coords = clouds - clouds.mean(-2, keepdim=True)  # as the model centres its inputs
+    bench = seeded_model(0, bench_model("dgcnn")).to(dev)
+    if bench.local_neighbors != k:
+        fail(f"bench_model's local branch takes {bench.local_neighbors} neighbours, not {k}")
+    blocks = {name: bench.layers[name] for name in ("PVConv_0", "PVConv_1")}
+    widths = {name: (blk.convs[0].in_channels, blk.convs[0].out_channels, blk.resolution)
+              for name, blk in blocks.items()}
+    if widths != {"PVConv_0": (71, 64, 32), "PVConv_1": (64, 128, 32)}:
+        fail(f"bench_model's PVConvs are {widths}, not 71->64 and 64->128 at r = 32")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    f_src = torch.randn((bp, n, dim_k), generator=gen, device=dev)
+    f_dst = f_src + 0.1 * torch.randn((bp, n, dim_k), generator=gen, device=dev)
+    feats = {name: torch.randn((b, n, cin), generator=gen, device=dev)
+             for name, (cin, _, _) in widths.items()}
+    with torch.no_grad(), f32_geometry():
+        normals = estimate_normals(clouds)
+        _, i2, msk = mutual_nearest_neighbors(f_src, f_dst)
+        matched = torch.gather(dst, 1, i2[..., None].expand(-1, -1, 3))
+        neighbours = float(nk.neighborhood_moments(clouds, 16, 0.1 * 0.1)[2].sum())
+
+    # The kernels at the shapes these stages give them, against their
+    # plain versions: K1 on the 128 clouds, K2/K3 in bf16 and K5 at each
+    # PVConv's widths, all at b = 128.
+    kernels = {"normals_moments": [k1_row(clouds)],
+               **voxel_kernel_rows(bench, coords, k4=False),
+               "conv3d_same": k5_block_rows(blocks.values(), b,
+                                            torch.Generator(device=dev).manual_seed(13))}
+    print(f"    normals_moments at {kernels['normals_moments'][0]['shape']}: rel err "
+          f"{kernels['normals_moments'][0]['max_rel_err']:.3e} (tol "
+          f"{TOL['normals_moments']:g})", flush=True)
+
+    def gnc(early_exit: bool):
+        return lambda: gnc_pose(src, matched, msk, noise_bound=NOISE_BOUND,
+                                early_exit=early_exit)
+
+    stages = {"normals": lambda: estimate_normals(clouds),
+              "local_ppf": lambda: bench.local_features(coords, normals),
+              "pvconv1": lambda: blocks["PVConv_0"](feats["PVConv_0"], coords),
+              "pvconv2": lambda: blocks["PVConv_1"](feats["PVConv_1"], coords),
+              "matching": lambda: mutual_nearest_neighbors(f_src, f_dst),
+              "gnc": gnc(True), "gnc_fixed": gnc(False)}
+    measured, per_call, by_stage = {}, {}, {}
+    with torch.no_grad(), f32_geometry():
+        for name, fn in stages.items():
+            for w in wrappers.values():
+                w.launches = 0
+            out = run_stage(name, fn, True, None, sync_free=name != "gnc")
+            by_stage[name] = read_counts(wrappers)
+            want = {kn: ROOFLINE_LAUNCHES.get(name, {}).get(kn, 0) for kn in wrappers}
+            if by_stage[name] != want:
+                fail(f"roofline stage {name} launched {by_stage[name]}, reckoned {want}")
+            for t in out if isinstance(out, tuple) else (out,):
+                if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                    fail(f"roofline stage {name} gave non-finite values")
+            if name not in ("gnc", "gnc_fixed"):
+                measured[name] = dev_ms(fn, calls=ROOFLINE_CALLS)
+                per_call[name] = cuda_time_ms(fn, reps=ROOFLINE_REPS)
+    launches = {kn: sum(c[kn] for c in by_stage.values()) for kn in wrappers}
+    sched = gnc_schedules(src, matched, msk, f"{bp} x {n}")
+    measured["gnc"] = per_call["gnc"] = sched["early_exit_ms"]
+    measured["gnc_fixed"] = per_call["gnc_fixed"] = sched["fixed_ms"]
+    graph_ms = sched["fixed_graph_dev_ms"]
+
+    rows = []
+    for name, ms in measured.items():
+        cost = costs[name]
+        sol = cost.t_min(pk) / (ms / 1e3)
+        row = cost.report(ms / 1e3, pk)
+        row.update(measured_ms_unrounded=ms, sol_fraction_unrounded=sol,
+                   per_call_ms=per_call[name],
+                   timing="CUDA events per call" if name.startswith("gnc") else "dev_ms")
+        if name == "gnc_fixed":
+            row.update(graph_dev_ms=graph_ms, graph_sol_fraction=cost.t_min(pk) / (graph_ms / 1e3))
+        for key in ("sol_fraction_unrounded", "graph_sol_fraction"):
+            if row.get(key, 0.0) > 1.0:
+                fail(f"roofline stage {name}: {key} {row[key]:.4f} > 1: the count or the "
+                     "timing is wrong")
+        print(f"roofline stage: {json.dumps(row)}", flush=True)
+        rows.append(row)
+
+    k1_shapes = costs["normals"].t_min(pk)
+    k1_run = cost_normals(b, n, neighbours=neighbours).t_min(pk)
+    if not ROOFLINE_K1_SHARE * k1_run <= k1_shapes <= k1_run:
+        fail(f"cost_normals from shapes {k1_shapes * 1e3:.5f} ms against the run's K1 bound "
+             f"{k1_run * 1e3:.5f} ms")
+    _, _, idx16, mask16 = path_stages(model, src16, dst16)
+    matched16 = torch.gather(dst16, 1, idx16[..., None].expand(-1, -1, 3))
+    main = gnc_schedules(src16, matched16, mask16, f"{src16.shape[0]} x {src16.shape[1]}")
+    main["register_batch"] = register_schedules(model, src16, dst16)
+    del bench
+    order = ("normals", "local_ppf", "pvconv1", "pvconv2", "matching")
+    stage_sum = sum(measured[name] for name in order)
+    out = dict(
+        card=smi, kind=torch.cuda.get_device_name(0),
+        peaks=dict(name=pk.name, bf16_flop_per_s=pk.flops_bf16, f32_flop_per_s=pk.flops_f32,
+                   bytes_per_s=pk.hbm_gbps),
+        shapes=dict(batch_pairs=bp, clouds=b, n=n, k=k, dim_k=dim_k,
+                    model="bench_model('dgcnn'), bf16, seeded"),
+        stages=rows, stage_sum_ms=stage_sum + measured["gnc"],
+        stage_sum_fixed_ms=stage_sum + measured["gnc_fixed"],
+        gnc_schedules=[main, sched], gnc_fixed_graph_dev_ms=graph_ms,
+        k1_bound_ms=dict(from_shapes=k1_shapes * 1e3, from_run=k1_run * 1e3,
+                         neighbours_per_query=neighbours / (b * n)),
+        launches=launches, launches_by_stage=by_stage, kernels=kernels)
+    print(f"roofline: {smi}: bench.py's shapes ({bp} pairs, {b} clouds x {n} points, local k "
+          f"{k}, {dim_k}-wide features, bf16 model, seeded); peaks {pk.name}: bf16 "
+          f"{pk.flops_bf16 / 1e12:g} TFLOP/s, f32 {pk.flops_f32 / 1e12:g} TFLOP/s, HBM "
+          f"{pk.hbm_gbps / 1e12:g} TB/s; stage sum {out['stage_sum_ms']:.4f} ms with the "
+          f"early-exit GNC, {out['stage_sum_fixed_ms']:.4f} ms with the fixed-length one "
+          f"(its CUDA graph {graph_ms:.4f} ms on the device); "
+          + "; ".join(f"{r['stage']} {r['measured_ms_unrounded']:.4f} ms, bound "
+                      f"{r['t_min_ms']} ms ({r['bound']}), share {r['sol_fraction_unrounded']:.4g}"
+                      for r in rows)
+          + f"; main batch ({main['shape']}, {main['inliers_per_pair']:.4g} inliers a pair): "
+          f"gnc_pose early exit {main['early_exit_ms']:.4f} ms, fixed {main['fixed_ms']:.4f} "
+          f"ms, its graph {main['fixed_graph_dev_ms']:.4f} ms on the device; register_batch "
+          f"early exit {main['register_batch']['early_exit_ms']:.4f} ms, fixed "
+          f"{main['register_batch']['fixed_ms']:.4f} ms", flush=True)
+    return out
+
+
 def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
     """The result lines of a reg_phase run of `preset`."""
     res, ev = rg["results"], rg["evaluate"]
@@ -3855,6 +4150,16 @@ def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
           f"{rg['sweep']}")
 
 
+def nvidia_smi() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired, IndexError):
+        return "nvidia-smi not available"
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -3864,16 +4169,11 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is false; this smoke needs one CUDA card",
               file=sys.stderr, flush=True)
         return 2
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.TimeoutExpired, IndexError):
-        smi = "nvidia-smi not available"
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)
     phase("device", t0, f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-                        f"{torch.cuda.device_count()} device(s)")
+                        f"{torch.cuda.device_count()} device(s); peaks {peaks()}")
 
     t0 = time.perf_counter()
     from rift_tpu_torch.data import SyntheticPairs
@@ -4144,6 +4444,14 @@ def main() -> int:
                      f"{ax['grid_cells']} cells, first call (g++ build) "
                      f"{ax['grid_first_s']:.2f} s, "
                      f"then {ax['grid_s'] * 1e3:.2f} ms, bit-equal, library {ax['grid_lib']}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rf = roofline_phase(model, src, dst, wrappers, smi)
+    phase("roofline", t0, f"{len(rf['stages'])} stages, every share of the bound <= 1; "
+                          f"gnc_pose's schedules bit-equal at "
+                          + " and ".join(e["shape"] for e in rf["gnc_schedules"])
+                          + f"; launches {rf['launches']}")
     for path, res in (("train_bf16", bf), ("evaluate_cls", ce), ("train_seg", sg),
                       ("map_sequence", mp), ("evaluate_methods", sw)):
         for name, rows in res["kernels"].items():
@@ -4153,6 +4461,8 @@ def main() -> int:
             report[name].setdefault("variants", {})[label] = rows
     for name, rows in ax["kernels"].items():
         report[name]["aux"] = rows
+    for name, rows in rf["kernels"].items():
+        report[name]["roofline"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
@@ -4163,7 +4473,8 @@ def main() -> int:
              "evaluate_methods": sw["launches"],
              **{f"train_{label}": v["train_launches"] for label, v in vs.items()},
              **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()},
-             "weak_scaling": ax["ws_launches"], "rpmnet": ax["launches"]}
+             "weak_scaling": ax["ws_launches"], "rpmnet": ax["launches"],
+             "roofline": rf["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -4184,10 +4495,10 @@ def main() -> int:
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
                                    "evaluate_cls", "train_seg", "map_sequence",
-                                   "evaluate_methods", "variants", "aux")
+                                   "evaluate_methods", "variants", "aux", "roofline")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "roofline": rf}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

@@ -20,10 +20,14 @@ from .eig3 import smallest_eigenvector_sym3_components
 Tensor = torch.Tensor
 
 
-def estimate_normals(points: Tensor, radius: float = 0.1,
-                     min_neighbors: int = 16) -> Tensor:
-    """Per-point unit normals oriented towards a camera at the origin:
-    points [..., n, 3] -> normals [..., n, 3]."""
+def estimate_normals(points: Tensor, radius: float = 0.1, max_neighbors: int | None = None,
+                     camera: Tensor | None = None, min_neighbors: int = 16) -> Tensor:
+    """Per-point unit normals oriented towards the camera: points
+    [..., n, 3] -> normals [..., n, 3], each flipped so that
+    n·(camera − p) >= 0. `camera` is a [3] tensor, None for the origin.
+    `max_neighbors` is accepted and ignored, as in the reference (the
+    moments have no cap)."""
+    del max_neighbors
     shape = points.shape
     n = shape[-2]
     use_k = bool(min_neighbors and min_neighbors > 1 and n > min_neighbors)
@@ -45,7 +49,12 @@ def estimate_normals(points: Tensor, radius: float = 0.1,
     c00, c11, c22 = (torch.where(deg, one, c) for c in (c00, c11, c22))
     c01, c02, c12 = (torch.where(deg, zero, c) for c in (c01, c02, c12))
     vx, vy, vz = smallest_eigenvector_sym3_components(c00, c01, c02, c11, c12, c22)
-    dot = -(vx * pts[..., 0] + vy * pts[..., 1] + vz * pts[..., 2])  # n · (0 − p)
+    if camera is None:
+        dot = -(vx * pts[..., 0] + vy * pts[..., 1] + vz * pts[..., 2])  # n · (0 − p)
+    else:
+        cam = torch.as_tensor(camera, dtype=torch.float32, device=pts.device)
+        dot = (vx * (cam[0] - pts[..., 0]) + vy * (cam[1] - pts[..., 1])
+               + vz * (cam[2] - pts[..., 2]))  # n · (camera − p)
     sign = torch.where(dot < 0.0, -one, one)
     inv_n = sign / torch.clamp(torch.sqrt(vx * vx + vy * vy + vz * vz), min=1e-12)
     normal = torch.stack([vx * inv_n, vy * inv_n, vz * inv_n], dim=-1)

@@ -128,10 +128,13 @@ def concatenate(a: Tensor, b: Tensor) -> Tensor:
     return torch.matmul(a, b)
 
 
-def transform_points(transform: Tensor, points: Tensor) -> Tensor:
-    """Apply [..., 4, 4] to row-vector points [..., n, 3]."""
-    return (torch.matmul(points, rot_of(transform).transpose(-1, -2))
-            + trans_of(transform)[..., None, :])
+def transform_points(transform: Tensor, points: Tensor, with_translate: bool = True) -> Tensor:
+    """Apply [..., 4, 4] to row-vector points [..., n, 3]; the rotation
+    alone without `with_translate` (directions such as normals)."""
+    out = torch.matmul(points, rot_of(transform).transpose(-1, -2))
+    if with_translate:
+        out = out + trans_of(transform)[..., None, :]
+    return out
 
 
 def rotation_error_deg(gt_rot: Tensor, est_rot: Tensor, orthonormalize: bool = False

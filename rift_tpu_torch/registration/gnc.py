@@ -1,16 +1,20 @@
 """GNC robust poses and the TEASER-style pipeline, twins of
-`rift_tpu/registration/gnc.py` (`gnc_pose` with `kind="tls",
-early_exit=True` and with `kind="gm"`, `fgr_pose`, `compatibility_core`,
+`rift_tpu/registration/gnc.py` (`gnc_pose` with `kind="tls"` on both
+schedules and with `kind="gm"`, `fgr_pose`, `compatibility_core`,
 `_rotation_gnc_tls`, `_masked_component_median`, `teaser_pose`), batched
 over pairs.
 
 `gnc_pose`, kind "tls": each iteration updates the TLS weights (Yang et
 al. 2020, eq. 14) from the residuals of the current transform, re-solves
-a weighted Kabsch, and grows μ by `gnc_factor`. A pair stops at its fixed
-point — the first iteration whose weights repeat the previous ones — or
-after `max_iterations`; a stopped pair keeps its carry while the others
-go on, as the reference's vmapped `lax.while_loop` does. Its loop tests on
-the host whether any pair is still active, once an iteration. Kind "gm"
+a weighted Kabsch, and grows μ by `gnc_factor`. With `early_exit` (the
+default) a pair stops at its fixed point — the first iteration whose
+weights repeat the previous ones — or after `max_iterations`; a stopped
+pair keeps its carry while the others go on, as the reference's vmapped
+`lax.while_loop` does, and the loop tests on the host whether any pair is
+still active, once an iteration. Without it, every pair runs
+`max_iterations` iterations with no exit test and nothing read on the
+host, as the reference's `lax.scan`; past a fixed point each iteration
+repeats it bit for bit, so the two schedules give the same result. Kind "gm"
 (FGR's graduated Geman-McClure, `fgr_pose`): `max_iterations` fixed
 iterations with w = (μc²/(μc² + r²))², μ from 64 down by `gnc_factor` to
 1; no early exit, so no host sync.
@@ -58,9 +62,12 @@ def _mu0(r2_max: Tensor, c2: float) -> Tensor:
 
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
              gnc_factor: float = 1.4, max_iterations: int = 100, kind: str = "tls",
-             init_transform: Tensor | None = None) -> tuple[Tensor, Tensor]:
+             early_exit: bool = True, init_transform: Tensor | None = None
+             ) -> tuple[Tensor, Tensor]:
     """src/dst [b, n, 3] putative matches, valid [b, n] bool ->
     (transform [b, 4, 4], final weights [b, n]). `kind` is "tls" or "gm".
+    `early_exit` selects TLS's schedule (the fixed-point exit, or
+    `max_iterations` iterations with no host read); "gm" ignores it.
     `init_transform` [b, 4, 4] seeds the iteration (and, for TLS, μ's
     start), by default the plain Kabsch on the valid set. Strict f32 is the
     caller's to set (`ops/precision.py:f32_geometry`, as `register_batch`
@@ -75,6 +82,13 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
     r2 = _residuals(transform, src, dst) ** 2
     r2_max = torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1)
     mu = _mu0(r2_max, c2)
+    if not early_exit:
+        w = valid
+        for _ in range(max_iterations):
+            w = _tls_weights(transform, mu, src, dst, valid, c2)
+            transform = weighted_kabsch(src, dst, w)
+            mu = mu * gnc_factor
+        return transform, w
     w_prev = valid
     it = 0
     active = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)

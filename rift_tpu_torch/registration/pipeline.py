@@ -115,7 +115,8 @@ def register_pair(pts1: Tensor, pts2: Tensor, feat1: Tensor, feat2: Tensor,
                                       irls_iterations, irls_shrink, generator)
 
 
-def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:
+def register_batch(model: torch.nn.Module, src, dst, device=None,
+                   early_exit: bool = True) -> Tensor:
     """Estimated transforms [b, 4, 4] (src -> dst) for b pairs of clouds.
 
     src, dst: [b, n, 3] arrays or tensors. `model` is an eval-mode
@@ -124,7 +125,9 @@ def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:
     `device=None` means the CUDA card and raises when there is none;
     `device="cpu"` runs the plain PyTorch versions of the kernels. The
     geometry is strict f32: TF32 is turned off for matmuls and cuDNN
-    convolutions (`ops/precision.py:f32_geometry`).
+    convolutions (`ops/precision.py:f32_geometry`). `early_exit` is
+    `gnc_pose`'s TLS schedule (bench.py's `BENCH_GNC_EARLY_EXIT`): False
+    runs its 100 iterations with no host read, to the same transforms.
     """
     device = resolve_device(device)
     if model.training:
@@ -141,5 +144,6 @@ def register_batch(model: torch.nn.Module, src, dst, device=None) -> Tensor:
         feats = model(x)
         _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
         matched = torch.gather(dst, 1, idx2[..., None].expand(-1, -1, 3))
-        transform, _ = gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND)
+        transform, _ = gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND,
+                                early_exit=early_exit)
     return transform

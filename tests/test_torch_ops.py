@@ -11,8 +11,9 @@ from rift_tpu.ops import eig3 as j_eig3
 from rift_tpu.ops import lrf as j_lrf
 from rift_tpu.ops import neighbors as j_nb
 from rift_tpu.ops import normals as j_normals
+from rift_tpu.ops import se3 as j_se3
 from rift_tpu.ops import spherical as j_sph
-from rift_tpu_torch.ops import eig3, lrf, neighbors, normals, ppf, spherical
+from rift_tpu_torch.ops import eig3, lrf, neighbors, normals, ppf, se3, spherical
 
 j_ppf = importlib.import_module("rift_tpu.ops.ppf")  # the package re-exports a function `ppf`
 
@@ -218,3 +219,50 @@ def test_estimate_normals_matches_reference(rng, impl):
     assert close.mean() >= 0.99, close.mean()
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
     assert np.all(np.sum(got * -pts, -1) >= -1e-6)  # oriented towards the origin
+
+
+def _shell(rng):
+    """A noisy ellipsoid shell [2, 256, 3]: well-defined planes almost
+    everywhere."""
+    u = rng.uniform(0, 2 * np.pi, (2, 256))
+    v = rng.uniform(0, np.pi, (2, 256))
+    pts = np.stack([np.sin(v) * np.cos(u), 0.7 * np.sin(v) * np.sin(u), 0.5 * np.cos(v)], -1)
+    return (pts + 0.003 * rng.randn(*pts.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("camera", [(0.0, 0.1, 3.0), (2.0, 0.5, -1.0)])
+def test_estimate_normals_with_a_camera_matches_reference(rng, impl, camera):
+    """Each normal flipped so that n·(camera − p) >= 0, by
+    test_estimate_normals_matches_reference's tolerance; `max_neighbors` is
+    accepted and ignored, as in the reference."""
+    pts = _shell(rng)
+    cam = np.asarray(camera, np.float32)
+    got = normals.estimate_normals(_t(pts), camera=_t(cam)).numpy()
+    want = np.asarray(j_normals.estimate_normals(jnp.asarray(pts), camera=jnp.asarray(cam),
+                                                 impl=impl))
+    close = np.all(np.abs(got - want) < 1e-3, axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+    assert np.all(np.sum(got * (cam - pts), -1) >= -1e-6)  # oriented towards the camera
+    at_origin = normals.estimate_normals(_t(pts)).numpy()
+    # Outside the convex shell the camera turns the normals facing it.
+    assert np.any(np.sum(got * at_origin, -1) < 0)
+    capped = normals.estimate_normals(_t(pts), max_neighbors=4, camera=_t(cam)).numpy()
+    np.testing.assert_array_equal(capped, got)
+
+
+def test_transform_points_without_translation_matches_reference(rng):
+    pts = rng.randn(3, 50, 3).astype(np.float32)
+    tr = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    for i in range(3):
+        tr[i, :3, :3] = np.linalg.qr(rng.randn(3, 3))[0]
+        tr[i, :3, 3] = rng.uniform(-1, 1, 3)
+    for with_translate in (True, False):
+        got = se3.transform_points(_t(tr), _t(pts), with_translate=with_translate).numpy()
+        want = np.asarray(j_se3.transform_points(jnp.asarray(tr), jnp.asarray(pts),
+                                                 with_translate=with_translate))
+        np.testing.assert_allclose(got, want, atol=1e-6)
+    rotated = se3.transform_points(_t(tr), _t(pts), with_translate=False)
+    np.testing.assert_array_equal(rotated + _t(tr)[:, None, :3, 3], se3.transform_points(
+        _t(tr), _t(pts)))

@@ -84,6 +84,65 @@ def test_gnc_pose_matches_reference(rng):
     assert inliers.sum() > 0.5 * valid.sum()
 
 
+def test_gnc_pose_fixed_schedule_matches_reference(rng):
+    """early_exit=False, the fixed-length schedule, against the reference's
+    lax.scan schedule under vmap by test_gnc_pose_matches_reference's
+    rules, and bit-equal to the port's early-exit schedule."""
+    src, dst, valid = _matches(rng, 4, 128, 0.3)
+    args = tuple(map(torch.from_numpy, (src, dst, valid)))
+    t, w = gnc_pose(*args, noise_bound=0.02, early_exit=False)
+    wt, ww = jax.vmap(lambda s, d, v: j_gnc(s, d, v, noise_bound=0.02, early_exit=False))(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid))
+    np.testing.assert_allclose(t.numpy(), np.asarray(wt), atol=1e-4)
+    np.testing.assert_allclose(w.numpy(), np.asarray(ww), atol=1e-4)
+    inliers = np.asarray(ww) > 0.5
+    assert inliers.sum() > 0.5 * valid.sum()
+    t_exit, w_exit = gnc_pose(*args, noise_bound=0.02)
+    assert torch.equal(t, t_exit) and torch.equal(w, w_exit)
+
+
+@pytest.mark.parametrize("outliers", [0.3, 0.6, 0.9, 0.97])
+@pytest.mark.parametrize("max_iterations", [100, 7])
+def test_gnc_pose_schedules_are_bit_equal(outliers, max_iterations):
+    """Past its fixed point a pair's iterations repeat it bit for bit, so
+    the fixed-length schedule ends where the early exit stops, up to 97%
+    outliers (where GNC ends on a few inliers); cut at 7 iterations both
+    run all 7. Kind "gm" ignores the flag."""
+    rng = np.random.RandomState(int(outliers * 100) + max_iterations)
+    src, dst, valid = _matches(rng, 3, 256, outliers)
+    args = tuple(map(torch.from_numpy, (src, dst, valid)))
+    for kind in ("tls", "gm"):
+        t, w = gnc_pose(*args, max_iterations=max_iterations, kind=kind, early_exit=False)
+        t_exit, w_exit = gnc_pose(*args, max_iterations=max_iterations, kind=kind)
+        assert torch.equal(t, t_exit) and torch.equal(w, w_exit), kind
+        assert bool(torch.isfinite(t).all())
+
+
+def test_gnc_pose_fixed_schedule_reads_nothing_on_the_host(rng, monkeypatch):
+    """The fixed-length schedule takes no bool() or item() of a tensor (a
+    host sync on the card); the early exit tests its active pairs so."""
+    src, dst, valid = _matches(rng, 2, 64, 0.3)
+    args = tuple(map(torch.from_numpy, (src, dst, valid)))
+
+    def refuse(*_):
+        raise AssertionError("read on the host")
+
+    monkeypatch.setattr(torch.Tensor, "__bool__", refuse)
+    monkeypatch.setattr(torch.Tensor, "item", refuse)
+    t, _ = gnc_pose(*args, early_exit=False)
+    assert t.shape == (2, 4, 4)
+    with pytest.raises(AssertionError, match="host"):
+        gnc_pose(*args)
+
+
+def test_register_batch_fixed_gnc_schedule_gives_the_same_transforms():
+    model = PVCNNClassifier(blocks=((8, 1, 4), (16, 1, None)), local_neighbors=8).eval()
+    src, dst, _ = SyntheticPairs(num_pairs=2, num_points=128, seed=3).arrays()
+    want = register_batch(model, src, dst, device="cpu")
+    got = register_batch(model, src, dst, device="cpu", early_exit=False)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
 def test_pair_errors_matches_reference(rng):
     pts = rng.randn(3, 50, 3).astype(np.float32)
     gt = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))

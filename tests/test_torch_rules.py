@@ -1,11 +1,13 @@
 """The port's ground rules: no JAX anywhere in rift_tpu_torch (its
 `parallel/` package and the imports inside functions included),
-chip_smoke.py, scatter_ab.py or scripts/weak_scaling_check.py; h5py (not
+chip_smoke.py, scatter_ab.py, scripts/weak_scaling_check.py or
+scripts/roofline_report_torch.py; h5py (not
 on the card's machine) only inside the three h5 readers; the host C++ of
 grid subsampling built by g++ at its first call into the port's build
 directory, never at import and never under cpp/; entry points default to
 the card and raise without one; chip_smoke.py fails where there is no
-card or no package."""
+card or no package; the roofline peaks are a card's own or an error on the
+card, never the CPU's placeholder."""
 import ast
 import os
 import shutil
@@ -23,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rift_tpu")
 def _port_files():
     pkg = os.path.join(ROOT, "rift_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scatter_ab.py"),
-             os.path.join(ROOT, "scripts", "weak_scaling_check.py")]
+             os.path.join(ROOT, "scripts", "weak_scaling_check.py"),
+             os.path.join(ROOT, "scripts", "roofline_report_torch.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
@@ -56,7 +59,7 @@ NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops
                "ops/losses.py", "ops/frustum.py", "parallel/scaling.py", "train/profiling.py",
                "utils/__init__.py", "utils/pair_hash.py", "utils/visualize.py",
                "registration/metrics.py", "train/meters.py", "ops/neighbors.py",
-               "ops/__init__.py")
+               "ops/__init__.py", "train/roofline.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -257,3 +260,34 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_roofline_report_fails_without_a_card():
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                       "roofline_report_torch.py")],
+                         cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"stages"' not in out.stdout
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe", "NVIDIA H100 NVL",
+                                  "NVIDIA A100-SXM4-80GB", "NVIDIA H200", "NVIDIA GeForce RTX 4090",
+                                  ""])
+def test_chip_peaks_on_a_card_are_never_the_placeholder(monkeypatch, name):
+    """A CUDA device gets its card's published peaks or raises; only
+    device="cpu" gets the placeholder."""
+    from rift_tpu_torch.train import roofline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: name)
+    for device in (None, "cuda", torch.device("cuda", 0)):
+        try:
+            peaks = roofline.chip_peaks(device)
+        except ValueError as e:
+            assert "no published peaks" in str(e)
+            assert "h100" not in name.lower()
+            continue
+        assert peaks != roofline.PLACEHOLDER and "placeholder" not in peaks.name
+        assert peaks.name.startswith("h100")
+    assert roofline.chip_peaks("cpu") == roofline.PLACEHOLDER
