@@ -202,6 +202,24 @@ Phases (each prints one line with its wall time):
                each; a `roofline:` line with the card's name and power
                limit (scripts/roofline_report_torch.py runs this phase
                alone).
+ 24. trained — the committed runs (TRAINED_RUNS; a missing one fails)
+               read on the host by the port's own orbax reader (no orbax,
+               tensorstore or zstandard): the flagship's best_acc read and
+               converted (host seconds; its state dict's sha256 equal to
+               TRAINED_SHA256), `cli evaluate --preset mn40_sph_pt_r4
+               --ckpt checkpoints/mn40_sph_pt_r4 --best acc` at the preset's
+               evaluate section (pairs/s, ms a 64-pair batch, the staged
+               split, 4 pairs against the CPU by eval_parity, K1-K3 at its
+               shapes); its trunk on the main batch (register_batch's ms,
+               GNC-TLS's inliers a pair and its iterations to the last
+               pair's exit, register_batch with each schedule); `cli
+               evaluate-cls` of checkpoints/mn40_sph_dg_r3 (seconds,
+               accuracy, logits against the CPU's, K2/K3 at its shapes);
+               `cli map-sequence --preset MAP_PRESET` from
+               checkpoints/rank_mn40_cu_dg (seconds, stages, ATE; features
+               and an 8-scan map against the CPU's; K1-K3 at its shapes);
+               every call's launches as reckoned, summed into the `trained`
+               path.
 Then one JSON line of per-kernel numbers, with the roofline phase's
 report under "roofline", and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
@@ -630,6 +648,31 @@ ROOFLINE_K1_SHARE = 0.9
 ROOFLINE_LAUNCHES = {"normals": {"normals_moments": 1},
                      "pvconv1": {"scatter_mean": 1, "corner_gather": 1, "conv3d_same": 2},
                      "pvconv2": {"scatter_mean": 1, "corner_gather": 1, "conv3d_same": 2}}
+# The trained phase: three committed runs of the reference (orbax
+# directories under checkpoints/, each its best_acc beside its meta file)
+# read on this machine's host by the port's own reader (train/orbax_read.py:
+# OCDBT, zarr v2 and a zstd decoder built by g++; no orbax, tensorstore or
+# zstandard here) and run through the command line as the reference's is:
+# the flagship (evaluate, 100 pairs x 1024, 64 a batch, EVALUATE_LAUNCHES a
+# batch; then register_batch on the main batch with each GNC schedule), the
+# classifier of the reference's default preset (evaluate-cls: the test
+# split and the hard tier in batches of eval_batch_size and one forward a
+# rotation, EVAL_LAUNCHES a forward) and the cube trunk of MAP_PRESET
+# (map-sequence, 24 scans, map_launches). A missing checkpoint fails.
+# TRAINED_SHA256 is state_sha256 of the flagship's converted state dict:
+# tests/test_torch_checkpoint_read.py holds it against orbax's own arrays,
+# so a match here says this machine's build of the decoder read the same
+# weights. Card vs CPU: the flagship's staged 64-pair batch by eval_parity;
+# the classifier's logits on CLS_PARITY_CLOUDS test clouds by
+# CLS_LOGIT_TOL; the cube trunk's 4-flip features on TRAINED_FEATURE_SCANS
+# scans by FEAT_POINT_TOL/FEAT_POINT_SHARE, and map_sequence on the first
+# TRAINED_MAP_SCANS scans from the card's features, card vs CPU, by
+# map_parity's MAP_TOL.
+TRAINED_RUNS = {"flagship": ("mn40_sph_pt_r4", "mn40_sph_pt_r4"),
+                "cls": ("mn40_sph_dg_r3", "mn40_sph_dg"),
+                "map": ("rank_mn40_cu_dg", MAP_PRESET)}
+TRAINED_SHA256 = "2ddec1366ddf55f834376ca9e58137851af02902db071b9c223ae6283279c56f"
+TRAINED_FEATURE_SCANS, TRAINED_MAP_SCANS = 2, 8
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -741,15 +784,18 @@ def bf16_step(t):
 
 
 def seeded_model(seed: int, model=None):
-    """`model`, by default the flagship model (PVCNNClassifier's defaults
-    are the configuration of checkpoints/mn40_sph_pt_r4), with weights and
+    """`model`, by default the flagship's feature extractor (the
+    configuration of checkpoints/mn40_sph_pt_r4: the PointNet point kernel,
+    the PCA LRF), with weights and
     BN statistics drawn from a seeded torch.Generator (BN means around 0,
     variances in [0.5, 1.5])."""
     import torch
 
     from rift_tpu_torch.models import PVCNNClassifier
 
-    model = PVCNNClassifier() if model is None else model
+    if model is None:
+        model = PVCNNClassifier(point_kernel_formal="pointnet_kernel", lrf_kind="pca",
+                                is_classify=False)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1743,10 +1789,7 @@ def eval_phase(wrappers: dict) -> dict:
     parity with the CPU, and K2 and K3 at the 5b forward's shapes."""
     import torch
 
-    from rift_tpu_torch.data import get_pairs
-    from rift_tpu_torch.registration import pair_errors
     from rift_tpu_torch.train import evaluate_registration, resolve_extractor
-    from rift_tpu_torch.train.loop import register_eval_batch
 
     with tempfile.TemporaryDirectory() as ckpt_dir:
         cfg = eval_checkpoint(ckpt_dir)
@@ -1771,6 +1814,23 @@ def eval_phase(wrappers: dict) -> dict:
         model = resolve_extractor(cfg)
     if not model.use_new_coords_for_voxel or model.head is not None:
         fail("the restored extractor does not voxelize in the canonical frame")
+    return dict(results=results, run_s=run_s, peak_gb=peak_gb, launches=launches,
+                batches=batches, batch_pairs=ev.batch_pairs,
+                **eval_batch_report(model, ev, wrappers))
+
+
+def eval_batch_report(model, ev, wrappers: dict, profile: bool = True) -> dict:
+    """One batch of `ev.batch_pairs` pairs of the evaluate section `ev`
+    through the extractor `model` on the card: register_eval_batch timed
+    (median of TIMED_BATCHES) and, with `profile`, profiled; the staged
+    batch (eval_stages, EVALUATE_LAUNCHES checked, pose bit-equal to
+    register_eval_batch's); its parity with the CPU (eval_parity); K1, K2
+    and K3 at its shapes (eval_kernel_times)."""
+    import torch
+
+    from rift_tpu_torch.data import get_pairs
+    from rift_tpu_torch.registration import pair_errors
+    from rift_tpu_torch.train.loop import register_eval_batch
 
     dev = torch.device("cuda")
     batch = next(get_pairs(ev.pairs_path, ev.num_points, ev.pairs_mode,
@@ -1784,7 +1844,7 @@ def eval_phase(wrappers: dict) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     ms = sorted(times)[len(times) // 2] * 1e3
-    profile = profile_step(lambda: register_eval_batch(model, src, dst, ev))
+    prof = profile_step(lambda: register_eval_batch(model, src, dst, ev)) if profile else None
     split: dict = {}
     before = read_counts(wrappers)
     stages = eval_stages(model, src, dst, ev.noise_bound, timed=split)
@@ -1803,10 +1863,9 @@ def eval_phase(wrappers: dict) -> dict:
         fail(f"the staged batch's poses differ from register_eval_batch's by {staged_diff:.3e}")
     parity_msg = eval_parity(model, src, dst, stages, ev.noise_bound)
     kernels = eval_kernel_times(model, src, dst)
-    return dict(results=results, run_s=run_s, peak_gb=peak_gb, launches=launches,
-                batches=batches, ms_per_batch=ms, batch_pairs=ev.batch_pairs, split=split,
-                per_batch=per_batch, staged_diff=staged_diff, parity=parity_msg, profile=profile,
-                kernels=kernels, median_rre=float(errs["rre"].median()))
+    return dict(ms_per_batch=ms, split=split, per_batch=per_batch, staged_diff=staged_diff,
+                parity=parity_msg, profile=prof, kernels=kernels,
+                median_rre=float(errs["rre"].median()))
 
 
 def eval_parity(model, src, dst, stages: dict, noise_bound: float,
@@ -4150,6 +4209,269 @@ def reg_lines(preset: str, rg: dict, smi: str, t0: float) -> None:
           f"{rg['sweep']}")
 
 
+def state_sha256(state: dict) -> str:
+    """One sha256 over a state dict: each entry's name, dtype and shape,
+    then its bytes, in the sorted order of the names."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(state):
+        t = state[key].detach().cpu().contiguous()
+        h.update(f"{key}|{t.dtype}|{tuple(t.shape)}|".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def trained_dirs() -> dict:
+    """The TRAINED_RUNS directories beside this script; a missing one fails."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
+    dirs = {key: os.path.join(root, run) for key, (run, _) in TRAINED_RUNS.items()}
+    for key, d in dirs.items():
+        for need in ("best_acc/_METADATA", "best_acc/manifest.ocdbt", "best_acc.meta.json"):
+            if not os.path.isfile(os.path.join(d, need)):
+                fail(f"trained: {os.path.join(d, need)} is missing (the copy must carry "
+                     f"checkpoints/{TRAINED_RUNS[key][0]}/best_acc and its meta file)")
+    return dirs
+
+
+def gnc_iterations(src, matched, mask) -> tuple:
+    """gnc_pose's early-exit schedule as register_batch calls it: the
+    iterations it ran before its last pair stopped (its Kabsch solves
+    after the initial one) and the final weights."""
+    import torch
+
+    import rift_tpu_torch.registration.gnc as gnc
+    from rift_tpu_torch.ops.precision import f32_geometry
+    from rift_tpu_torch.registration.pipeline import NOISE_BOUND
+
+    calls = [0]
+    kabsch = gnc.weighted_kabsch
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return kabsch(*args, **kwargs)
+
+    gnc.weighted_kabsch = counted
+    try:
+        with torch.no_grad(), f32_geometry():
+            _, w = gnc.gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND)
+    finally:
+        gnc.weighted_kabsch = kabsch
+    return calls[0] - 1, w
+
+
+def cli_run(argv: list, logger_name: str, wrappers: dict, reckoned: dict) -> dict:
+    """run_cli with every count at 0 just before and read just after, each
+    kernel's launches held to `reckoned`: the call's seconds, peak memory,
+    launches, printed results and log records."""
+    import torch
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    results, records = run_cli(argv, logger_name)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = read_counts(wrappers)
+    if any(launches[name] != reckoned.get(name, 0) for name in wrappers):
+        fail(f"cli {' '.join(argv)}: launches {launches}, reckoned {reckoned}")
+    if not all(math.isfinite(v) for v in results.values()):
+        fail(f"cli {' '.join(argv)} printed {results}")
+    return dict(results=results, records=records, run_s=run_s, launches=launches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def trained_flagship(flagship_dir: str, wrappers: dict, src, dst, gt) -> dict:
+    """The committed flagship: read and converted on the host (seconds, the
+    sha256 against TRAINED_SHA256), `cli evaluate` at the preset's evaluate
+    section, a staged 64-pair batch (eval_batch_report), then its trunk
+    without canonical voxels (the main path's model) on the main batch:
+    register_batch timed, GNC-TLS's iterations and inliers, and
+    register_batch with each schedule."""
+    import torch
+
+    from rift_tpu_torch.registration import pair_errors
+    from rift_tpu_torch.train import extractor_from_snapshot, get_config, resolve_extractor
+    from rift_tpu_torch.train.checkpoint import CheckpointManager
+    from rift_tpu_torch.train.orbax_read import read_orbax
+    from rift_tpu_torch.utils import zstd
+    from rift_tpu_torch.weights import from_flax
+
+    _, preset = TRAINED_RUNS["flagship"]
+    t1 = time.perf_counter()
+    zstd.load()
+    build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tree = read_orbax(os.path.join(flagship_dir, "best_acc"))
+    read_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    state = from_flax(tree["params"], tree["batch_stats"])
+    convert_s = time.perf_counter() - t1
+    digest = state_sha256(state)
+    if digest != TRAINED_SHA256:
+        fail(f"trained: the flagship's state dict hashes to {digest}, expected {TRAINED_SHA256}")
+
+    cfg = get_config(preset)
+    ev = cfg.evaluate
+    batches = 1 + -(-ev.num_pairs // ev.batch_pairs)
+    cli = cli_run(["evaluate", "--preset", preset, "--ckpt", flagship_dir, "--best", "acc"],
+                  cfg.name, wrappers, {k: v * batches for k, v in EVALUATE_LAUNCHES.items()})
+    if list(cli["results"]) != RESULT_KEYS:
+        fail(f"trained: cli evaluate printed {cli['results']}")
+    model = resolve_extractor(cfg, ckpt_dir=flagship_dir, ckpt_name="best_acc")
+    batch = eval_batch_report(model, ev, wrappers, profile=False)
+    del model
+
+    snapshot = CheckpointManager(flagship_dir).load_meta("best_acc")["config"]
+    plain = get_config(preset)
+    plain.evaluate.canonical_voxel = False
+    main = extractor_from_snapshot(plain, snapshot)
+    main.load_state_dict({k: v for k, v in state.items() if not k.startswith("head.")})
+    main = main.cuda().eval()
+    est, ms, launches = register_phase(main, src, dst, wrappers, REGISTER_LAUNCHES)
+    errs = pair_errors(src, gt, est)
+    _, _, idx2, mask = path_stages(main, src, dst)
+    matched = torch.gather(dst, 1, idx2[..., None].expand(-1, -1, 3))
+    iterations, w = gnc_iterations(src, matched, mask)
+    inliers = (w > 0.5).sum(-1)
+    schedules = register_schedules(main, src, dst)
+    return dict(build_s=build_s, read_s=read_s, convert_s=convert_s, sha256=digest,
+                step=int(tree["step"]), ev=ev, cli=cli, batch=batch, batches=batches,
+                main_ms=ms, main_launches=launches, errs=errs, iterations=iterations,
+                inliers_mean=float(inliers.float().mean()), inliers_min=int(inliers.min()),
+                schedules=schedules)
+
+
+def trained_cls(cls_dir: str, wrappers: dict) -> dict:
+    """`cli evaluate-cls` of the committed classifier, its forwards and
+    launches as reckoned; K2/K3 at its test batch's shapes; its logits on
+    CLS_PARITY_CLOUDS test clouds against the CPU's."""
+    import dataclasses
+
+    import torch
+
+    import rift_tpu_torch.train.loop as loop
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.train import build_model, get_config, load_trained_state
+    from rift_tpu_torch.train.config import ModelConfig
+
+    _, preset = TRAINED_RUNS["cls"]
+    raw, snapshot = load_trained_state(cls_dir, "best_acc")
+    cfg = get_config(preset)
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg.model = ModelConfig(**{k: v for k, v in snapshot["model"].items() if k in known})
+    for key, value in snapshot["dataset"].items():
+        setattr(cfg.dataset, key, value)
+    items = cfg.dataset.synthetic_items["test"]
+    forwards = 2 * -(-items // cfg.train.eval_batch_size) + CLS_ROTATIONS
+    cli = cli_run(["evaluate-cls", "--preset", preset, "--ckpt", cls_dir, "--best", "acc"],
+                  cfg.name, wrappers, {k: v * forwards for k, v in EVAL_LAUNCHES.items()})
+    if list(cli["results"]) != ["acc", "acc_hard", "rot_agree", "logit_drift"]:
+        fail(f"trained: cli evaluate-cls printed {cli['results']}")
+    model = build_model(cfg)
+    model.load_state_dict(raw["model"])
+    model = model.eval().cuda()
+    clouds, _ = next(ModelNet40(cfg.dataset, "test").batches(
+        cfg.train.eval_batch_size, seed=0, shuffle=False, drop_last=False))
+    rows = voxel_kernel_rows(model, torch.as_tensor(clouds[..., :3], device="cuda"), k4=False)
+    x = torch.as_tensor(clouds[:CLS_PARITY_CLOUDS], device="cuda")
+    with torch.no_grad():
+        card = loop.eval_step(loop.TrainState(model, None, None), x).cpu()
+        cpu = loop.eval_step(loop.TrainState(copy.deepcopy(model).cpu(), None, None), x.cpu())
+    scale = float(cpu.abs().max())
+    logit_err = float((card - cpu).abs().max()) / scale
+    top2 = cpu.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > CLS_LOGIT_TOL * scale
+    same = card.argmax(-1) == cpu.argmax(-1)
+    parity = (f"{CLS_PARITY_CLOUDS} test clouds: max |card - CPU| logit {logit_err:.3e} of the "
+              f"largest (tol {CLS_LOGIT_TOL:g}); predictions equal on {int(same.sum())}, "
+              f"{int(clear.sum())} of them with a top-2 margin above the tolerance")
+    if logit_err > CLS_LOGIT_TOL or not bool(same[clear].all()):
+        fail("trained evaluate-cls parity: " + parity)
+    return dict(cli=cli, forwards=forwards, items=items, kernels=rows, parity=parity)
+
+
+def trained_map(map_dir: str, wrappers: dict) -> dict:
+    """`cli map-sequence` of MAP_PRESET from the committed cube trunk, its
+    launches as map_launches reckons them; the trunk's 4-flip features on
+    TRAINED_FEATURE_SCANS scans against the CPU's; map_sequence on the
+    first TRAINED_MAP_SCANS scans from the card's features, card vs CPU
+    (MAP_TOL); K1-K3 at a feature chunk's shapes."""
+    import numpy as np
+    import torch
+
+    from rift_tpu_torch.data import get_sequence
+    from rift_tpu_torch.registration import map_sequence
+    from rift_tpu_torch.train import get_config, resolve_extractor
+    from rift_tpu_torch.train.loop import extract_features_flips
+
+    _, preset = TRAINED_RUNS["map"]
+    cfg = get_config(preset)
+    cli = cli_run(["map-sequence", "--preset", preset, "--ckpt", map_dir, "--best", "acc"],
+                  cfg.name, wrappers, map_launches(cfg.sequence.num_scans, False))
+    if list(cli["results"]) != MAP_KEYS:
+        fail(f"trained: cli map-sequence printed {cli['results']}")
+    seconds = [r.args if isinstance(r.args, dict) else r.args[0] for r in cli["records"]
+               if str(r.msg).startswith("map-sequence seconds")]
+    if len(seconds) != 1:
+        fail("trained: map-sequence logged no stage seconds")
+
+    model = resolve_extractor(cfg, ckpt_dir=map_dir, ckpt_name="best_acc")
+    seq = get_sequence(cfg.sequence)
+    m = TRAINED_MAP_SCANS
+    scans = torch.as_tensor(seq.scans[:m], device="cuda")
+    with torch.no_grad():
+        flips = extract_features_flips(model, scans)
+        cpu_flips = extract_features_flips(copy.deepcopy(model).cpu(),
+                                           scans[:TRAINED_FEATURE_SCANS].cpu())
+    card_f = flips[:TRAINED_FEATURE_SCANS].cpu()
+    point_err = (card_f - cpu_flips).abs().amax(-1) / float(cpu_flips.abs().max())
+    bad_share = float((point_err > FEAT_POINT_TOL).float().mean())
+    if bad_share > FEAT_POINT_SHARE:
+        fail(f"trained map parity: {bad_share:.4f} of the points' features off by more than "
+             f"{FEAT_POINT_TOL:g} (tol {FEAT_POINT_SHARE})")
+    ev = cfg.evaluate
+    flips_np = flips.cpu().numpy()
+    kw = dict(gt_poses=seq.gt_poses[:m], method=ev.method, noise_bound=ev.noise_bound,
+              num_hypotheses=ev.num_hypotheses, inlier_threshold=ev.inlier_threshold,
+              loop_stride=MAP_LOOP_STRIDE, seed=cfg.seed, flip_features=flips_np)
+    card = map_sequence(seq.scans[:m], flips_np[:, 0], device="cuda", **kw)
+    cpu = map_sequence(seq.scans[:m], flips_np[:, 0], device="cpu", **kw)
+    diffs = {k: float(np.abs(getattr(card, k) - getattr(cpu, k)).max())
+             for k in ("measurements", "graph", "ba")}
+    diffs.update({k: abs(card.metrics[k] - cpu.metrics[k])
+                  for k in ("ate_odometry", "ate_graph", "ate_ba")})
+    parity = (f"4-flip features of {TRAINED_FEATURE_SCANS} scans: share of points off by > "
+              f"{FEAT_POINT_TOL:g} {bad_share:.4f} (tol {FEAT_POINT_SHARE}), median point err "
+              f"{float(point_err.median()):.3e}; map_sequence on the first {m} scans "
+              f"({len(cpu.edges[0])} edges) from the card's features, card vs CPU max diffs "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in diffs.items()})} (tol {MAP_TOL})")
+    if max(diffs.values()) > MAP_TOL or not np.array_equal(card.edges[0], cpu.edges[0]):
+        fail("trained map parity: " + parity)
+    chunk = torch.as_tensor(seq.scans[:MAP_CHUNK], device="cuda")
+    return dict(cli=cli, seconds=seconds[0], parity=parity,
+                kernels=eval_kernel_times(model, chunk, chunk[:0]))
+
+
+def trained_phase(wrappers: dict, src, dst, gt) -> dict:
+    """The TRAINED_RUNS checkpoints on the card (the rules at TRAINED_RUNS):
+    the flagship, the classifier and the cube trunk's map, each with its
+    parity; the launches of their command-line calls and of the main
+    batch's register_batch summed into the `trained` path."""
+    dirs = trained_dirs()
+    fl = trained_flagship(dirs["flagship"], wrappers, src, dst, gt)
+    cl = trained_cls(dirs["cls"], wrappers)
+    mp = trained_map(dirs["map"], wrappers)
+    runs = (fl["cli"]["launches"], fl["main_launches"], cl["cli"]["launches"],
+            mp["cli"]["launches"])
+    launches = {name: sum(r[name] for r in runs) for name in wrappers}
+    kernels = {name: fl["batch"]["kernels"].get(name, []) + cl["kernels"].get(name, [])
+               + mp["kernels"].get(name, []) for name in wrappers}
+    return dict(flagship=fl, cls=cl, map=mp, launches=launches,
+                kernels={k: v for k, v in kernels.items() if v})
+
+
 def nvidia_smi() -> str:
     """The first card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -4463,6 +4785,52 @@ def main() -> int:
         report[name]["aux"] = rows
     for name, rows in rf["kernels"].items():
         report[name]["roofline"] = rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tp = trained_phase(wrappers, src, dst, gt)
+    fl, cl, tm = tp["flagship"], tp["cls"], tp["map"]
+    res, bt = fl["cli"]["results"], fl["batch"]
+    ev_pairs = fl["ev"]
+    print(f"trained read: {smi}: checkpoints/{TRAINED_RUNS['flagship'][0]}/best_acc (step "
+          f"{fl['step']}) on the host: read {fl['read_s']:.3f} s (OCDBT, zarr, zstd; the "
+          f"decoder's g++ build {fl['build_s']:.2f} s before it), convert {fl['convert_s']:.3f} "
+          f"s; sha256 {fl['sha256']} as expected", flush=True)
+    print(f"trained evaluate: {smi}: cli evaluate --preset mn40_sph_pt_r4 --ckpt "
+          f"checkpoints/{TRAINED_RUNS['flagship'][0]} --best acc ({ev_pairs.num_pairs} pairs x "
+          f"{ev_pairs.num_points}, {ev_pairs.batch_pairs} a batch): "
+          f"{1.0 / res['reg_time']:.2f} pairs/s by reg_time ({res['reg_time'] * 1e3:.2f} ms a "
+          f"pair), whole call {fl['cli']['run_s']:.2f} s for {fl['batches']} batches with the "
+          f"warm-up, peak {fl['cli']['peak_gb']:.2f} GB; {bt['ms_per_batch']:.2f} ms a "
+          f"{ev_pairs.batch_pairs}-pair batch (median of {TIMED_BATCHES}), "
+          f"{ev_pairs.batch_pairs / bt['ms_per_batch'] * 1e3:.2f} pairs/s; staged batch: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in bt["split"].items())
+          + f"; RRE/RTE (information only) {res['rre']:.4f} deg / {res['rte']:.5f}, succ "
+          f"{res['succ']:.4f}", flush=True)
+    sched = fl["schedules"]
+    print(f"trained main: {smi}: register_batch on {NUM_PAIRS} x {NUM_POINTS} through the "
+          f"trained flagship: {fl['main_ms']:.2f} ms/batch (median of {TIMED_BATCHES}), "
+          f"{NUM_PAIRS / fl['main_ms'] * 1e3:.2f} pairs/s; GNC-TLS inliers a pair mean "
+          f"{fl['inliers_mean']:.2f}, min {fl['inliers_min']}; {fl['iterations']} iterations "
+          f"to the last pair's exit; register_batch {sched['early_exit_ms']:.2f} ms with the "
+          f"early exit, {sched['fixed_ms']:.2f} ms fixed (per call, CUDA events); median RRE "
+          f"{float(fl['errs']['rre'].median()):.4f} deg, RTE "
+          f"{float(fl['errs']['rte'].median()):.5f} (information only)", flush=True)
+    print(f"trained evaluate-cls: {smi}: checkpoints/{TRAINED_RUNS['cls'][0]} best_acc, "
+          f"{cl['items']}-item test split and its hard tier, {cl['forwards']} forwards: whole "
+          f"call {cl['cli']['run_s']:.2f} s, peak {cl['cli']['peak_gb']:.2f} GB; "
+          f"{json.dumps({k: round(v, 6) for k, v in cl['cli']['results'].items()})}",
+          flush=True)
+    mres = tm["cli"]["results"]
+    print(f"trained map-sequence: {smi}: checkpoints/{TRAINED_RUNS['map'][0]} best_acc, "
+          f"{MAP_PRESET} (24 scans): whole call {tm['cli']['run_s']:.2f} s; stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in tm["seconds"].items())
+          + f"; ATE odometry/graph/BA {mres['ate_odometry']:.4f}/{mres['ate_graph']:.4f}/"
+          f"{mres['ate_ba']:.4f}; peak {tm['cli']['peak_gb']:.2f} GB", flush=True)
+    phase("trained", t0, f"launches {tp['launches']}; evaluate parity: {bt['parity']}; "
+                         f"evaluate-cls parity: {cl['parity']}; map parity: {tm['parity']}")
+    for name, rows in tp["kernels"].items():
+        report[name]["trained"] = rows
 
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
@@ -4474,7 +4842,7 @@ def main() -> int:
              **{f"train_{label}": v["train_launches"] for label, v in vs.items()},
              **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()},
              "weak_scaling": ax["ws_launches"], "rpmnet": ax["launches"],
-             "roofline": rf["launches"]}
+             "roofline": rf["launches"], "trained": tp["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -4495,7 +4863,8 @@ def main() -> int:
                                    "neighbours_per_query", "int32_dev_ms", "other", "hard",
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
                                    "evaluate_cls", "train_seg", "map_sequence",
-                                   "evaluate_methods", "variants", "aux", "roofline")
+                                   "evaluate_methods", "variants", "aux", "roofline",
+                                   "trained")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "roofline": rf}), flush=True)

@@ -41,6 +41,7 @@ from .train import (apply_overrides, evaluate_classification_ckpt, evaluate_regi
                     evaluate_registration_sweep, get_config, presets, run_map_sequence,
                     train_segmentation)
 from .train import train as run_train
+from .train.checkpoint import checkpoint_exists
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,12 +149,13 @@ def main(argv: list[str] | None = None) -> int:
             print(f"{key}: {value:.6f}")
         return 0
     if args.ckpt is None and not args.untrained:
-        # Fail loudly rather than score random weights.
-        probe = os.path.join(config.train.ckpt_dir,
-                             (ckpt_name or config.evaluate.ckpt_name) + ".pt")
-        if not (config.evaluate.ckpt_dir or os.path.isfile(probe)):
-            parser.error(f"no checkpoint at {probe!r}; pass --ckpt DIR / --best METRIC, "
-                         "or --untrained to score random weights")
+        # Fail loudly rather than score random weights. A port checkpoint
+        # (<name>.pt) or the reference's orbax directory (<name>/) will do.
+        name = ckpt_name or config.evaluate.ckpt_name
+        probe = os.path.join(config.train.ckpt_dir, name)
+        if not (config.evaluate.ckpt_dir or checkpoint_exists(config.train.ckpt_dir, name)):
+            parser.error(f"no checkpoint at {probe + '.pt'!r} or {probe + '/'!r}; pass --ckpt "
+                         "DIR / --best METRIC, or --untrained to score random weights")
     if args.methods:
         sweep = evaluate_registration_sweep(config, args.methods.split(","), ckpt_dir=args.ckpt,
                                             ckpt_name=ckpt_name, device=args.device)

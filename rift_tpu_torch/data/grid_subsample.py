@@ -2,63 +2,39 @@
 downsample of points, features and labels over a regular voxel grid.
 
 The work is host C++ (`csrc/host/grid_subsample.cpp`, the port's copy of
-`cpp/grid_subsample.cpp`), bound with `ctypes`. It is compiled at the
-first call, never at import, by `g++ -O3 -shared -fPIC -std=c++17` into
-`rift_tpu_torch/_build/libgrid_subsample-<hash of the source>.so`
-(written under a temporary name and renamed, so concurrent first calls
-never load half a file). Nothing is written beside the source.
+`cpp/grid_subsample.cpp`), bound with `ctypes` and built by g++ at the
+first call into `rift_tpu_torch/_build/libgrid_subsample-<hash>.so`
+(`utils.host_build`). Nothing is written beside the source.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import threading
 
 import numpy as np
 
-from ..ops.cuda.build import BUILD_DIR
+from ..utils import host_build
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "host", "grid_subsample.cpp")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+SOURCE = os.path.join(host_build.HOST_SRC, "grid_subsample.cpp")
 
 
 def library_path() -> str:
     """Where the shared library of the current source is (or will be) built."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libgrid_subsample-{digest}.so")
+    return host_build.library_path(SOURCE, "grid_subsample")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fptr, iptr = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    lib.grid_subsample_count.restype = ctypes.c_int64
+    lib.grid_subsample_count.argtypes = [fptr, ctypes.c_int64, ctypes.c_float]
+    lib.grid_subsample.restype = ctypes.c_int64
+    lib.grid_subsample.argtypes = [fptr, ctypes.c_int64, fptr, ctypes.c_int64, iptr,
+                                   ctypes.c_float, fptr, fptr, iptr, ctypes.c_int64]
 
 
 def load() -> ctypes.CDLL:
     """Build (once per source) and load the library, declaring its C ABI."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        path = library_path()
-        if not os.path.isfile(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
-            proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed (exit {proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        fptr, iptr = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
-        lib.grid_subsample_count.restype = ctypes.c_int64
-        lib.grid_subsample_count.argtypes = [fptr, ctypes.c_int64, ctypes.c_float]
-        lib.grid_subsample.restype = ctypes.c_int64
-        lib.grid_subsample.argtypes = [fptr, ctypes.c_int64, fptr, ctypes.c_int64, iptr,
-                                       ctypes.c_float, fptr, fptr, iptr, ctypes.c_int64]
-        _lib = lib
-        return lib
+    return host_build.load_library(SOURCE, "grid_subsample", _declare)
 
 
 def _fptr(a: np.ndarray | None):

@@ -88,7 +88,10 @@ def invariant_features(mode: str, coords: torch.Tensor,
 
 
 class PVCNNClassifier(nn.Module):
-    """Field names mirror `rift_tpu.models.PVCNNClassifier`. Input
+    """Field names and defaults mirror `rift_tpu.models.PVCNNClassifier`
+    (the flagship, checkpoints/mn40_sph_pt_r4, is `point_kernel_formal=
+    "pointnet_kernel", lrf_kind="pca"`, and its feature extractor
+    `is_classify=False`). Input
     [b, n, 6] (xyz + normals) -> per-point features [b, n, last width], or
     logits [b, num_classes] with `is_classify=True`. On the card, run it
     inside `ops/precision.py:f32_geometry` (as `register_batch` and
@@ -105,15 +108,15 @@ class PVCNNClassifier(nn.Module):
     def __init__(self, blocks: Sequence[tuple[int, int, int | None]] = DEFAULT_BLOCKS,
                  dim_k: int = 512,
                  num_classes: int = 40,
-                 point_kernel_formal: str = "pointnet_kernel",
+                 point_kernel_formal: str = "dgcnn_kernel",
                  voxel_shape: str = "spherical",
                  with_coeff: bool = True, with_se: bool = True,
                  extra_feature_channels: int = 0,
                  width_multiplier: float = 1.0,
                  voxel_resolution_multiplier: float = 1.0,
-                 is_classify: bool = False,
+                 is_classify: bool = True,
                  rot_invariant_preprocess: str | None = "change_coords",
-                 lrf_kind: str = "pca",
+                 lrf_kind: str = "reference",
                  with_local_feat: str | None = "ppf",
                  local_radius: float = 0.3, local_neighbors: int = 128,
                  local_fuse_dim: int = 64,

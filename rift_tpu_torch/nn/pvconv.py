@@ -68,9 +68,9 @@ class PVConv(nn.Module):
     -> [b, n, out]. `coords` are raw; each block voxelizes them anew."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 point_kernel_formal: str = "pointnet_kernel",
+                 point_kernel_formal: str = "dgcnn_kernel",
                  voxel_shape: str = "spherical", resolution: int = 32,
-                 kernel_size: int = 3, with_coeff: bool = True, with_se: bool = True,
+                 kernel_size: int = 3, with_coeff: bool = False, with_se: bool = False,
                  normalize: bool = True, eps: float = 0.0,
                  dtype: torch.dtype | None = None):
         super().__init__()

@@ -4,6 +4,11 @@ rolling `common` checkpoint and per-metric `best_<metric>` copies under
 `ckpt_dir`. Each is `<name>.pt` (`torch.save` of the model's state_dict,
 the optimizer's, the update count and the best metrics) beside the
 `<name>.meta.json` the reference writes ({"best": ..., "config": ...}).
+
+The reference's own checkpoints, orbax directories `<name>/` (the
+committed runs under `checkpoints/`), are read too, without orbax
+(`orbax_read.read_orbax`), for evaluation; training does not resume from
+them.
 """
 from __future__ import annotations
 
@@ -13,7 +18,15 @@ import os
 
 import torch
 
+from .orbax_read import is_orbax_dir, read_orbax
 from .steps import TrainState
+
+
+def checkpoint_exists(ckpt_dir: str, name: str) -> bool:
+    """Whether `ckpt_dir` holds `name`, as a port checkpoint `<name>.pt` or
+    an orbax directory `<name>/` (nothing is created)."""
+    path = os.path.join(ckpt_dir, name)
+    return os.path.isfile(path + ".pt") or is_orbax_dir(path)
 
 
 class CheckpointManager:
@@ -53,12 +66,17 @@ class CheckpointManager:
             return json.load(f)
 
     def restore_raw(self, name: str = "common") -> dict | None:
-        """The saved dict of `name` on the CPU ({'model': state_dict,
-        'optimizer': ..., 'step': int, 'best': {...}}), or None."""
-        path = self._path(name) + ".pt"
-        if not os.path.isfile(path):
-            return None
-        return torch.load(path, map_location="cpu", weights_only=True)
+        """The saved dict of `name` on the CPU: `<name>.pt`'s ({'model':
+        state_dict, 'optimizer': ..., 'step': int, 'best': {...}}); else,
+        where `<name>/` is an orbax directory, the reference's tree as its
+        `restore_raw` returns it ({'step', 'params', 'batch_stats',
+        'opt_state'} as numpy); else None."""
+        path = self._path(name)
+        if os.path.isfile(path + ".pt"):
+            return torch.load(path + ".pt", map_location="cpu", weights_only=True)
+        if is_orbax_dir(path):
+            return read_orbax(path)
+        return None
 
     def restore(self, state: TrainState, name: str = "common") -> dict | None:
         """Load `name` into `state` in place (model, optimizer, step) and
@@ -66,6 +84,11 @@ class CheckpointManager:
         saved = self.restore_raw(name)
         if saved is None:
             return None
+        if "model" not in saved:
+            raise NotImplementedError(
+                f"{self._path(name)} is an orbax checkpoint of rift_tpu: evaluation reads "
+                "it, but training does not resume from it (Adam's state is not mapped "
+                "onto torch's)")
         state.model.load_state_dict(saved["model"])
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])

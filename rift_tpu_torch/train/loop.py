@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import re
 import time
 
 import numpy as np
@@ -41,7 +42,8 @@ from ..parallel.mesh import (broadcast_object, mesh_group, rank_and_world, repli
 from ..registration import (consensus_match, gnc_pose, map_sequence, pair_errors,
                             register_pair, register_pair_from_matches)
 from ..registration.pipeline import split_method
-from .checkpoint import CheckpointManager
+from ..weights import from_flax, from_flax_shapenet
+from .checkpoint import CheckpointManager, checkpoint_exists
 from .config import EvalConfig, ExperimentConfig, ModelConfig, apply_overrides
 from .meters import MeterClassification, MeterRegistration, MeterShapeNetIoU
 from .steps import TrainState, create_state, eval_step, init_params, train_step
@@ -366,17 +368,39 @@ def train_segmentation(config: ExperimentConfig, shapenet_config: ShapeNetConfig
     return {"state": state, "best": best}
 
 
+def _is_seg_tree(params: dict) -> bool:
+    """A ShapeNetPVCNN tree: SharedMLP_i, PVConv_i and the per-point
+    classifier Dense_0 at the top, none of the classifier head's
+    BatchNorm_i or Dense_1."""
+    return "Dense_0" in params and all(
+        re.fullmatch(r"SharedMLP_\d+|PVConv_\d+|Dense_0", name) for name in params)
+
+
 def load_trained_state(ckpt_dir: str, name: str = "common") -> tuple[dict, dict]:
-    """A port checkpoint for evaluation: (the saved dict, whose 'model' is
-    the state dict and 'step' the update count; the config snapshot saved
-    beside it, {} when there is none)."""
+    """A checkpoint for evaluation: (a dict whose 'model' is the state dict
+    and 'step' the update count; the config snapshot of `<name>.meta.json`,
+    {} when there is none). A port checkpoint is loaded as saved; an orbax
+    directory of the reference is converted from its flax tree, head
+    included, by `weights.from_flax` (with the snapshot's
+    `with_transform_fine_tune`) or, for a segmentation tree,
+    `weights.from_flax_shapenet`."""
     ckpt = CheckpointManager(ckpt_dir)
     raw = ckpt.restore_raw(name)
     if raw is None:
-        raise FileNotFoundError(f"no checkpoint {name!r} under {ckpt_dir!r} "
-                                f"(expected {os.path.join(ckpt_dir, name)}.pt)")
+        raise FileNotFoundError(f"no checkpoint {name!r} under {ckpt_dir!r} (expected "
+                                f"{os.path.join(ckpt_dir, name)}.pt or an orbax directory "
+                                f"{os.path.join(ckpt_dir, name)}/)")
     meta = ckpt.load_meta(name) or {}
-    return raw, meta.get("config", {})
+    snapshot = meta.get("config", {})
+    if "model" not in raw:
+        params, stats = raw["params"], raw.get("batch_stats") or {}
+        if _is_seg_tree(params):
+            state = from_flax_shapenet(params, stats)
+        else:
+            fine_tune = bool((snapshot.get("model") or {}).get("with_transform_fine_tune"))
+            state = from_flax(params, stats, fine_tune=fine_tune)
+        raw = {"model": state, "step": int(raw["step"])}
+    return raw, snapshot
 
 
 def extractor_from_snapshot(config: ExperimentConfig, snapshot: dict) -> PVCNNClassifier:
@@ -416,8 +440,7 @@ def resolve_extractor(config: ExperimentConfig, model: PVCNNClassifier | None = 
         return model.eval()
     ckpt_dir = ckpt_dir or config.evaluate.ckpt_dir
     ckpt_name = ckpt_name or config.evaluate.ckpt_name or "common"
-    if ckpt_dir is None and os.path.isfile(
-            os.path.join(config.train.ckpt_dir, ckpt_name + ".pt")):
+    if ckpt_dir is None and checkpoint_exists(config.train.ckpt_dir, ckpt_name):
         ckpt_dir = config.train.ckpt_dir
     if ckpt_dir is not None:
         raw, snapshot = load_trained_state(ckpt_dir, ckpt_name)

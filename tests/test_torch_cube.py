@@ -147,7 +147,7 @@ def _cube_block(rng, kernel, normalize, dtype=None):
                                        "batch_stats": stats["PVConv_0"]},
                                       jnp.asarray(feats), jnp.asarray(coords))).astype(np.float32)
     block = PVConv(c, out, point_kernel_formal=kernel, voxel_shape="cube", resolution=R,
-                   normalize=normalize, dtype=dtype)
+                   with_coeff=True, with_se=True, normalize=normalize, dtype=dtype)
     prefix = "layers.PVConv_0."
     block.load_state_dict({k[len(prefix):]: v for k, v in from_flax(params, stats).items()})
     with torch.no_grad():

@@ -1,12 +1,11 @@
 """rift_tpu_torch's registration evaluation against rift_tpu's: the
 `evaluate` section of the flagship preset, `evaluate_registration` end to
-end on the flagship checkpoint converted to a port checkpoint (flip
-hypotheses and canonical voxels on) and on tiny_smoke widths without the
-flips, and the checkpoint resolution of `resolve_extractor`."""
+end on the committed flagship checkpoint, read by the port's own orbax
+reader (flip hypotheses and canonical voxels on), and on tiny_smoke widths
+without the flips, and the checkpoint resolution of `resolve_extractor`."""
 import dataclasses
 import json
 import os
-import shutil
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +16,6 @@ import torch
 import rift_tpu.train.loop as j_loop
 import rift_tpu_torch.train.loop as t_loop
 from rift_tpu.train import get_config as j_get_config
-from rift_tpu.train.checkpoint import CheckpointManager as JaxCheckpoints
 from rift_tpu.train.config import EvalConfig as JaxEvalConfig
 from rift_tpu.train.config import ModelConfig as JaxModelConfig
 from rift_tpu.train.steps import TrainState as JaxTrainState
@@ -25,7 +23,6 @@ from rift_tpu_torch.registration import register_pair
 from rift_tpu_torch.train import (EvalConfig, evaluate_registration, extractor_from_snapshot,
                                   get_config, resolve_extractor, train)
 from rift_tpu_torch.train.checkpoint import CheckpointManager
-from rift_tpu_torch.train.config import ModelConfig
 from rift_tpu_torch.weights import from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,25 +86,13 @@ def test_flagship_preset_evaluate_section_equals_the_meta_file():
 
 
 @pytest.fixture(scope="module")
-def flagship_ckpt(tmp_path_factory):
-    """The flagship checkpoint (orbax, restored here only) written as a port
-    checkpoint: `best_acc.pt` (the classifier's state dict, head included)
-    beside a copy of its meta file."""
-    raw = JaxCheckpoints(FLAGSHIP_DIR).restore_raw("best_acc")
+def flagship_ckpt():
+    """The committed flagship run (the orbax directory `best_acc/` beside
+    its meta file), which the port reads itself: (its directory, the
+    config snapshot)."""
     with open(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json")) as f:
         snapshot = json.load(f)["config"]
-    known = {f.name for f in dataclasses.fields(ModelConfig)}
-    mcfg = ModelConfig(**{k: v for k, v in snapshot["model"].items() if k in known})
-    classifier = t_loop.build_model(dataclasses.replace(get_config("mn40_sph_pt_r4"),
-                                                        model=mcfg))
-    assert classifier.head is not None
-    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
-    classifier.load_state_dict(from_flax(to_np(raw["params"]), to_np(raw["batch_stats"])))
-    out = tmp_path_factory.mktemp("flagship_port")
-    torch.save({"model": classifier.state_dict(), "optimizer": {},
-                "step": int(np.asarray(raw["step"])), "best": {}}, out / "best_acc.pt")
-    shutil.copy(os.path.join(FLAGSHIP_DIR, "best_acc.meta.json"), out / "best_acc.meta.json")
-    return str(out), snapshot
+    return FLAGSHIP_DIR, snapshot
 
 
 def test_extractor_from_the_converted_flagship(flagship_ckpt):

@@ -232,7 +232,7 @@ def test_dgcnn_pvconv_matches_reference(rng, with_coeff):
                                        "batch_stats": stats["PVConv_0"]},
                                       jnp.asarray(feats), jnp.asarray(coords)))
     block = PVConv(c, out, point_kernel_formal="dgcnn_kernel", resolution=r,
-                   with_coeff=with_coeff)
+                   with_coeff=with_coeff, with_se=True)
     prefix = "layers.PVConv_0."
     block.load_state_dict({k[len(prefix):]: v for k, v in from_flax(params, stats).items()})
     assert block.point.layers[0]["dense"].in_features == 2 * c
@@ -338,3 +338,50 @@ def test_bench_model_in_bf16_matches_reference(rng):
     err = np.abs(got - want).max(-1)
     assert err.max() <= 4 * ulp, err.max() / ulp
     assert np.median(err) <= 2 * ulp, np.median(err) / ulp
+
+
+# Every ported model and nn class with a flax twin; the keyword arguments
+# that only one side has: the port's input width and head dropout rate
+# (flax reads the width from the input; the reference's rate is fixed at
+# the port's default), the reference's ShapeNet `extra_feature_channels`
+# (its trainer never reads it) and PVConv's `impl` (the XLA or Pallas
+# route of the reference's scatter).
+TWINS = [("rift_tpu_torch.models.pvcnn", "rift_tpu.models.pvcnn", "PVCNNClassifier",
+          {"in_channels", "dropout"}),
+         ("rift_tpu_torch.models.shapenet", "rift_tpu.models.shapenet", "ShapeNetPVCNN",
+          {"in_channels", "dropout", "extra_feature_channels"}),
+         ("rift_tpu_torch.models.pointnet", "rift_tpu.models.pointnet", "PointNet",
+          {"in_channels"}),
+         ("rift_tpu_torch.models.pointnet", "rift_tpu.models.pointnet", "PointNetClassifier",
+          {"in_channels", "dropout"}),
+         ("rift_tpu_torch.nn.pointnet2", "rift_tpu.nn.pointnet2", "PointNetAModule", set()),
+         ("rift_tpu_torch.nn.pointnet2", "rift_tpu.nn.pointnet2", "PointNetSAModule", set()),
+         ("rift_tpu_torch.nn.pointnet2", "rift_tpu.nn.pointnet2", "PointNetFPModule", set()),
+         ("rift_tpu_torch.nn.shared_mlp", "rift_tpu.nn.shared_mlp", "SharedMLP", set()),
+         ("rift_tpu_torch.nn.pvconv", "rift_tpu.nn.pvconv", "SE3d", set()),
+         ("rift_tpu_torch.nn.pvconv", "rift_tpu.nn.pvconv", "PVConv", {"impl"})]
+
+
+@pytest.mark.parametrize("port_module, ref_module, name, one_sided", TWINS,
+                         ids=[t[2] for t in TWINS])
+def test_constructor_defaults_equal_the_reference_field_defaults(port_module, ref_module, name,
+                                                                 one_sided):
+    """The same constructor call builds the same function: every keyword
+    default of the port's class equals the reference's field default, and
+    the defaulted keywords differ only by `one_sided` (required arguments,
+    such as input widths that flax reads from the input, are not compared)."""
+    import dataclasses
+    import importlib
+    import inspect
+
+    port = getattr(importlib.import_module(port_module), name)
+    ref = getattr(importlib.import_module(ref_module), name)
+    ref_defaults = {f.name: f.default for f in dataclasses.fields(ref)
+                    if f.name not in ("parent", "name") and f.default is not dataclasses.MISSING}
+    port_defaults = {k: p.default for k, p in inspect.signature(port.__init__).parameters.items()
+                     if p.default is not inspect.Parameter.empty}
+    assert set(ref_defaults) ^ set(port_defaults) <= one_sided, (
+        set(ref_defaults) ^ set(port_defaults))
+    for key in sorted(set(ref_defaults) & set(port_defaults)):
+        assert port_defaults[key] == ref_defaults[key], (key, port_defaults[key],
+                                                         ref_defaults[key])

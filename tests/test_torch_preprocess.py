@@ -172,6 +172,6 @@ def test_preprocesses_that_need_normals_refuse_clouds_without_them(rng):
     with pytest.raises(ValueError, match="unknown rot_invariant_preprocess"):
         PVCNNClassifier(rot_invariant_preprocess="lrf")
     pca = PVCNNClassifier(blocks=TINY_BLOCKS, rot_invariant_preprocess="pca",
-                          with_local_feat=None).eval()
+                          with_local_feat=None, is_classify=False).eval()
     with torch.no_grad():
         assert pca(x).shape == (1, 32, 16)

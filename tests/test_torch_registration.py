@@ -136,7 +136,8 @@ def test_gnc_pose_fixed_schedule_reads_nothing_on_the_host(rng, monkeypatch):
 
 
 def test_register_batch_fixed_gnc_schedule_gives_the_same_transforms():
-    model = PVCNNClassifier(blocks=((8, 1, 4), (16, 1, None)), local_neighbors=8).eval()
+    model = PVCNNClassifier(blocks=((8, 1, 4), (16, 1, None)), local_neighbors=8,
+                            is_classify=False).eval()
     src, dst, _ = SyntheticPairs(num_pairs=2, num_points=128, seed=3).arrays()
     want = register_batch(model, src, dst, device="cpu")
     got = register_batch(model, src, dst, device="cpu", early_exit=False)

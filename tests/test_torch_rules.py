@@ -19,7 +19,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rift_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "rift_tpu")
 
 
 def _port_files():
@@ -59,7 +59,8 @@ NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops
                "ops/losses.py", "ops/frustum.py", "parallel/scaling.py", "train/profiling.py",
                "utils/__init__.py", "utils/pair_hash.py", "utils/visualize.py",
                "registration/metrics.py", "train/meters.py", "ops/neighbors.py",
-               "ops/__init__.py", "train/roofline.py")
+               "ops/__init__.py", "train/roofline.py", "train/ocdbt.py", "train/orbax_read.py",
+               "train/checkpoint.py", "utils/zstd.py", "utils/host_build.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -158,20 +159,29 @@ def test_importing_the_port_compiles_nothing():
 
 
 def test_grid_subsample_builds_into_the_port_build_directory_only():
-    """The host library is built by g++ from the port's own copy of the
-    source (outside the kernels' csrc/*.cu glob) into rift_tpu_torch/_build,
-    and nothing under cpp/ is written."""
+    """The host libraries (grid subsampling, the zstd decoder) are built by
+    the one g++ helper, utils/host_build.py, from the port's own sources
+    (outside the kernels' csrc/*.cu glob) into rift_tpu_torch/_build, and
+    nothing under cpp/ is written."""
     from rift_tpu_torch.data import grid_subsample as gs
     from rift_tpu_torch.ops.cuda import build
+    from rift_tpu_torch.utils import host_build, zstd
 
-    assert os.path.dirname(gs.SOURCE) == os.path.join(build.CSRC, "host")
-    assert gs.SOURCE not in build._sources()
+    for source in (gs.SOURCE, zstd.SOURCE):
+        assert os.path.dirname(source) == os.path.join(build.CSRC, "host") == host_build.HOST_SRC
+        assert source not in build._sources()
     before = _cpp_state()
     pts = np.random.RandomState(0).rand(500, 3).astype(np.float32)
     assert gs.grid_subsample(pts, sample_dl=0.25).shape[1] == 3
+    assert zstd.decompress(bytes.fromhex("28b52ffd200109000061")) == b"a"
     assert _cpp_state() == before
-    path = gs.library_path()
-    assert os.path.dirname(path) == build.BUILD_DIR and os.path.isfile(path)
+    for path in (gs.library_path(), zstd.library_path()):
+        assert os.path.dirname(path) == build.BUILD_DIR and os.path.isfile(path)
+    for path in (os.path.join(ROOT, "rift_tpu_torch", "data", "grid_subsample.py"),
+                 os.path.join(ROOT, "rift_tpu_torch", "utils", "zstd.py")):
+        with open(path) as f:
+            text = f.read()
+        assert "subprocess" not in text  # the build step is host_build's alone
 
 
 def _run(code, cwd=ROOT, env_extra=None):
@@ -183,13 +193,14 @@ def _run(code, cwd=ROOT, env_extra=None):
 def test_package_imports_and_builds_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'rift_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard', "
+        "'rift_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import torch, rift_tpu_torch\n"
         "from rift_tpu_torch.models import PVCNNClassifier\n"
         "from rift_tpu_torch.registration import register_batch\n"
         "from rift_tpu_torch.data import SyntheticPairs\n"
-        "m = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8).eval()\n"
+        "m = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8, is_classify=False).eval()\n"
         "s, d, _ = SyntheticPairs(num_pairs=1, num_points=64).arrays()\n"
         "print(tuple(register_batch(m, s, d, device='cpu').shape))\n")
     out = _run(code)
@@ -208,7 +219,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-    model = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8).eval()
+    model = PVCNNClassifier(blocks=((8, 1, 4),), local_neighbors=8, is_classify=False).eval()
     pts = np.zeros((1, 32, 3), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         register_batch(model, pts, pts)
