@@ -13,8 +13,9 @@ ShapeNet part segmentation training through the command line at the
 `shapenet_seg` preset's full width; the mapping, the method sweep and the
 model variants; the auxiliaries (weak scaling on this card, the RPM-Net
 pairs and metrics, the port's trace, grid subsampling); the roofline of
-the reference's six stages at its report's shapes; and compare every path
-with its CPU run.
+the reference's six stages at its report's shapes; the committed runs
+with their trained weights, and training resumed from the orbax `common`
+of two of them; and compare every path with its CPU run.
 
     python3 chip_smoke.py
 
@@ -220,6 +221,22 @@ Phases (each prints one line with its wall time):
                and an 8-scan map against the CPU's; K1-K3 at its shapes);
                every call's launches as reckoned, summed into the `trained`
                path.
+ 25. resume — training resumed from the reference's orbax `common` of
+               checkpoints/mn40_sph_pt_r4 (step 15360) and
+               checkpoints/shapenet_r3 (step 1440), each copied into a temp
+               directory (RESUME_RUNS; a missing one fails): the host read
+               and conversion of params, mu and nu (seconds); from the
+               restored state one step card vs CPU on a cut batch and the
+               card's update against Adam in f64; one profiled step; then
+               `cli train --preset mn40_sph_pt_r4 optim.num_epochs=121`
+               (one epoch of 128 steps of 16 x 1024 and the 512-item
+               validation) and `cli train-seg --preset shapenet_seg` with
+               the run's 1024 points, eval batch 16 and 91 epochs (16 steps
+               of 8 x 1024, 32 test items): the log's resume line, the end
+               step, `common.pt` written, the orbax copy unchanged by
+               sha256, the loss and accuracy or mIoU within the bounds at
+               RESUME_RUNS, launches as reckoned (the `resume` path),
+               K2-K4 at both runs' shapes.
 Then one JSON line of per-kernel numbers, with the roofline phase's
 report under "roofline", and the result line
 {"ok": true, "device": {...}} last. Any failure exits non-zero before it.
@@ -673,6 +690,52 @@ TRAINED_RUNS = {"flagship": ("mn40_sph_pt_r4", "mn40_sph_pt_r4"),
                 "map": ("rank_mn40_cu_dg", MAP_PRESET)}
 TRAINED_SHA256 = "2ddec1366ddf55f834376ca9e58137851af02902db071b9c223ae6283279c56f"
 TRAINED_FEATURE_SCANS, TRAINED_MAP_SCANS = 2, 8
+# The resume phase: training resumed from the reference's orbax `common` of
+# two committed runs, copied with its meta file into a temp directory
+# (nothing is written under checkpoints/), through the command line. Each
+# RESUME_RUNS entry is (run, preset, overrides): the overrides make the
+# preset the run's snapshot (checked field by field) with one epoch more.
+# The flagship mn40_sph_pt_r4 (step 15360: 120 epochs of 128 steps of
+# 16 x 1024; the preset is its snapshot) trains its epoch 120 and
+# validates on its 512-item split; shapenet_r3 (step 1440: 90 epochs of
+# 16 steps of 8 items of the synthetic ShapeNet split; the preset's 2048
+# points and eval batch of 32 set to the run's 1024 and 16) trains its
+# epoch 90 and evaluates its 32 test items in 2 batches. Bounds: the
+# flagship's epoch loss below RESUME_LOSS_MAX, ten times the largest its
+# log shows over its last epochs (7.9e-5 to 1.1e-4; a head that lost its
+# weights gives about ln 40 = 3.69), and validation accuracy 1.0, as its
+# last valid line; segmentation's loss within RESUME_SEG_LOSS_RTOL and
+# its mIoU within RESUME_SEG_IOU_TOL of RESUME_SEG_LOG, the run's last
+# logged line (the three last epochs logged 0.3919, 0.3874, 0.3848 and
+# 0.5575, 0.5572, 0.5576; the port draws its own dropout masks). From the
+# same restored state, one step card vs CPU on a cut batch (step_parity:
+# PARITY_CLOUDS clouds of the epoch's first batch, SEG_PARITY_CLOUDS for
+# segmentation), then the card's update against Adam in f64 numpy from
+# the checkpoint's own mu, nu and count, the schedule's rate at the run's
+# step and the card's own gradients of that step: exp_avg within
+# ADAM_ULPS f32 steps (2^-24) of the size of its two terms, exp_avg_sq
+# within ADAM_ULPS of its value, each parameter within one f32 step of
+# itself plus ADAM_RTOL of its update; each also within f32's smallest
+# normal number, as the card may flush a subnormal result to 0.
+RESUME_RUNS = {"cls": ("mn40_sph_pt_r4", "mn40_sph_pt_r4", ["optim.num_epochs=121"]),
+               "seg": ("shapenet_r3", "shapenet_seg",
+                       ["dataset.num_points=1024", "train.eval_batch_size=16",
+                        "optim.num_epochs=91"])}
+RESUME_LOSS_MAX = 1e-3
+RESUME_SEG_LOG = {"loss": 0.38482387363910675, "iou": 0.5576499645877758}
+RESUME_SEG_LOSS_RTOL, RESUME_SEG_IOU_TOL = 0.1, 0.01
+# The trained classifier's loss on the parity clouds is a mean of
+# -log(1 + e) with e near 1e-4, each rounded at f32's step of 1: the card's
+# is held within LOSS_RTOL of the CPU's plus RESUME_LOSS_ATOL. Running
+# statistics by the model's largest (step_parity's stats_of_model). Its
+# gradients are small (a loss of 1e-4), while a bias in front of a
+# train-mode BatchNorm still sums terms of the activations' size to what
+# is 0 in exact arithmetic: that rounding reaches 3.1e-5 of the largest
+# gradient norm on both devices (first call), past GRAD_DIFF_TOL, so below
+# GRAD_NORM_FLOOR the two are held to be rounding alike: within
+# RESUME_ZERO_TOL of the largest norm, the floor itself.
+RESUME_LOSS_ATOL, RESUME_ZERO_TOL = 4 * 2.0 ** -24, GRAD_NORM_FLOOR
+ADAM_ULPS, ADAM_RTOL = 8, 1e-3
 
 
 def phase(name: str, t0: float, msg: str) -> None:
@@ -2594,15 +2657,18 @@ def train_parity() -> str:
     return step_parity(cpu, card, clouds, labels, f"{PARITY_CLOUDS} clouds x {NUM_POINTS}")
 
 
-def step_parity(cpu, card, clouds, labels, what: str, stats_of_model: bool = False) -> str:
+def step_parity(cpu, card, clouds, labels, what: str, stats_of_model: bool = False,
+                loss_atol: float = 0.0, zero_tol: float = GRAD_DIFF_TOL) -> str:
     """One train_step of the CPU state `cpu` and of its copy `card` on the
     card, on the batch (clouds, labels) (numpy): the loss, the gradients
-    (GRAD_COS above GRAD_NORM_FLOOR, GRAD_DIFF_TOL below, a line printed per
-    parameter below the floor) and the BN statistics (STATS_RTOL of each
+    (GRAD_COS above GRAD_NORM_FLOOR; below it within `zero_tol`, by default
+    GRAD_DIFF_TOL, of the largest norm, a line printed per parameter) and
+    the BN statistics (STATS_RTOL of each
     buffer's largest value; with `stats_of_model`, of the model's largest
     running statistic, as tests/test_torch_train.py holds them: a running
     mean that is a cancellation, as the local-LRF fuser's first one over
-    neighbourhoods centred on their mean, has no scale of its own)."""
+    neighbourhoods centred on their mean, has no scale of its own); the
+    loss within LOSS_RTOL of the CPU's plus `loss_atol`."""
     import torch
 
     from rift_tpu_torch.train.steps import train_step
@@ -2636,14 +2702,15 @@ def step_parity(cpu, card, clouds, labels, what: str, stats_of_model: bool = Fal
         if err > worst_stat:
             worst_stat, worst_stat_name = err, name
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    msg = (f"{what}: loss card {loss_g:.6f} CPU {loss_c:.6f} "
-           f"(rel {loss_rel:.3e}, tol {LOSS_RTOL:g}); gradients (norms relative to the "
+    loss_tol = LOSS_RTOL + loss_atol / abs(loss_c)
+    msg = (f"{what}: loss card {loss_g:.6g} CPU {loss_c:.6g} "
+           f"(rel {loss_rel:.3e}, tol {loss_tol:.3g}); gradients (norms relative to the "
            f"largest parameter gradient's): min cosine {worst_cos[0]:.6f} at {worst_cos[3]} "
            f"over the {len(directed)} with norm >= {GRAD_NORM_FLOOR:g} (tol {GRAD_COS}); "
            f"below the floor ({len(floor)}), max |card - CPU| {worst_floor[2]:.3e} at "
-           f"{worst_floor[3]} (tol {GRAD_DIFF_TOL:g}); BN running stats max rel diff "
+           f"{worst_floor[3]} (tol {zero_tol:g}); BN running stats max rel diff "
            f"{worst_stat:.3e} at {worst_stat_name} (tol {STATS_RTOL:g})")
-    if loss_rel > LOSS_RTOL or worst_cos[0] < GRAD_COS or worst_floor[2] > GRAD_DIFF_TOL \
+    if loss_rel > loss_tol or worst_cos[0] < GRAD_COS or worst_floor[2] > zero_tol \
             or worst_stat > STATS_RTOL:
         fail("train parity: " + msg)
     return msg
@@ -4472,6 +4539,224 @@ def trained_phase(wrappers: dict, src, dst, gt) -> dict:
                 kernels={k: v for k, v in kernels.items() if v})
 
 
+def tree_sha256(directory: str) -> dict:
+    """Every file under `directory`, by its relative path: its sha256."""
+    import hashlib
+
+    out = {}
+    for base, _, files in os.walk(directory):
+        for name in files:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, directory)] = hashlib.sha256(f.read()).hexdigest()
+    return dict(sorted(out.items()))
+
+
+def check_snapshot(cfg, snapshot: dict, label: str) -> None:
+    """`cfg` is the run's snapshot but for its number of epochs: every
+    model, optim and dataset field the snapshot names, and the batch
+    sizes."""
+    for section in ("model", "optim", "dataset", "train"):
+        ours = getattr(cfg, section)
+        for key, want in snapshot[section].items():
+            if (section, key) == ("optim", "num_epochs") or (
+                    section == "train" and key not in ("batch_size", "eval_batch_size")):
+                continue
+            got = json.loads(json.dumps(getattr(ours, key, "missing")))
+            if got != want:
+                fail(f"resume {label}: {section}.{key} is {got!r}, the run's snapshot {want!r}")
+
+
+def adam_f64(card, before: dict, mu: dict, nu: dict, count: int, lr: float, wd: float) -> str:
+    """The card's update of `card` (one train_step from the restored state,
+    its parameters `before` it) against Adam in f64 from the checkpoint's
+    moments `mu`, `nu` and `count`, the rate `lr` and the card's own
+    gradients (ADAM_ULPS, ADAM_RTOL at RESUME_RUNS)."""
+    import torch
+
+    unit, tiny = 2.0 ** -24, 2.0 ** -126  # f32's step at 1, its smallest normal
+    worst = {"exp_avg": 0.0, "exp_avg_sq": 0.0, "param": 0.0}
+    resolved = total = 0
+    t = count + 1
+    for name, p in card.model.named_parameters():
+        st = card.optimizer.state[p]
+        if float(st["step"]) != t:
+            fail(f"resume: {name}'s Adam step {float(st['step'])}, expected {t}")
+        p0, g = before[name], p.grad.detach().double().cpu()
+        g2 = g + wd * p0
+        m = 0.9 * mu[name].double() + 0.1 * g2
+        v = 0.999 * nu[name].double() + 0.001 * g2 * g2
+        upd = lr * (m / (1 - 0.9 ** t)) / (torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+        want = p0 - upd
+        for key, got, ref, allowed in (
+                ("exp_avg", st["exp_avg"], m,
+                 ADAM_ULPS * unit * (0.9 * mu[name].double().abs()
+                                     + 0.1 * (g.abs() + wd * p0.abs()))),
+                ("exp_avg_sq", st["exp_avg_sq"], v, ADAM_ULPS * unit * v),
+                ("param", p.detach(), want, 2 * unit * want.abs() + ADAM_RTOL * upd.abs())):
+            err = (got.double().cpu() - ref).abs()
+            allowed = allowed + tiny  # a subnormal result may be flushed to 0
+            if bool((err > allowed).any()):
+                fail(f"resume: {key} of {name} misses the f64 Adam update by "
+                     f"{float((err - allowed).max()):.3e} past its bound")
+            worst[key] = max(worst[key], float((err / allowed).max()))
+        resolved += int((upd.abs() > 8 * unit * want.abs()).sum())
+        total += upd.numel()
+    return (f"Adam at step {t} against f64 (rate {lr:.6e}): largest error over its bound "
+            f"exp_avg {worst['exp_avg']:.3f}, exp_avg_sq {worst['exp_avg_sq']:.3f}, "
+            f"parameters {worst['param']:.3f}; {resolved} of {total} updates larger than 8 "
+            f"f32 steps of their parameter")
+
+
+def resume_run(key: str, wrappers: dict) -> dict:
+    """One RESUME_RUNS entry (the rules there): the copy, its sha256, the
+    host read and conversion, card vs CPU from the restored state, the f64
+    Adam update, one profiled step after a warm-up step on the epoch's
+    first batch, the command-line run from the orbax `common` (launches
+    as reckoned, the log's resume line, the epoch's metrics, `common.pt`
+    written, the copy unchanged) and K2-K4 at its shapes."""
+    import shutil
+
+    import torch
+
+    from rift_tpu_torch.data.modelnet40 import ModelNet40
+    from rift_tpu_torch.data.shapenet import ShapeNetConfig, get_shapenet
+    from rift_tpu_torch.train import apply_overrides, build_model, build_seg_model, get_config
+    from rift_tpu_torch.train.checkpoint import CheckpointManager, flax_converter
+    from rift_tpu_torch.train.orbax_read import read_orbax
+    from rift_tpu_torch.train.steps import create_state, train_step
+    from rift_tpu_torch.weights import adam_from_flax, from_flax, from_flax_shapenet
+
+    run, preset, overrides = RESUME_RUNS[key]
+    seg = key == "seg"
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints", run)
+    for need in ("common/_METADATA", "common/manifest.ocdbt", "common.meta.json"):
+        if not os.path.isfile(os.path.join(src, need)):
+            fail(f"resume: {os.path.join(src, need)} is missing (the copy must carry "
+                 f"checkpoints/{run}/common and its meta file)")
+    cfg = apply_overrides(get_config(preset), overrides)
+    with open(os.path.join(src, "common.meta.json")) as f:
+        meta = json.load(f)
+    check_snapshot(cfg, meta["config"], key)
+    if seg:
+        data = get_shapenet(ShapeNetConfig(num_points=cfg.dataset.num_points))
+        train_split, eval_split = data["train"], data["test"]
+    else:
+        train_split = ModelNet40(cfg.dataset, "train")
+        eval_split = ModelNet40(cfg.dataset, "valid")
+    steps = len(train_split) // cfg.train.batch_size
+    eval_batches = -(-len(eval_split) // cfg.train.eval_batch_size)
+    reckoned = {name: STEP_LAUNCHES.get(name, 0) * steps + EVAL_LAUNCHES.get(name, 0)
+                * eval_batches for name in wrappers}
+
+    def build():
+        return build_seg_model(cfg) if seg else build_model(cfg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(src, "common"), os.path.join(tmp, "common"))
+        shutil.copy(os.path.join(src, "common.meta.json"), tmp)
+        before = tree_sha256(os.path.join(tmp, "common"))
+        if before != tree_sha256(os.path.join(src, "common")):
+            fail(f"resume: the copy of checkpoints/{run}/common differs from it")
+
+        t1 = time.perf_counter()
+        tree = read_orbax(os.path.join(tmp, "common"))
+        read_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        convert = flax_converter(tree["params"], tree["batch_stats"], meta["config"])
+        weights = convert(tree["params"])
+        model = build()
+        count, _ = adam_from_flax(tree["opt_state"], int(tree["step"]), convert,
+                                  dict(model.named_parameters()))
+        convert_s = time.perf_counter() - t1
+        step0 = int(tree["step"])
+        epoch = step0 // steps
+        decay, (adam, schedule) = tree["opt_state"]  # add_decayed_weights, then adam
+        if decay is not None or count != step0 or int(schedule["count"]) != step0:
+            fail(f"resume {key}: opt_state counts {count}, {int(schedule['count'])}, "
+                 f"step {step0}")
+        to_port = from_flax_shapenet if seg else from_flax
+        mu = to_port(adam["mu"], tree["batch_stats"])
+        nu = to_port(adam["nu"], tree["batch_stats"])
+
+        # From the restored state, before the run writes common.pt (which a
+        # later restore prefers): one step card vs CPU, the f64 Adam update.
+        ckpt = CheckpointManager(tmp)
+        cpu = create_state(model, cfg, steps, torch.device("cpu"), seed=cfg.seed)
+        card = create_state(build(), cfg, steps, torch.device("cuda"), seed=cfg.seed)
+        for state in (cpu, card):
+            if ckpt.restore(state) != meta["best"] or state.step != step0:
+                fail(f"resume {key}: restore gave step {state.step}")
+            state.model.dropout = 0.0
+        if any(not torch.equal(v.cpu(), weights[k]) for k, v in card.model.state_dict().items()):
+            fail(f"resume {key}: the card's restored state differs from the converted tree")
+        clouds, labels = next(train_split.batches(cfg.train.batch_size, seed=epoch))
+        cut = SEG_PARITY_CLOUDS if seg else PARITY_CLOUDS
+        params_before = {n: p.detach().double().cpu() for n, p in card.model.named_parameters()}
+        total = cfg.optim.num_epochs * steps
+        lr = cfg.optim.lr * 0.5 * (1.0 + math.cos(math.pi * min(step0, total) / total))
+        parity = step_parity(cpu, card, clouds[:cut], labels[:cut],
+                             f"{cut} clouds x {cfg.dataset.num_points} of the epoch's first batch",
+                             stats_of_model=True, loss_atol=RESUME_LOSS_ATOL,
+                             zero_tol=RESUME_ZERO_TOL)
+        adam_msg = adam_f64(card, params_before, mu, nu, int(adam["count"]), lr,
+                            cfg.optim.weight_decay)
+        full = torch.as_tensor(clouds, device="cuda")
+        full_labels = torch.as_tensor(labels, device="cuda")
+        train_step(card, full, full_labels)  # the first step at this shape picks cuDNN's plans
+        profile = profile_step(lambda: train_step(card, full, full_labels))
+        rows = voxel_kernel_rows(card.model, full[..., :3], k4=True)
+        del cpu, card, model
+        torch.cuda.empty_cache()
+
+        command = "train-seg" if seg else "train"
+        cli = cli_run([command, "--preset", preset, "--device", "cuda",
+                       f"train.ckpt_dir={tmp}", *overrides], cfg.name, wrappers, reckoned)
+        said = [r.getMessage() for r in cli["records"]]
+        resumed = f"{'seg ' if seg else ''}resumed from step {step0} (epoch {epoch})"
+        if resumed not in said:
+            fail(f"resume {key}: the log has no {resumed!r}: {said[:4]}")
+        with open(os.path.join(tmp, f"{cfg.name}.metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        train_line = [r for r in log if r["split"] == "train"]
+        if len(train_line) != 1 or train_line[0]["step"] != step0 + steps \
+                or train_line[0]["epoch"] != epoch:
+            fail(f"resume {key}: metrics {log}")
+        if not os.path.isfile(os.path.join(tmp, "common.pt")):
+            fail(f"resume {key}: no common.pt after the run: {sorted(os.listdir(tmp))}")
+        if tree_sha256(os.path.join(tmp, "common")) != before:
+            fail(f"resume {key}: the orbax common/ changed")
+        if seg:
+            loss, iou = train_line[0]["loss"], train_line[0]["iou"]
+            if abs(loss - RESUME_SEG_LOG["loss"]) > RESUME_SEG_LOSS_RTOL * RESUME_SEG_LOG["loss"] \
+                    or abs(iou - RESUME_SEG_LOG["iou"]) > RESUME_SEG_IOU_TOL:
+                fail(f"resume seg: loss {loss}, mIoU {iou}, the run's last {RESUME_SEG_LOG}")
+            score = iou
+        else:
+            valid = [r for r in log if r["split"] == "valid"]
+            loss, score = train_line[0]["loss"], valid[0]["acc"] if valid else None
+            if not loss < RESUME_LOSS_MAX or score != 1.0:
+                fail(f"resume cls: epoch loss {loss} (bound {RESUME_LOSS_MAX}), validation "
+                     f"accuracy {score}")
+    sec = train_line[0]["sec"]
+    return dict(run=run, preset=preset, overrides=overrides, step0=step0, epoch=epoch,
+                steps=steps, read_s=read_s, convert_s=convert_s, cli=cli, sec=sec,
+                ms_per_step=sec * 1e3 / steps,
+                clouds_per_s=steps * cfg.train.batch_size / sec, loss=loss, score=score,
+                profile=profile, parity=parity, adam=adam_msg, kernels=rows,
+                batch=cfg.train.batch_size, points=cfg.dataset.num_points)
+
+
+def resume_phase(wrappers: dict) -> dict:
+    """Both RESUME_RUNS; their command-line launches summed into the
+    `resume` path and their K2-K4 rows joined."""
+    runs = {key: resume_run(key, wrappers) for key in RESUME_RUNS}
+    launches = {name: sum(r["cli"]["launches"][name] for r in runs.values()) for name in wrappers}
+    kernels = {name: sum((r["kernels"].get(name, []) for r in runs.values()), [])
+               for name in wrappers}
+    return dict(runs=runs, launches=launches, kernels={k: v for k, v in kernels.items() if v})
+
+
 def nvidia_smi() -> str:
     """The first card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -4832,6 +5117,26 @@ def main() -> int:
     for name, rows in tp["kernels"].items():
         report[name]["trained"] = rows
 
+    t0 = time.perf_counter()
+    rs = resume_phase(wrappers)
+    for key, r in rs["runs"].items():
+        what = "mIoU" if key == "seg" else "validation accuracy"
+        print(f"resume{' train-seg' if key == 'seg' else ''}: {smi}: checkpoints/{r['run']}/common "
+              f"(step {r['step0']}) read on the host in {r['read_s']:.3f} s, converted (params, "
+              f"mu, nu) in {r['convert_s']:.3f} s; cli {'train-seg' if key == 'seg' else 'train'} "
+              f"--preset {r['preset']} {' '.join(r['overrides'])}: epoch {r['epoch']}, "
+              f"{r['steps']} steps of {r['batch']} x {r['points']} in {r['sec']:.2f} s, "
+              f"{r['ms_per_step']:.2f} ms/step, {r['clouds_per_s']:.2f} clouds/s, busy "
+              f"{r['profile']['device_ms'] / r['ms_per_step']:.3f} (a profiled step's device "
+              f"{r['profile']['device_ms']:.2f} ms over the epoch's ms/step; that step's own "
+              f"wall {r['profile']['wall_ms']:.2f} ms); whole call {r['cli']['run_s']:.2f} s, peak "
+              f"{r['cli']['peak_gb']:.2f} GB; loss {r['loss']:.6g}, {what} {r['score']:.4f}",
+              flush=True)
+    phase("resume", t0, f"launches {rs['launches']}; " + "; ".join(
+        f"{key}: parity: {r['parity']}; {r['adam']}" for key, r in rs["runs"].items()))
+    for name, rows in rs["kernels"].items():
+        report[name]["resume"] = rows
+
     paths = {"register": launches, "register_2048": launches_l, "register_bf16": launches_b,
              "train": tr["launches"], "evaluate": ev["launches"],
              "evaluate_reg_noise": rg["launches"], "evaluate_reg_icl_nuim": icl["launches"],
@@ -4842,7 +5147,7 @@ def main() -> int:
              **{f"train_{label}": v["train_launches"] for label, v in vs.items()},
              **{f"evaluate_{label}": v["evaluate"]["launches"] for label, v in vs.items()},
              "weak_scaling": ax["ws_launches"], "rpmnet": ax["launches"],
-             "roofline": rf["launches"], "trained": tp["launches"]}
+             "roofline": rf["launches"], "trained": tp["launches"], "resume": rs["launches"]}
     kernels = []
     for name, rep in report.items():
         kernels.append({
@@ -4864,7 +5169,7 @@ def main() -> int:
                                    "eval_5b", "eval_cube", "eval_icl", "train_bf16",
                                    "evaluate_cls", "train_seg", "map_sequence",
                                    "evaluate_methods", "variants", "aux", "roofline",
-                                   "trained")
+                                   "trained", "resume")
                if k in rep}})
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "roofline": rf}), flush=True)

@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import re
 import time
 
 import numpy as np
@@ -42,8 +41,7 @@ from ..parallel.mesh import (broadcast_object, mesh_group, rank_and_world, repli
 from ..registration import (consensus_match, gnc_pose, map_sequence, pair_errors,
                             register_pair, register_pair_from_matches)
 from ..registration.pipeline import split_method
-from ..weights import from_flax, from_flax_shapenet
-from .checkpoint import CheckpointManager, checkpoint_exists
+from .checkpoint import CheckpointManager, checkpoint_exists, flax_converter
 from .config import EvalConfig, ExperimentConfig, ModelConfig, apply_overrides
 from .meters import MeterClassification, MeterRegistration, MeterShapeNetIoU
 from .steps import TrainState, create_state, eval_step, init_params, train_step
@@ -368,22 +366,15 @@ def train_segmentation(config: ExperimentConfig, shapenet_config: ShapeNetConfig
     return {"state": state, "best": best}
 
 
-def _is_seg_tree(params: dict) -> bool:
-    """A ShapeNetPVCNN tree: SharedMLP_i, PVConv_i and the per-point
-    classifier Dense_0 at the top, none of the classifier head's
-    BatchNorm_i or Dense_1."""
-    return "Dense_0" in params and all(
-        re.fullmatch(r"SharedMLP_\d+|PVConv_\d+|Dense_0", name) for name in params)
-
-
 def load_trained_state(ckpt_dir: str, name: str = "common") -> tuple[dict, dict]:
     """A checkpoint for evaluation: (a dict whose 'model' is the state dict
     and 'step' the update count; the config snapshot of `<name>.meta.json`,
     {} when there is none). A port checkpoint is loaded as saved; an orbax
     directory of the reference is converted from its flax tree, head
-    included, by `weights.from_flax` (with the snapshot's
-    `with_transform_fine_tune`) or, for a segmentation tree,
-    `weights.from_flax_shapenet`."""
+    included, by `checkpoint.flax_converter` (`weights.from_flax` with the
+    snapshot's `with_transform_fine_tune`, or `weights.from_flax_shapenet`
+    for a segmentation tree), as `CheckpointManager.restore` converts it
+    to resume training."""
     ckpt = CheckpointManager(ckpt_dir)
     raw = ckpt.restore_raw(name)
     if raw is None:
@@ -393,12 +384,8 @@ def load_trained_state(ckpt_dir: str, name: str = "common") -> tuple[dict, dict]
     meta = ckpt.load_meta(name) or {}
     snapshot = meta.get("config", {})
     if "model" not in raw:
-        params, stats = raw["params"], raw.get("batch_stats") or {}
-        if _is_seg_tree(params):
-            state = from_flax_shapenet(params, stats)
-        else:
-            fine_tune = bool((snapshot.get("model") or {}).get("with_transform_fine_tune"))
-            state = from_flax(params, stats, fine_tune=fine_tune)
+        params = raw["params"]
+        state = flax_converter(params, raw.get("batch_stats") or {}, snapshot)(params)
         raw = {"model": state, "step": int(raw["step"])}
     return raw, snapshot
 

@@ -3,7 +3,9 @@
 one of `rift_tpu.models.ShapeNetPVCNN` into one of
 `rift_tpu_torch.models.ShapeNetPVCNN` (`from_flax_shapenet`). The PointNet
 models and PointNet++ modules name their submodules the same way, so
-`from_flax` maps their trees too.
+`from_flax` maps their trees too. `adam_from_flax` carries optax's Adam
+state of such a tree (its update count and its moments `mu`, `nu`) onto
+the parameter names of torch's `Adam`.
 
 The input is plain nested dicts of numpy arrays (restore the checkpoint
 wherever JAX lives and hand over the arrays); nothing here imports JAX.
@@ -37,6 +39,7 @@ does a fine-tune tree converted without `fine_tune` (its block lands in
 from __future__ import annotations
 
 import re
+from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
@@ -168,3 +171,62 @@ def from_flax_shapenet(params: dict, batch_stats: dict) -> dict[str, torch.Tenso
             raise ValueError(f"params: {name} has an SE3d or a coefficient, which "
                              f"ShapeNetPVCNN's blocks do not")
     return from_flax(params, batch_stats)
+
+
+def _optax_states(node, adam: list, counts: list) -> None:
+    """Collect, anywhere in an optax state tree (dicts, lists and named
+    tuples, as `read_orbax` or optax itself gives them), the Adam states
+    (keys count, mu, nu) and the schedules' states (a count alone)."""
+    if hasattr(node, "_asdict"):  # optax's own NamedTuple states
+        node = node._asdict()
+    if isinstance(node, dict):
+        if set(node) == {"count", "mu", "nu"}:
+            adam.append(node)
+        elif set(node) == {"count"}:
+            counts.append(int(np.asarray(node["count"])))
+        else:
+            for value in node.values():
+                _optax_states(value, adam, counts)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            _optax_states(value, adam, counts)
+
+
+def adam_from_flax(opt_state, step: int, convert: Callable[[dict], dict],
+                   params: Mapping[str, torch.Tensor]
+                   ) -> tuple[int, dict[str, tuple[torch.Tensor, torch.Tensor]]]:
+    """optax's Adam state -> torch's: the update count and, for each name of
+    `params` (the model's parameters), `(exp_avg, exp_avg_sq)`.
+
+    `opt_state` is the state of the reference's chain (`make_optimizer`:
+    `clip_by_global_norm` when clipping, `add_decayed_weights` when there
+    is weight decay, then `adam`, whose own chain ends in a schedule's
+    count when the rate is a schedule); the Adam state is found by its
+    keys wherever it sits. `convert` maps a tree shaped as the flax
+    parameters onto the model's state-dict names (`from_flax` or
+    `from_flax_shapenet` with the checkpoint's batch statistics): the
+    moments are elementwise, so the kernels' transposes apply to them
+    unchanged, and the entries of the BN statistics it adds are dropped.
+    Raises when the chain holds no Adam state or more than one, when a
+    schedule's count differs from Adam's or from `step`, and when a
+    parameter has no moment or one of another shape."""
+    adam, counts = [], []
+    _optax_states(opt_state, adam, counts)
+    if len(adam) != 1:
+        raise ValueError(f"opt_state: {len(adam)} Adam states (count, mu, nu), expected one")
+    count = int(np.asarray(adam[0]["count"]))
+    for other in counts:
+        if other != count or other != int(step):
+            raise ValueError(f"opt_state: a schedule's count {other} differs from Adam's "
+                             f"{count} or the step {int(step)}")
+    mu, nu = convert(adam[0]["mu"]), convert(adam[0]["nu"])
+    out = {}
+    for name, p in params.items():
+        for key, moments in (("mu", mu), ("nu", nu)):
+            if name not in moments:
+                raise KeyError(f"opt_state: {key} has no moment for the parameter {name}")
+            if tuple(moments[name].shape) != tuple(p.shape):
+                raise ValueError(f"opt_state: {key} of {name} is {tuple(moments[name].shape)}, "
+                                 f"the parameter {tuple(p.shape)}")
+        out[name] = (mu[name], nu[name])
+    return count, out

@@ -18,8 +18,7 @@ import torch
 import zstandard
 
 from rift_tpu.train.checkpoint import CheckpointManager as JaxCheckpoints
-from rift_tpu_torch.train import TrainState
-from rift_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_exists
+from rift_tpu_torch.train.checkpoint import CheckpointManager
 from rift_tpu_torch.train.loop import load_trained_state
 from rift_tpu_torch.train.ocdbt import OcdbtStore
 from rift_tpu_torch.train.orbax_read import OrbaxFormatError, read_orbax, read_zarr
@@ -249,13 +248,3 @@ def test_chip_smoke_trained_sha256_is_that_of_orbax_arrays():
     assert chip_smoke.state_sha256(ours["model"]) == chip_smoke.TRAINED_SHA256
     assert ours["step"] == int(raw["step"])
     assert chip_smoke.TRAINED_RUNS["flagship"][0] == "mn40_sph_pt_r4"
-
-
-def test_training_does_not_resume_from_an_orbax_checkpoint(tmp_path):
-    """An orbax `common` is found (for evaluation) but not resumed from."""
-    assert checkpoint_exists(os.path.dirname(FLAGSHIP), "common")
-    assert not checkpoint_exists(str(tmp_path), "common") and not os.listdir(tmp_path)
-    model = torch.nn.Linear(2, 2)
-    state = TrainState(model, torch.optim.Adam(model.parameters()), None)
-    with pytest.raises(NotImplementedError, match="does not resume"):
-        CheckpointManager(os.path.dirname(FLAGSHIP)).restore(state)

@@ -8,8 +8,10 @@ against the port's single-process step, against rift_tpu's
 `make_distributed_step` on the virtual 8-device mesh (the classifier's
 step, and the segmentation step of its `train_segmentation`), and against
 `mutual_nearest_neighbors`. The ranks also run `train_segmentation`
-together, held against its single-process run. A batch size the ranks do
-not divide trains each rank alone. In a second spawn the 4 ranks run the
+together, held against its single-process run, and resume `train` from
+the reference's tiny orbax `common` (checkpoints/common) for one epoch,
+held against one process's resume. A batch size the ranks do not divide
+trains each rank alone. In a second spawn the 4 ranks run the
 sequence's sharded solves (`optimize_pose_graph_sharded`,
 `bundle_adjust_sharded`) and `map_sequence` with the group, held within
 1e-3 of the single solves and of the single-process map."""
@@ -42,10 +44,11 @@ from rift_tpu_torch.data.shapenet import ShapeNet, ShapeNetConfig
 from rift_tpu_torch.models import ShapeNetPVCNN
 from rift_tpu_torch.ops.neighbors import mutual_nearest_neighbors
 from rift_tpu_torch.parallel import make_sharded_train_step, shard_batch, sharded_mutual_nn
-from rift_tpu_torch.train import build_model, make_distributed_step, train_segmentation
+from rift_tpu_torch.train import build_model, make_distributed_step, train, train_segmentation
 from rift_tpu_torch.train.steps import TrainState, forward_backward, make_optimizer, train_step
 from rift_tpu_torch.train.utils import get_logger
 from rift_tpu_torch.weights import from_flax, from_flax_shapenet
+from test_torch_resume import CKPT, _copy_common, _tiny_as_snapshot
 from test_torch_seg import _ref_seg_step, _reference_weights
 from test_torch_train import (BF16_FLOOR, BF16_LOSS_RTOL, BF16_RATIO, BF16_SLACK, BF16_ZERO_TOL,
                               GRAD_FLOOR, GRAD_RTOL, GRAD_ZERO_TOL, LOSS_RTOL, SETTLED_PARAM_TOL,
@@ -68,7 +71,7 @@ SEG_MODEL = dict(blocks=((16, 1, 8), (32, 1, None)), local_neighbors=16, with_lo
 # ratios up to 1.42 (the first PVConv's point-branch BatchNorm scale),
 # where the single step's distance is 2.1e-3 of the norm.
 SEG_GRAD_RATIO = 2.0
-SPAWN_TIMEOUT_S = 90  # the 4 ranks import torch, jax and the port, then take 9 steps
+SPAWN_TIMEOUT_S = 90  # the 4 ranks import torch, jax and the port, take 9 steps, resume 8
 DROPOUT_SEED = 7
 # The port's 4-rank step against its single-process step on the same
 # global batch: the same function, the global BatchNorm statistics
@@ -78,6 +81,11 @@ DROPOUT_SEED = 7
 DP_LOSS_RTOL = 1e-5      # measured 3.0e-6 (1.3e-5 on a loss of 4.24)
 DP_STATS_TOL = 2e-6      # of the largest running statistic; measured 9.0e-7
 DP_PARAM_TOL = 1e-6      # absolute, where the step's gradient is settled; measured 3.0e-7
+# After the 8 updates of a resumed tiny_smoke epoch, the running statistics
+# carry every step's difference: measured 2.2e-5 of the largest (the loss
+# 1.6e-7 relative, the median parameter element 0, the largest 0.20 of
+# the summed 2.1·lr rule).
+DP_EPOCH_STATS_TOL = 1e-4
 # Gradients against the f64 gradient of the same step: a parameter whose
 # f64 gradient has a norm of at least GRAD_FLOOR of the largest
 # (tests/test_torch_train.py) is held to it at least as closely as the
@@ -102,6 +110,16 @@ REF_LOSS_TOL, REF_STATS_RTOL, REF_STATS_ATOL = 1e-4, 1e-3, 1e-5
 # sharded ones by at most 1.75e-3: the rounding of the ill-conditioned
 # local branch (SEG_GRAD_RATIO's comment), not a difference of functions.
 REF_SEG_GRAD_RTOL = 2e-2
+
+
+def _resume_config(ckpt_dir: str):
+    """tiny_smoke with the model of checkpoints/common (the reference's
+    tiny_smoke), to resume it for its second epoch."""
+    cfg = _tiny_as_snapshot()
+    cfg.train.ckpt_dir = ckpt_dir
+    cfg.optim.num_epochs = 2
+    cfg.dataset.num_workers = 0
+    return cfg
 
 
 def _seg_config(ckpt_dir: str):
@@ -161,6 +179,10 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
         get_logger(seg_cfg.name).addHandler(handler)
         out["train_seg"] = train_segmentation(seg_cfg, resume=False, device="cpu")["best"]
         out["train_seg_said"] = said
+        resumed = train(_resume_config(os.path.join(workdir, "resume")), device="cpu")
+        out["resume"] = {"loss": resumed["loss"], "best": resumed["best"],
+                         "step": resumed["state"].step,
+                         "state": resumed["state"].model.state_dict()}
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -209,6 +231,7 @@ def dp_run(tmp_path_factory):
     jseg_params, jseg_stats = _reference_weights(jseg, seg_clouds, seed=jcfg.seed)
     seg_weights = from_flax_shapenet(jseg_params, jseg_stats)
     workdir = str(tmp_path_factory.mktemp("dp"))
+    _copy_common(CKPT, os.path.join(workdir, "resume"))
     torch.save({"weights": weights, "clouds": torch.from_numpy(clouds),
                 "labels": torch.from_numpy(labels), "feat1": torch.from_numpy(feat1),
                 "feat2": torch.from_numpy(feat2), "seg_weights": seg_weights,
@@ -485,6 +508,45 @@ def test_train_segmentation_on_the_ranks_is_data_parallel(dp_run, tmp_path):
         single = [json.loads(line) for line in f]
     assert abs(dp[0]["loss"] - single[0]["loss"]) <= DP_LOSS_RTOL * single[0]["loss"]
     assert abs(dp[0]["iou"] - best["iou"]) <= 1e-3
+
+
+def test_resume_from_orbax_on_the_ranks_matches_one_process(dp_run, tmp_path):
+    """The 4 ranks each restore checkpoints/common (step 8), rank 0's state
+    is replicated, and one data-parallel epoch (one cloud a rank) ends at
+    step 16 with every rank's state bit-equal; against one process's
+    resume of another copy: the epoch's loss within DP_LOSS_RTOL, the
+    validation accuracy equal, the running statistics within
+    DP_EPOCH_STATS_TOL of the largest, and the parameters within 2.1·Σ lr_t over the epoch's
+    updates (the one-step rule above, summed: an element whose update is
+    rounding may take Adam's ±lr either way at every step), the median
+    element within DP_PARAM_TOL.
+    Only rank 0 wrote `common.pt`; the orbax `common/` is still there."""
+    ranks = [r["resume"] for r in dp_run["ranks"]]
+    first = ranks[0]
+    assert all(r["step"] == 16 for r in ranks)
+    for other in ranks[1:]:
+        assert other["loss"] == first["loss"] and other["best"] == first["best"]
+        for k, v in first["state"].items():
+            assert torch.equal(other["state"][k], v), k
+    resumed = os.path.join(dp_run["workdir"], "resume")
+    assert {"common", "common.pt", "tiny_smoke.metrics.jsonl"} <= set(os.listdir(resumed))
+    cfg = _resume_config(_copy_common(CKPT, str(tmp_path / "single")))
+    single = train(cfg, device="cpu")
+    assert single["state"].step == 16
+    assert abs(first["loss"] - single["loss"]) <= DP_LOSS_RTOL * single["loss"]
+    assert first["best"] == single["best"]
+    want = single["state"].model.state_dict()
+    scale = max(float(v.abs().max()) for k, v in want.items() if "running" in k)
+    reach = 2.1 * sum(single["state"].schedule(t) for t in range(8, 16))
+    offs = []
+    for name, v in first["state"].items():
+        off = (v - want[name]).abs()
+        if "running" in name:
+            assert float(off.max()) <= DP_EPOCH_STATS_TOL * scale, name
+        else:
+            assert float(off.max()) <= reach, name
+            offs.append(off.flatten())
+    assert float(torch.cat(offs).median()) <= DP_PARAM_TOL
 
 
 def test_a_batch_the_ranks_do_not_divide_trains_each_rank_alone(dp_run):

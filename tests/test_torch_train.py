@@ -35,10 +35,10 @@ from rift_tpu_torch.nn.shared_mlp import SharedMLP
 from rift_tpu_torch.ops import spherical
 from rift_tpu_torch.train import (build_model, evaluate_classification, get_config,
                                   registration_probe, train)
-from rift_tpu_torch.train.checkpoint import CheckpointManager
+from rift_tpu_torch.train.checkpoint import CheckpointManager, set_adam_state
 from rift_tpu_torch.train.steps import (TrainState, clip_by_global_norm, forward_backward,
                                         make_optimizer, train_step)
-from rift_tpu_torch.weights import from_flax
+from rift_tpu_torch.weights import adam_from_flax, from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_META = os.path.join(ROOT, "checkpoints", "mn40_sph_pt_r4", "best_acc.meta.json")
@@ -249,19 +249,17 @@ def test_schedule_and_clip_match_optax(rng, max_norm):
 
 def _sync(state: TrainState, jstate, fine_tune: bool = False) -> None:
     """Load rift_tpu's TrainState (params, batch_stats, Adam moments, step)
-    into the port's (`fine_tune`: a model with the fine-tune block)."""
+    into the port's (`fine_tune`: a model with the fine-tune block), by the
+    port's own mapping of optax's Adam state (`weights.adam_from_flax`)."""
     stats = _np(jstate.batch_stats)
-    state.model.load_state_dict(from_flax(_np(jstate.params), stats, fine_tune=fine_tune))
-    adam = jstate.opt_state[1][0]
-    mu = from_flax(_np(adam.mu), stats, fine_tune=fine_tune)
-    nu = from_flax(_np(adam.nu), stats, fine_tune=fine_tune)
-    state.optimizer.state.clear()
-    count = int(adam.count)
-    for name, p in state.model.named_parameters():
-        if count:
-            state.optimizer.state[p] = {"step": torch.tensor(float(count)),
-                                        "exp_avg": mu[name].clone(),
-                                        "exp_avg_sq": nu[name].clone()}
+
+    def convert(tree):
+        return from_flax(tree, stats, fine_tune=fine_tune)
+
+    state.model.load_state_dict(convert(_np(jstate.params)))
+    params = dict(state.model.named_parameters())
+    count, moments = adam_from_flax(_np(jstate.opt_state), int(jstate.step), convert, params)
+    set_adam_state(state.optimizer, params, count, moments)
     state.step = int(jstate.step)
 
 
