@@ -20,3 +20,19 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def nvidia_smi() -> str | None:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (e.g.
+    'NVIDIA H100 80GB HBM3, 700.00 W'), or None where nvidia-smi is not
+    there or reports no card."""
+    import subprocess
+
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out[0].strip() if out else None

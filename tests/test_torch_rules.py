@@ -1,8 +1,9 @@
 """The port's ground rules: no JAX anywhere in rift_tpu_torch (its
 `parallel/` package and the imports inside functions included),
-chip_smoke.py, scatter_ab.py, scripts/weak_scaling_check.py or
-scripts/roofline_report_torch.py; h5py (not
-on the card's machine) only inside the three h5 readers; the host C++ of
+chip_smoke.py, scatter_ab.py, scripts/weak_scaling_check.py,
+scripts/roofline_report_torch.py or the top-level scripts (bench_torch.py,
+scripts/validate_flagship_torch.py, scripts/map_drift_torch.py); h5py (not on the card's machine) only
+inside the three h5 readers; the host C++ of
 grid subsampling built by g++ at its first call into the port's build
 directory, never at import and never under cpp/; entry points default to
 the card and raise without one; chip_smoke.py fails where there is no
@@ -26,7 +27,10 @@ def _port_files():
     pkg = os.path.join(ROOT, "rift_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scatter_ab.py"),
              os.path.join(ROOT, "scripts", "weak_scaling_check.py"),
-             os.path.join(ROOT, "scripts", "roofline_report_torch.py")]
+             os.path.join(ROOT, "scripts", "roofline_report_torch.py"),
+             os.path.join(ROOT, "bench_torch.py"),
+             os.path.join(ROOT, "scripts", "validate_flagship_torch.py"),
+             os.path.join(ROOT, "scripts", "map_drift_torch.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
