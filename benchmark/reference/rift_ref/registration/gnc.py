@@ -1,0 +1,230 @@
+"""GNC robust poses and the TEASER-style pipeline, twins of
+`rift_tpu/registration/gnc.py` (`gnc_pose` with `kind="tls"` on both
+schedules and with `kind="gm"`, `fgr_pose`, `compatibility_core`,
+`_rotation_gnc_tls`, `_masked_component_median`, `teaser_pose`), batched
+over pairs.
+
+`gnc_pose`, kind "tls": each iteration updates the TLS weights (Yang et
+al. 2020, eq. 14) from the residuals of the current transform, re-solves
+a weighted Kabsch, and grows μ by `gnc_factor`. With `early_exit` (the
+default) a pair stops at its fixed point — the first iteration whose
+weights repeat the previous ones — or after `max_iterations`; a stopped
+pair keeps its carry while the others go on, as the reference's vmapped
+`lax.while_loop` does, and the loop tests on the host whether any pair is
+still active, once an iteration. Without it, every pair runs
+`max_iterations` iterations with no exit test and nothing read on the
+host, as the reference's `lax.scan`; past a fixed point each iteration
+repeats it bit for bit, so the two schedules give the same result. Kind "gm"
+(FGR's graduated Geman-McClure, `fgr_pose`): `max_iterations` fixed
+iterations with w = (μc²/(μc² + r²))², μ from 64 down by `gnc_factor` to
+1; no early exit, so no host sync.
+
+`teaser_pose`: the degree core of the TIM compatibility graph, rotation
+GNC-TLS on translation-invariant measurements from the core's max-degree
+anchor, the median translation, then `gnc_pose` from that estimate on the
+kept set. Up to the polish it has fixed shapes and no host sync.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.neighbors import pairwise_sqdist
+from ..ops.precision import f32_geometry
+from .kabsch import rotation_from_h, weighted_kabsch
+
+Tensor = torch.Tensor
+
+
+def _residuals(transform: Tensor, src: Tensor, dst: Tensor) -> Tensor:
+    rot = transform[..., :3, :3]
+    t = transform[..., :3, 3]
+    moved = torch.matmul(src, rot.transpose(-1, -2)) + t[..., None, :]
+    return torch.linalg.vector_norm(moved - dst, dim=-1)
+
+
+def _tls_weights(transform, mu, src, dst, valid, c2):
+    return _tls(_residuals(transform, src, dst) ** 2, mu[..., None], c2) * valid
+
+
+def _tls(r2: Tensor, mu: Tensor, c2: float) -> Tensor:
+    """The TLS weight of each squared residual r2 [b, n] at μ [b, 1]."""
+    th1 = (mu + 1.0) / mu * c2
+    th2 = mu / (mu + 1.0) * c2
+    mid = torch.sqrt(c2 * mu * (mu + 1.0) / torch.clamp(r2, min=1e-20)) - mu
+    return torch.where(r2 >= th1, torch.zeros_like(r2),
+                       torch.where(r2 <= th2, torch.ones_like(r2), mid))
+
+
+def _mu0(r2_max: Tensor, c2: float) -> Tensor:
+    """TEASER's initial μ from the largest valid squared residual."""
+    return torch.clamp(c2 / torch.clamp(2.0 * r2_max - c2, min=1e-12), min=1e-6)
+
+
+def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
+             gnc_factor: float = 1.4, max_iterations: int = 100, kind: str = "tls",
+             early_exit: bool = True, init_transform: Tensor | None = None
+             ) -> tuple[Tensor, Tensor]:
+    """src/dst [b, n, 3] putative matches, valid [b, n] bool ->
+    (transform [b, 4, 4], final weights [b, n]). `kind` is "tls" or "gm".
+    `early_exit` selects TLS's schedule (the fixed-point exit, or
+    `max_iterations` iterations with no host read); "gm" ignores it.
+    `init_transform` [b, 4, 4] seeds the iteration (and, for TLS, μ's
+    start), by default the plain Kabsch on the valid set. Strict f32 is the
+    caller's to set (`ops/precision.py:f32_geometry`, as `register_batch`
+    does)."""
+    if kind not in ("tls", "gm"):
+        raise ValueError(f"unknown GNC kind {kind!r}")
+    c2 = noise_bound * noise_bound
+    valid = valid.to(src.dtype)
+    transform = weighted_kabsch(src, dst, valid) if init_transform is None else init_transform
+    if kind == "gm":
+        return _gm_loop(transform, src, dst, valid, c2, gnc_factor, max_iterations)
+    r2 = _residuals(transform, src, dst) ** 2
+    r2_max = torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1)
+    mu = _mu0(r2_max, c2)
+    if not early_exit:
+        w = valid
+        for _ in range(max_iterations):
+            w = _tls_weights(transform, mu, src, dst, valid, c2)
+            transform = weighted_kabsch(src, dst, w)
+            mu = mu * gnc_factor
+        return transform, w
+    w_prev = valid
+    it = 0
+    active = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+    while it < max_iterations and bool(active.any()):
+        w = _tls_weights(transform, mu, src, dst, valid, c2)
+        new_t = weighted_kabsch(src, dst, w)
+        done = (w == w_prev).all(-1) & (it > 0)
+        a = active[..., None]
+        transform = torch.where(a[..., None], new_t, transform)
+        w_prev = torch.where(a, w, w_prev)
+        mu = torch.where(active, mu * gnc_factor, mu)
+        active = active & ~done
+        it += 1
+    return transform, w_prev
+
+
+def _gm_loop(transform: Tensor, src: Tensor, dst: Tensor, valid: Tensor, c2: float,
+             gnc_factor: float, iterations: int) -> tuple[Tensor, Tensor]:
+    """Graduated Geman-McClure: `iterations` fixed iterations from μ = 64,
+    μ ← max(μ/gnc_factor, 1) in f32 after each; returns the last transform
+    and the weights it was solved from."""
+    mu = torch.full((), 64.0, dtype=src.dtype, device=src.device)
+    w = valid
+    for _ in range(iterations):
+        r2 = _residuals(transform, src, dst) ** 2
+        w = (mu * c2 / (mu * c2 + r2)) ** 2 * valid
+        transform = weighted_kabsch(src, dst, w)
+        mu = torch.clamp(mu / gnc_factor, min=1.0)
+    return transform, w
+
+
+def fgr_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.04,
+             max_iterations: int = 64) -> tuple[Tensor, Tensor]:
+    """FGR-style pose: `gnc_pose(kind="gm")`."""
+    return gnc_pose(src, dst, valid, noise_bound=noise_bound, max_iterations=max_iterations,
+                    kind="gm")
+
+
+def compatibility_core(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,
+                       rounds: int = 4, min_keep: int = 8) -> tuple[Tensor, Tensor]:
+    """Degree core of the TIM compatibility graph: src/dst [b, n, 3]
+    matched points, valid [b, n] -> (keep bool [b, n], degree [b, n]
+    within the kept set).
+
+    Matches i and j are compatible when |‖s_i − s_j‖ − ‖d_i − d_j‖| ≤
+    2·noise_bound (both valid, i ≠ j); distances from the
+    ‖x‖² + ‖y‖² − 2·x·yᵀ expansion, an f32 matmul (strict under
+    `f32_geometry`). Each of `rounds` rounds keeps the vertices whose
+    degree among the kept ones is at least half the largest, unless fewer
+    than `min_keep` would remain (then the previous set stays)."""
+    def pdist(x):
+        return torch.sqrt(pairwise_sqdist(x, x))
+
+    n = src.shape[-2]
+    eye = torch.eye(n, dtype=torch.bool, device=src.device)
+    compat = ((pdist(src) - pdist(dst)).abs() <= 2.0 * noise_bound) & ~eye
+    compat = compat & valid[..., :, None] & valid[..., None, :]
+    compat_f = compat.to(src.dtype)
+
+    def degree(keep):
+        return torch.matmul(compat_f, keep[..., None])[..., 0] * keep
+
+    keep = valid.to(src.dtype)
+    for _ in range(rounds):
+        deg = degree(keep)
+        thr = 0.5 * deg.amax(-1, keepdim=True)
+        new = keep * (deg >= thr).to(src.dtype)
+        ok = new.sum(-1, keepdim=True) >= min_keep
+        keep = torch.where(ok, new, keep)
+    return keep > 0.5, degree(keep)
+
+
+def _rotation_gnc_tls(v: Tensor, w: Tensor, valid: Tensor, noise_bound: float,
+                      gnc_factor: float = 1.4, iterations: int = 40) -> Tensor:
+    """Rotation-only GNC-TLS on translation-invariant measurements: v/w
+    [b, n, 3] with w ≈ R·v, valid [b, n] -> R [b, 3, 3]. Procrustes
+    without centring, `iterations` fixed iterations (no early exit)."""
+    c2 = noise_bound * noise_bound
+    valid = valid.to(v.dtype)
+
+    def solve(wt):
+        h = torch.matmul((v * wt[..., None]).transpose(-1, -2), w)  # Σ wt·v⊗w
+        return rotation_from_h(h.transpose(-1, -2))
+
+    rot = solve(valid)
+    res0 = torch.linalg.vector_norm(torch.matmul(v, rot.transpose(-1, -2)) - w, dim=-1)
+    r2max = torch.where(valid > 0, res0 ** 2, torch.zeros_like(res0)).amax(-1, keepdim=True)
+    mu = _mu0(r2max, c2)
+    for _ in range(iterations):
+        r2 = ((torch.matmul(v, rot.transpose(-1, -2)) - w) ** 2).sum(-1)
+        rot = solve(_tls(r2, mu, c2) * valid)
+        mu = mu * gnc_factor
+    return rot
+
+
+def _masked_component_median(x: Tensor, valid: Tensor) -> Tensor:
+    """Component-wise lower median over the valid rows: x [b, n, c], valid
+    [b, n] -> [b, c] (+inf when no row is valid)."""
+    big = torch.where(valid[..., None], x, torch.full_like(x, float("inf")))
+    srt = torch.sort(big, dim=-2).values
+    mid = torch.clamp(valid.sum(-1) - 1, min=0) // 2  # [b]
+    return torch.gather(srt, -2, mid[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+
+
+def _tim_pose(src: Tensor, dst: Tensor, keep: Tensor, deg: Tensor,
+              noise_bound: float) -> Tensor:
+    """TEASER's estimate from the degree core: the max-degree match as the
+    anchor (the first on ties), rotation GNC-TLS on the TIMs
+    v_i = s_i − s_a, w_i = d_i − d_a of the other kept matches, then the
+    median translation over the kept set -> transform [b, 4, 4]."""
+    a = torch.argmax(deg, dim=-1)  # [b]
+    anchor = a[:, None, None].expand(-1, 1, 3)
+    v = src - torch.gather(src, 1, anchor)
+    w = dst - torch.gather(dst, 1, anchor)
+    arange = torch.arange(src.shape[1], device=src.device)
+    tim_valid = keep & (arange[None, :] != a[:, None])
+    # A TIM is the difference of two noisy points: its bound is twice.
+    rot = _rotation_gnc_tls(v, w, tim_valid, 2.0 * noise_bound)
+    t = _masked_component_median(dst - torch.matmul(src, rot.transpose(-1, -2)), keep)
+    init = torch.zeros(src.shape[:1] + (4, 4), dtype=src.dtype, device=src.device)
+    init[:, :3, :3] = rot
+    init[:, :3, 3] = t
+    init[:, 3, 3] = 1.0
+    return init
+
+
+@f32_geometry()
+def teaser_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
+                prune_rounds: int = 4, polish: bool = True) -> tuple[Tensor, Tensor]:
+    """TEASER-style pose: `compatibility_core` -> `_tim_pose` -> GNC-TLS
+    polish (`gnc_pose` from that estimate on the kept set). src/dst
+    [b, n, 3], valid [b, n] -> (transform [b, 4, 4], weights [b, n]).
+    Without `polish`, the weights are the kept matches within
+    `noise_bound` of the TIM estimate."""
+    keep, deg = compatibility_core(src, dst, valid, noise_bound, rounds=prune_rounds)
+    init = _tim_pose(src, dst, keep, deg, noise_bound)
+    if polish:
+        return gnc_pose(src, dst, keep, noise_bound=noise_bound, init_transform=init)
+    return init, (keep & (_residuals(init, src, dst) <= noise_bound)).to(src.dtype)
