@@ -1,0 +1,20 @@
+"""cuda_mallocs.register: the program's counter `cuda.mallocs` a call, the
+caching allocator's new device allocations (cudaMalloc) inside the program's
+top-level spans, as the program's recorder (`rift_tpu_torch/tracing.py`)
+counts it in the traced window, divided by the window's calls. A counter
+never added to reads 0 where the window recorded the program's spans; None
+without a trace, or where the program has no recorder or recorded nothing."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.calls == 0:
+        return None
+    try:
+        from rift_tpu_torch import tracing
+    except ImportError:  # a program without the recorder
+        return None
+    snap = tracing.snapshot()
+    if not snap["spans"]:  # nothing recorded in the window
+        return None
+    return snap["counters"].get("cuda.mallocs", 0) / t.calls

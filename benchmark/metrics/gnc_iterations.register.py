@@ -1,0 +1,21 @@
+"""gnc_iterations.register: the program's counter `gnc.iterations` a call:
+GNC-TLS's iterations (`gnc_pose`'s loop trips: its fixed 100, or those run
+to the early exit, TEASER's polish included), as the program's recorder
+(`rift_tpu_torch/tracing.py`) counts them in the traced window, divided by
+the window's calls. A counter never added to reads 0 where the window
+recorded the program's spans; None without a trace, or where the program
+has no recorder or recorded nothing."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.calls == 0:
+        return None
+    try:
+        from rift_tpu_torch import tracing
+    except ImportError:  # a program without the recorder
+        return None
+    snap = tracing.snapshot()
+    if not snap["spans"]:  # nothing recorded in the window
+        return None
+    return snap["counters"].get("gnc.iterations", 0) / t.calls

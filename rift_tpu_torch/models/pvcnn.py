@@ -59,6 +59,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from .. import tracing
 from ..nn.batch_norm import BatchNorm
 from ..nn.dropout import train_dropout
 from ..nn.pvconv import PVConv
@@ -259,28 +260,29 @@ class PVCNNClassifier(nn.Module):
                        normals: torch.Tensor | None) -> torch.Tensor:
         """The local branch on the raw centred `coords` [b, n, 3] (and
         `normals`, which 'ppf' and 'fpfh' need) -> [b, n, fuse]."""
-        kind = self.with_local_feat
-        mlp = self.layers[self._local]
-        if kind == "change_coords":
-            idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
-            return mlp(local_lrf(grouping(coords, idx))).amax(-2)
-        if normals is None:
-            raise ValueError(f"{kind!r} local features need normals: inputs [b, n, 6]")
-        if kind == "fpfh":
-            return mlp(fpfh(coords, normals, radius=self.local_radius))
-        with_normals = torch.cat([coords, normals], -1)
-        if self.training:
-            # The reference's training composition: empty slots repeat the
-            # first neighbour, so BatchNorm sees the duplicated rows and the
-            # max runs over every slot.
-            idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
-            nbr = grouping(with_normals, idx)
-            return mlp(local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals)).amax(-2)
-        nbr, slot_ok = ball_query_group(coords, coords, with_normals, self.local_radius,
-                                        self.local_neighbors)
-        fused = mlp(local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals))
-        fill = float("-inf") if fused.dtype == torch.float32 else torch.finfo(fused.dtype).min
-        return fused.masked_fill(~slot_ok[..., None], fill).amax(-2)
+        with tracing.span("pvcnn.local", coords.device):
+            kind = self.with_local_feat
+            mlp = self.layers[self._local]
+            if kind == "change_coords":
+                idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
+                return mlp(local_lrf(grouping(coords, idx))).amax(-2)
+            if normals is None:
+                raise ValueError(f"{kind!r} local features need normals: inputs [b, n, 6]")
+            if kind == "fpfh":
+                return mlp(fpfh(coords, normals, radius=self.local_radius))
+            with_normals = torch.cat([coords, normals], -1)
+            if self.training:
+                # The reference's training composition: empty slots repeat the
+                # first neighbour, so BatchNorm sees the duplicated rows and the
+                # max runs over every slot.
+                idx = ball_query(coords, coords, self.local_radius, self.local_neighbors)
+                nbr = grouping(with_normals, idx)
+                return mlp(local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals)).amax(-2)
+            nbr, slot_ok = ball_query_group(coords, coords, with_normals, self.local_radius,
+                                            self.local_neighbors)
+            fused = mlp(local_ppf(nbr[..., :3], nbr[..., 3:], coords, normals))
+            fill = float("-inf") if fused.dtype == torch.float32 else torch.finfo(fused.dtype).min
+            return fused.masked_fill(~slot_ok[..., None], fill).amax(-2)
 
 
 def global_lrf_basis(coords: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .eig3 import eigh_sym3
 
 Tensor = torch.Tensor
@@ -74,6 +75,7 @@ def pca_lrf(coords: Tensor) -> Tensor:
     """
     centered = coords - coords.mean(-2, keepdim=True)
     cov = torch.matmul(centered.transpose(-1, -2), centered) / centered.shape[-2]
+    tracing.count("host.syncs")                # eigh reads its error codes on the host
     _, vecs = torch.linalg.eigh(cov)           # ascending eigenvalues
     vecs = vecs.flip(-1)                       # columns, descending
     proj = torch.matmul(centered, vecs)

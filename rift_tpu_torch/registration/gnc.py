@@ -11,7 +11,8 @@ default) a pair stops at its fixed point — the first iteration whose
 weights repeat the previous ones — or after `max_iterations`; a stopped
 pair keeps its carry while the others go on, as the reference's vmapped
 `lax.while_loop` does, and the loop tests on the host whether any pair is
-still active, once an iteration. Without it, every pair runs
+still active, once an iteration (the `tracing` counter `host.syncs`; the
+iterations run are `gnc.iterations`). Without it, every pair runs
 `max_iterations` iterations with no exit test and nothing read on the
 host, as the reference's `lax.scan`; past a fixed point each iteration
 repeats it bit for bit, so the two schedules give the same result. Kind "gm"
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.neighbors import pairwise_sqdist
 from ..ops.precision import f32_geometry
 from .kabsch import rotation_from_h, weighted_kabsch
@@ -88,11 +90,15 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
             w = _tls_weights(transform, mu, src, dst, valid, c2)
             transform = weighted_kabsch(src, dst, w)
             mu = mu * gnc_factor
+        tracing.count("gnc.iterations", max_iterations)
         return transform, w
     w_prev = valid
     it = 0
     active = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
-    while it < max_iterations and bool(active.any()):
+    while it < max_iterations:
+        tracing.count("host.syncs")
+        if not bool(active.any()):
+            break
         w = _tls_weights(transform, mu, src, dst, valid, c2)
         new_t = weighted_kabsch(src, dst, w)
         done = (w == w_prev).all(-1) & (it > 0)
@@ -102,6 +108,7 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
         mu = torch.where(active, mu * gnc_factor, mu)
         active = active & ~done
         it += 1
+    tracing.count("gnc.iterations", it)
     return transform, w_prev
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops.neighbors import gather_rows, mutual_nearest_neighbors
 from ..ops.normals import estimate_normals
@@ -60,22 +61,25 @@ def register_pair_from_matches(pts1: Tensor, pts2: Tensor, idx1: Tensor, idx2: T
     mapping pts1 onto pts2, inlier mask [b, k]; all ones for 'icp', which
     ignores the matches)."""
     base, refine = split_method(method)
-    if base == "icp":
-        return icp_pose(pts1, pts2), torch.ones_like(mask, dtype=torch.bool)
-    src, dst = gather_rows(pts1, idx1), gather_rows(pts2, idx2)
-    if base == "teaserpp":
-        transform, w = teaser_pose(src, dst, mask, noise_bound=noise_bound)
-        inliers = w > 0.5
-    elif base == "fgr":
-        transform, w = fgr_pose(src, dst, mask, noise_bound=2 * noise_bound)
-        inliers = w > 0.5
-    else:
-        if generator is None:
-            generator = torch.Generator(device=src.device).manual_seed(0)
-        transform, inliers = ransac_pose(src, dst, mask, generator, num_hypotheses=num_hypotheses,
-                                         inlier_threshold=inlier_threshold,
-                                         irls_iterations=irls_iterations, irls_shrink=irls_shrink)
-    return refine_pose(pts1, pts2, transform, refine, noise_bound), inliers
+    with tracing.span("register.pose", pts1.device):
+        if base == "icp":
+            return icp_pose(pts1, pts2), torch.ones_like(mask, dtype=torch.bool)
+        src, dst = gather_rows(pts1, idx1), gather_rows(pts2, idx2)
+        if base == "teaserpp":
+            transform, w = teaser_pose(src, dst, mask, noise_bound=noise_bound)
+            inliers = w > 0.5
+        elif base == "fgr":
+            transform, w = fgr_pose(src, dst, mask, noise_bound=2 * noise_bound)
+            inliers = w > 0.5
+        else:
+            if generator is None:
+                generator = torch.Generator(device=src.device).manual_seed(0)
+            transform, inliers = ransac_pose(src, dst, mask, generator,
+                                             num_hypotheses=num_hypotheses,
+                                             inlier_threshold=inlier_threshold,
+                                             irls_iterations=irls_iterations,
+                                             irls_shrink=irls_shrink)
+        return refine_pose(pts1, pts2, transform, refine, noise_bound), inliers
 
 
 def refine_pose(pts1: Tensor, pts2: Tensor, transform: Tensor, refiner: str | None,
@@ -109,7 +113,8 @@ def register_pair(pts1: Tensor, pts2: Tensor, feat1: Tensor, feat2: Tensor,
         with f32_geometry():
             return icp_pose(pts1, pts2), torch.ones(pts1.shape[:2], dtype=torch.bool,
                                                     device=pts1.device)
-    idx1, idx2, mask = mutual_nearest_neighbors(feat1, feat2)
+    with tracing.span("register.match", feat1.device):
+        idx1, idx2, mask = mutual_nearest_neighbors(feat1, feat2)
     return register_pair_from_matches(pts1, pts2, idx1.expand(idx2.shape), idx2, mask,
                                       method, noise_bound, inlier_threshold, num_hypotheses,
                                       irls_iterations, irls_shrink, generator)
@@ -139,11 +144,14 @@ def register_batch(model: torch.nn.Module, src, dst, device=None,
     dst = torch.as_tensor(dst, dtype=torch.float32, device=device)
     b = src.shape[0]
     with torch.no_grad(), f32_geometry():
-        clouds = torch.cat([src, dst], dim=0)  # both clouds in one forward
-        x = torch.cat([clouds, estimate_normals(clouds)], dim=-1)
-        feats = model(x)
-        _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
-        matched = torch.gather(dst, 1, idx2[..., None].expand(-1, -1, 3))
-        transform, _ = gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND,
-                                early_exit=early_exit)
+        with tracing.span("register.features", device):
+            clouds = torch.cat([src, dst], dim=0)  # both clouds in one forward
+            x = torch.cat([clouds, estimate_normals(clouds)], dim=-1)
+            feats = model(x)
+        with tracing.span("register.match", device):
+            _, idx2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+        with tracing.span("register.pose", device):
+            matched = torch.gather(dst, 1, idx2[..., None].expand(-1, -1, 3))
+            transform, _ = gnc_pose(src, matched, mask, noise_bound=NOISE_BOUND,
+                                    early_exit=early_exit)
     return transform

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..data import SyntheticPairs, get_pairs, get_sequence
 from ..data.modelnet40 import ModelNet40, get_datasets
 from ..data.shapenet import ShapeNetConfig, get_shapenet
@@ -471,17 +472,19 @@ def match_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor, evaluate:
     if model.head is not None:
         raise ValueError("registration needs a feature extractor (is_classify=False)")
     b, n = src.shape[:2]
+    flips = uses_flips(model, evaluate)
     with torch.no_grad(), f32_geometry():
-        clouds = torch.cat([src, dst], 0)
-        x = torch.cat([clouds, estimate_normals(clouds)], -1)
-        if not uses_flips(model, evaluate):
-            feats = model(x)
-            i1, i2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
-            return i1.expand(i2.shape), i2, mask
-        feats = flip_features(model, x, b)
-        f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
-        i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
-                                          tau=2.0 * evaluate.noise_bound)
+        with tracing.span("register.features", src.device):
+            clouds = torch.cat([src, dst], 0)
+            x = torch.cat([clouds, estimate_normals(clouds)], -1)
+            feats = flip_features(model, x, b) if flips else model(x)
+        with tracing.span("register.match", src.device):
+            if not flips:
+                i1, i2, mask = mutual_nearest_neighbors(feats[:b], feats[b:])
+                return i1.expand(i2.shape), i2, mask
+            f_src_h = feats[:4 * b].reshape(b, 4, n, -1)
+            i1, i2, mask, _ = consensus_match(src, dst, f_src_h, feats[4 * b:],
+                                              tau=2.0 * evaluate.noise_bound)
         return i1, i2, mask
 
 
@@ -520,8 +523,9 @@ def register_eval_batch(model: PVCNNClassifier, src: Tensor, dst: Tensor,
               num_hypotheses=evaluate.num_hypotheses, irls_iterations=evaluate.ransac_irls,
               irls_shrink=evaluate.ransac_irls_shrink, generator=generator)
     with torch.no_grad(), f32_geometry():
-        clouds = torch.cat([src, dst], 0)
-        feats = model(torch.cat([clouds, estimate_normals(clouds)], -1))
+        with tracing.span("register.features", src.device):
+            clouds = torch.cat([src, dst], 0)
+            feats = model(torch.cat([clouds, estimate_normals(clouds)], -1))
         return register_pair(src, dst, feats[:b], feats[b:], **kw)[0]
 
 

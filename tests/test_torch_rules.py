@@ -64,7 +64,7 @@ NEW_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ops
                "utils/__init__.py", "utils/pair_hash.py", "utils/visualize.py",
                "registration/metrics.py", "train/meters.py", "ops/neighbors.py",
                "ops/__init__.py", "train/roofline.py", "train/ocdbt.py", "train/orbax_read.py",
-               "train/checkpoint.py", "utils/zstd.py", "utils/host_build.py")
+               "train/checkpoint.py", "utils/zstd.py", "utils/host_build.py", "tracing.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
