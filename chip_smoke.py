@@ -4130,8 +4130,11 @@ def gnc_schedules(src, matched, mask, label: str) -> dict:
     """gnc_pose's two TLS schedules on the same matches: the fixed-length
     one (early_exit=False) must give poses and weights bit-equal to the
     default's and raise nothing under sync debug mode "error", as must its
-    CUDA graph, captured once. Each schedule is timed per call by CUDA
-    events (ROOFLINE_REPS), the graph's replay by dev_ms."""
+    CUDA graph, captured once. On the card gnc_pose itself runs the fixed
+    schedule as its own captured graph (gnc.py:_FixedGraph; its first
+    call here captures it), and runs it eagerly inside the capture below.
+    Each schedule is timed per call by CUDA events (ROOFLINE_REPS), the
+    graph's replay by dev_ms."""
     import torch
 
     from rift_tpu_torch.ops.precision import f32_geometry

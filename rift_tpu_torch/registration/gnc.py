@@ -20,12 +20,22 @@ repeats it bit for bit, so the two schedules give the same result. Kind "gm"
 iterations with w = (μc²/(μc² + r²))², μ from 64 down by `gnc_factor` to
 1; no early exit, so no host sync.
 
+On a CUDA device, with autograd off and outside another stream's capture,
+TLS's fixed schedule from the plain Kabsch replays a CUDA graph of its own
+body instead of launching its ~200 kernels an iteration from the host: the
+graph is captured at the first call of a shape (`_FixedGraph`) and kept in
+a cache of `GRAPHS_KEPT` (`tracing` counters `gnc.graph_captures` and
+`gnc.graph_replays`). The replay runs the same kernels in the same order,
+so its results are the eager loop's bit for bit.
+
 `teaser_pose`: the degree core of the TIM compatibility graph, rotation
 GNC-TLS on translation-invariant measurements from the core's max-degree
 anchor, the median translation, then `gnc_pose` from that estimate on the
 kept set. Up to the polish it has fixed shapes and no host sync.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -62,6 +72,106 @@ def _mu0(r2_max: Tensor, c2: float) -> Tensor:
     return torch.clamp(c2 / torch.clamp(2.0 * r2_max - c2, min=1e-12), min=1e-6)
 
 
+def _tls_mu0(transform: Tensor, src: Tensor, dst: Tensor, valid: Tensor, c2: float) -> Tensor:
+    """μ's start [b] from the residuals of the start transform."""
+    r2 = _residuals(transform, src, dst) ** 2
+    return _mu0(torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1), c2)
+
+
+def _tls_fixed(src: Tensor, dst: Tensor, valid: Tensor, c2: float, gnc_factor: float,
+               iterations: int, init_transform: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """TLS's fixed schedule: `iterations` iterations from `init_transform`
+    (by default the plain Kabsch on `valid`, [b, n] in src's dtype), with
+    no host read."""
+    transform = weighted_kabsch(src, dst, valid) if init_transform is None else init_transform
+    mu = _tls_mu0(transform, src, dst, valid, c2)
+    w = valid
+    for _ in range(iterations):
+        w = _tls_weights(transform, mu, src, dst, valid, c2)
+        transform = weighted_kabsch(src, dst, w)
+        mu = mu * gnc_factor
+    return transform, w
+
+
+GRAPHS_KEPT = 4  # captured fixed schedules kept; the least recently used goes first
+
+
+class _Bounded:
+    """A cache of at most `size` entries that drops the least recently used."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key, make):
+        """The entry of `key`, made by `make()` where there is none."""
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self.entries[key] = make()
+            if len(self.entries) > self.size:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        return entry
+
+
+_GRAPHS = _Bounded(GRAPHS_KEPT)
+
+
+def _replays(src: Tensor) -> bool:
+    """Whether the fixed schedule replays a captured graph: on a CUDA
+    device, with autograd off, and outside another capture (a caller that
+    captures `gnc_pose` in a graph of its own gets the eager loop)."""
+    return (src.is_cuda and not torch.is_grad_enabled()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _graph_key(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,
+               gnc_factor: float, iterations: int) -> tuple:
+    """What a captured fixed schedule is specific to: the device, the
+    shapes and dtypes, the schedule's numbers, and the TF32 matmul flag
+    (`f32_geometry` clears it; the captured matmuls follow it)."""
+    return (src.device, tuple(src.shape), tuple(dst.shape), tuple(valid.shape), src.dtype,
+            dst.dtype, float(noise_bound), float(gnc_factor), int(iterations),
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+class _FixedGraph:
+    """`_tls_fixed` from the plain Kabsch, captured as one CUDA graph on
+    static input buffers. The capture runs the schedule once eagerly on a
+    side stream (cuBLAS's handle and workspace for that stream, the
+    allocator's blocks), then captures it there; neither reads anything on
+    the host."""
+
+    def __init__(self, src: Tensor, dst: Tensor, valid: Tensor, c2: float, gnc_factor: float,
+                 iterations: int):
+        self.inputs = tuple(x.clone() for x in (src, dst, valid))
+        stream = torch.cuda.current_stream(src.device)
+        side = torch.cuda.Stream(src.device)
+        side.wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            _tls_fixed(*self.inputs, c2, gnc_factor, iterations)
+            # Not `torch.cuda.graph`: its entry empties the allocator's
+            # cache, which the next call would then refill by cudaMalloc.
+            self.graph.capture_begin()
+            try:
+                self.outputs = _tls_fixed(*self.inputs, c2, gnc_factor, iterations)
+            finally:
+                self.graph.capture_end()
+        stream.wait_stream(side)
+        tracing.count("gnc.graph_captures")
+
+    def __call__(self, src: Tensor, dst: Tensor, valid: Tensor) -> tuple[Tensor, Tensor]:
+        """Replay on these inputs: copies in, one graph launch, copies of
+        the outputs (the next replay overwrites the static ones)."""
+        for buf, x in zip(self.inputs, (src, dst, valid)):
+            buf.copy_(x)
+        self.graph.replay()
+        tracing.count("gnc.graph_replays")
+        return tuple(t.clone() for t in self.outputs)
+
+
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
              gnc_factor: float = 1.4, max_iterations: int = 100, kind: str = "tls",
              early_exit: bool = True, init_transform: Tensor | None = None
@@ -73,25 +183,26 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
     `init_transform` [b, 4, 4] seeds the iteration (and, for TLS, μ's
     start), by default the plain Kabsch on the valid set. Strict f32 is the
     caller's to set (`ops/precision.py:f32_geometry`, as `register_batch`
-    does)."""
+    does). The fixed schedule from the plain Kabsch replays a captured CUDA
+    graph where `_replays` allows (the module's docstring)."""
     if kind not in ("tls", "gm"):
         raise ValueError(f"unknown GNC kind {kind!r}")
     c2 = noise_bound * noise_bound
     valid = valid.to(src.dtype)
+    if kind == "tls" and not early_exit:
+        if init_transform is None and _replays(src):
+            key = _graph_key(src, dst, valid, noise_bound, gnc_factor, max_iterations)
+            graph = _GRAPHS.get(key, lambda: _FixedGraph(src, dst, valid, c2, gnc_factor,
+                                                         max_iterations))
+            out = graph(src, dst, valid)
+        else:
+            out = _tls_fixed(src, dst, valid, c2, gnc_factor, max_iterations, init_transform)
+        tracing.count("gnc.iterations", max_iterations)
+        return out
     transform = weighted_kabsch(src, dst, valid) if init_transform is None else init_transform
     if kind == "gm":
         return _gm_loop(transform, src, dst, valid, c2, gnc_factor, max_iterations)
-    r2 = _residuals(transform, src, dst) ** 2
-    r2_max = torch.where(valid > 0, r2, torch.zeros_like(r2)).amax(-1)
-    mu = _mu0(r2_max, c2)
-    if not early_exit:
-        w = valid
-        for _ in range(max_iterations):
-            w = _tls_weights(transform, mu, src, dst, valid, c2)
-            transform = weighted_kabsch(src, dst, w)
-            mu = mu * gnc_factor
-        tracing.count("gnc.iterations", max_iterations)
-        return transform, w
+    mu = _tls_mu0(transform, src, dst, valid, c2)
     w_prev = valid
     it = 0
     active = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)

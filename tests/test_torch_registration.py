@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from rift_tpu.data.registration_pairs import SyntheticPairs as JaxPairs
 from rift_tpu.models import PVCNNClassifier as JaxPVCNN
@@ -15,8 +16,10 @@ from rift_tpu.registration import gnc_pose as j_gnc
 from rift_tpu.registration.kabsch import rotation_from_h as j_rot_from_h
 from rift_tpu.registration.kabsch import weighted_kabsch as j_kabsch
 from rift_tpu.registration.metrics import pair_errors as j_pair_errors
+from rift_tpu_torch import tracing
 from rift_tpu_torch.data import SyntheticPairs
 from rift_tpu_torch.models import PVCNNClassifier
+from rift_tpu_torch.registration import gnc
 from rift_tpu_torch.registration import (gnc_pose, pair_errors, register_batch,
                                          rotation_from_h, weighted_kabsch)
 from rift_tpu_torch.weights import from_flax
@@ -133,6 +136,69 @@ def test_gnc_pose_fixed_schedule_reads_nothing_on_the_host(rng, monkeypatch):
     assert t.shape == (2, 4, 4)
     with pytest.raises(AssertionError, match="host"):
         gnc_pose(*args)
+
+
+OFF_GRAPH = {"cpu": {}, "grad": {}, "early_exit": {"early_exit": True}, "gm": {"kind": "gm"}}
+
+
+@pytest.mark.parametrize("case", OFF_GRAPH)
+def test_gnc_pose_off_the_graph_path_runs_the_eager_loop(rng, case):
+    """Where no captured graph may replay (the CPU, autograd on, the early
+    exit, kind "gm"), gnc_pose counts no graph capture or replay inside a
+    traced window, and gives the eager loop's result bit for bit (the
+    early exit's is the fixed schedule's)."""
+    src, dst, valid = map(torch.from_numpy, _matches(rng, 3, 128, 0.3))
+    kw = {"early_exit": False, **OFF_GRAPH[case]}
+    tracing.reset()
+    with torch.set_grad_enabled(case == "grad"), profile(activities=[ProfilerActivity.CPU]):
+        t, w = gnc_pose(src, dst, valid, **kw)
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    assert "gnc.graph_captures" not in counters and "gnc.graph_replays" not in counters
+    v, c2 = valid.to(src.dtype), 0.02 * 0.02
+    if case == "gm":
+        want = gnc._gm_loop(weighted_kabsch(src, dst, v), src, dst, v, c2, 1.4, 100)
+    else:
+        want = gnc._tls_fixed(src, dst, v, c2, 1.4, 100)
+        assert counters["gnc.iterations"] <= 100
+    assert torch.equal(t, want[0]) and torch.equal(w, want[1])
+
+
+def _graph_key(shape=(4, 64), dtype=torch.float32, noise_bound=0.02, gnc_factor=1.4,
+               iterations=100, tf32=False):
+    src = torch.zeros(shape + (3,), dtype=dtype)
+    valid = torch.zeros(shape, dtype=dtype)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        return gnc._graph_key(src, src, valid, noise_bound, gnc_factor, iterations)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("change", [{"shape": (8, 64)}, {"shape": (4, 128)},
+                                    {"dtype": torch.float64}, {"noise_bound": 0.04},
+                                    {"gnc_factor": 1.3}, {"iterations": 7}, {"tf32": True}],
+                         ids=["b", "n", "dtype", "noise_bound", "gnc_factor", "iterations",
+                              "tf32"])
+def test_graph_key_separates_what_a_capture_depends_on(change):
+    assert _graph_key() == _graph_key()
+    assert _graph_key(**change) != _graph_key()
+
+
+def test_graph_cache_keeps_its_bound_and_drops_the_least_recently_used():
+    assert gnc._GRAPHS.size == gnc.GRAPHS_KEPT == 4
+    cache, made = gnc._Bounded(gnc.GRAPHS_KEPT), []
+
+    def make(key):
+        return lambda: made.append(key) or f"graph {key}"
+
+    for key in range(6):
+        assert cache.get(key, make(key)) == f"graph {key}"
+    assert list(cache.entries) == [2, 3, 4, 5]
+    assert cache.get(2, make(2)) == "graph 2" and made == list(range(6))  # a hit makes nothing
+    cache.get(6, make(6))
+    assert list(cache.entries) == [4, 5, 2, 6]
 
 
 def test_register_batch_fixed_gnc_schedule_gives_the_same_transforms():

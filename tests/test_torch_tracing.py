@@ -2,10 +2,16 @@
 CPU: nothing recorded outside a profiler window; inside one, a
 `register_batch` on 2 pairs of 128 points records its three stages once
 each, the local branch under the features, GNC-TLS's iterations and host
-reads on both schedules, as `cpu_op` ranges with no device time; the PCA
-frame's host read; self time is total time less the children's;
-`train.profiling` is the same API."""
+reads on both schedules, as `cpu_op` ranges with no device time, and no
+GNC graph replayed; the PCA frame's host read; self time is total time
+less the children's; `train.profiling` is the same API. On a CUDA card
+(marker `card`; `python -m pytest --noconftest -m card
+tests/test_torch_tracing.py`), a traced fixed-schedule call replays
+GNC-TLS's captured graph once."""
+import importlib.util
+import os
 import time
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -78,6 +84,67 @@ def test_traced_register_batch_counts_gnc_iterations_and_host_reads(traced, sche
         assert 0 < iterations <= 100
         assert counters["host.syncs"] == iterations + (iterations < 100)
     assert "cuda.mallocs" not in counters  # read on CUDA devices alone
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_traced_register_batch_on_the_cpu_replays_no_graph(traced, schedule):
+    """GNC-TLS's captured graph replays on a CUDA device alone; the CPU runs
+    the eager loop on both schedules."""
+    counters = traced[schedule][0]["counters"]
+    assert "gnc.graph_replays" not in counters and "gnc.graph_captures" not in counters
+    assert counters["gnc.iterations"] == 100 or schedule == "exit"
+
+
+READER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "benchmark", "metrics", "gnc_replays.register.py")
+
+
+@pytest.mark.parametrize("calls, spans, counters, want", [
+    (4, True, {"gnc.graph_replays": 4, "gnc.iterations": 400}, 1.0),
+    (4, True, {"gnc.iterations": 224}, 0.0),  # the early exit: no replay
+    (4, False, {}, None),  # nothing recorded in the window
+    (None, True, {"gnc.graph_replays": 4}, None),  # no trace
+], ids=["replayed", "eager", "unrecorded", "untraced"])
+def test_gnc_replays_reader_reads_the_counter_a_call(monkeypatch, calls, spans, counters, want):
+    """The benchmark's reader of `gnc.graph_replays` (`gnc_replays.register`)
+    on a stand-in snapshot."""
+    spec = importlib.util.spec_from_file_location("gnc_replays_register", READER)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    snap = {"spans": {"register.pose": {}} if spans else {}, "counters": counters,
+            "launches": {}}
+    monkeypatch.setattr(tracing, "snapshot", lambda: snap)
+    run = SimpleNamespace(trace=None if calls is None else SimpleNamespace(calls=calls))
+    assert reader.read(run) == want
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+def test_traced_register_batch_on_the_card_replays_one_graph(batch, card):
+    """On the card the fixed schedule's first call captures its graph; a
+    traced call after it replays that graph once and captures nothing, and
+    still counts the schedule's 100 iterations."""
+    model, src, dst = batch
+    model = model.to(card)
+    src, dst = (torch.as_tensor(a, device=card) for a in (src, dst))
+    try:
+        register_batch(model, src, dst, device=card, early_exit=False)
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            register_batch(model, src, dst, device=card, early_exit=False)
+        counters = tracing.snapshot()["counters"]
+    finally:
+        model.to("cpu")
+        tracing.reset()
+    assert counters.get("gnc.graph_replays") == 1
+    assert counters.get("gnc.graph_captures", 0) == 0
+    assert counters["gnc.iterations"] == 100
 
 
 @pytest.mark.parametrize("schedule", SCHEDULES)
