@@ -23,6 +23,12 @@ bf16 (cuDNN's bf16 Conv3d forward and backward; TF32 concerns f32 alone,
 so the context leaves them as they are); its head, and so the logits and
 the cross-entropy, stay f32, as flax's `Dense` without a `dtype` promotes
 the bf16 features to its f32 kernel.
+
+Inside a profiler window (`tracing.py`) a step records three top-level
+spans on the batch's device: `train.forward` (the train-mode forward, the
+loss and the accuracy), `train.backward` (`zero_grad` and the backward)
+and `train.update` (the clip, the rate and the optimizer's step). They
+leave the arithmetic as it is.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import tracing
 from ..nn.batch_norm import BatchNorm
 from ..ops.precision import f32_geometry
 from .config import ExperimentConfig
@@ -130,11 +137,13 @@ def forward_backward(state: TrainState, clouds: torch.Tensor, labels: torch.Tens
     model = state.model
     model.train()
     with f32_geometry():
-        logits = model(clouds, generator=generator)
-        loss = cross_entropy(logits, labels)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-    acc = (logits.detach().argmax(-1) == labels).float().mean()
+        with tracing.span("train.forward", clouds.device):
+            logits = model(clouds, generator=generator)
+            loss = cross_entropy(logits, labels)
+            acc = (logits.detach().argmax(-1) == labels).float().mean()
+        with tracing.span("train.backward", clouds.device):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
     return loss.detach(), acc
 
 
@@ -142,11 +151,12 @@ def apply_update(state: TrainState) -> None:
     """The optimizer's update from the gradients in `.grad` (clipped first
     when `grad_clip` is set), at the rate of update `state.step`, which it
     then counts."""
-    if state.grad_clip:
-        clip_by_global_norm(state.model.parameters(), state.grad_clip)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedule(state.step)
-    state.optimizer.step()
+    with tracing.span("train.update", next(state.model.parameters()).device):
+        if state.grad_clip:
+            clip_by_global_norm(state.model.parameters(), state.grad_clip)
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(state.step)
+        state.optimizer.step()
     state.step += 1
 
 
