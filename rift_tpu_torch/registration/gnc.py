@@ -14,24 +14,42 @@ pair keeps its carry while the others go on, as the reference's vmapped
 still active, once an iteration (the `tracing` counter `host.syncs`; the
 iterations run are `gnc.iterations`). Without it, every pair runs
 `max_iterations` iterations with no exit test and nothing read on the
-host, as the reference's `lax.scan`; past a fixed point each iteration
-repeats it bit for bit, so the two schedules give the same result. Kind "gm"
+host, as the reference's `lax.scan`. Kind "gm"
 (FGR's graduated Geman-McClure, `fgr_pose`): `max_iterations` fixed
 iterations with w = (μc²/(μc² + r²))², μ from 64 down by `gnc_factor` to
 1; no early exit, so no host sync.
 
+Why the two TLS schedules agree: a pair stops at the first iteration whose
+weights repeat the previous ones, and the Kabsch from the same weights is
+the same transform. A weight strictly between 0 and 1 changes with μ, so a
+repeat holds where every weight is 0 or 1; as μ grows, th2 = μ/(μ+1)·c²
+rises and th1 = (μ+1)/μ·c² falls, so r² ≤ th2 and r² ≥ th1 stay so, and
+every later iteration repeats the fixed point bit for bit.
+
 On a CUDA device, with autograd off and outside another stream's capture,
-TLS's fixed schedule from the plain Kabsch replays a CUDA graph of its own
-body instead of launching its ~200 kernels an iteration from the host: the
-graph is captured at the first call of a shape (`_FixedGraph`) and kept in
-a cache of `GRAPHS_KEPT` (`tracing` counters `gnc.graph_captures` and
-`gnc.graph_replays`). The replay runs the same kernels in the same order,
-so its results are the eager loop's bit for bit.
+a fixed schedule replays a CUDA graph of its own body instead of launching
+its ~100-200 kernels an iteration from the host. `_Graph` captures a
+function over static copies of its input tensors: a warm-up, then
+`capture_begin`/`capture_end`, both on one side stream per device and in
+the graph's own memory pool, so the warm-up's blocks are the capture's and
+leave nothing behind in the allocator's cache. A call copies the inputs in,
+replays once and returns copies of the outputs. The graphs are kept in a
+cache of `GRAPHS_KEPT` by `_graph_key`: the function, the inputs' devices,
+shapes and dtypes, the schedule's numbers and the TF32 flag. A replay runs
+the same kernels in the same order, so its results are the eager code's
+bit for bit. Two functions are captured: TLS's fixed schedule from the
+plain Kabsch (`gnc_pose(early_exit=False)`), and `teaser_pose` whole. The
+`tracing` counters: `gnc.graph_captures` a capture, `gnc.graph_replays` a
+replay, and the replay's iterations in `gnc.iterations`.
 
 `teaser_pose`: the degree core of the TIM compatibility graph, rotation
 GNC-TLS on translation-invariant measurements from the core's max-degree
-anchor, the median translation, then `gnc_pose` from that estimate on the
-kept set. Up to the polish it has fixed shapes and no host sync.
+anchor, the median translation, then the GNC-TLS polish from that estimate
+on the kept set, on TLS's fixed schedule (`POLISH_ITERATIONS`), which ends
+where the reference's early exit stops (above). The whole pose has fixed
+shapes and reads nothing on the host: one graph a shape where a graph can
+replay, the same code eagerly elsewhere (the CPU, autograd, a caller's own
+capture).
 """
 from __future__ import annotations
 
@@ -93,7 +111,7 @@ def _tls_fixed(src: Tensor, dst: Tensor, valid: Tensor, c2: float, gnc_factor: f
     return transform, w
 
 
-GRAPHS_KEPT = 4  # captured fixed schedules kept; the least recently used goes first
+GRAPHS_KEPT = 4  # captured graphs kept; the least recently used goes first
 
 
 class _Bounded:
@@ -119,57 +137,72 @@ _GRAPHS = _Bounded(GRAPHS_KEPT)
 
 
 def _replays(src: Tensor) -> bool:
-    """Whether the fixed schedule replays a captured graph: on a CUDA
+    """Whether a fixed-shape body replays a captured graph: on a CUDA
     device, with autograd off, and outside another capture (a caller that
-    captures `gnc_pose` in a graph of its own gets the eager loop)."""
+    captures `gnc_pose` or `teaser_pose` in a graph of its own gets the
+    eager code)."""
     return (src.is_cuda and not torch.is_grad_enabled()
             and not torch.cuda.is_current_stream_capturing())
 
 
-def _graph_key(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,
-               gnc_factor: float, iterations: int) -> tuple:
-    """What a captured fixed schedule is specific to: the device, the
-    shapes and dtypes, the schedule's numbers, and the TF32 matmul flag
-    (`f32_geometry` clears it; the captured matmuls follow it)."""
-    return (src.device, tuple(src.shape), tuple(dst.shape), tuple(valid.shape), src.dtype,
-            dst.dtype, float(noise_bound), float(gnc_factor), int(iterations),
+def _graph_key(fn, inputs: tuple, *numbers) -> tuple:
+    """What a capture of `fn(*inputs, *numbers)` is specific to: the
+    function, each input's device, shape and dtype, the numbers, and the
+    TF32 matmul flag (`f32_geometry` clears it; the captured matmuls follow
+    it)."""
+    return (fn, *((x.device, tuple(x.shape), x.dtype) for x in inputs), *numbers,
             torch.backends.cuda.matmul.allow_tf32)
 
 
-class _FixedGraph:
-    """`_tls_fixed` from the plain Kabsch, captured as one CUDA graph on
-    static input buffers. The capture runs the schedule once eagerly on a
-    side stream (cuBLAS's handle and workspace for that stream, the
-    allocator's blocks), then captures it there; neither reads anything on
-    the host."""
+_SIDE_STREAMS: dict = {}  # device -> the stream every capture on it runs on
 
-    def __init__(self, src: Tensor, dst: Tensor, valid: Tensor, c2: float, gnc_factor: float,
-                 iterations: int):
-        self.inputs = tuple(x.clone() for x in (src, dst, valid))
-        stream = torch.cuda.current_stream(src.device)
-        side = torch.cuda.Stream(src.device)
+
+class _Graph:
+    """`fn(*inputs, *numbers)` captured as one CUDA graph on static copies
+    of the input tensors. `fn` reads nothing on the host and returns a
+    tuple of tensors. The capture runs `fn` once eagerly (cuBLAS's handle
+    and workspace for the stream), then captures it; both on the device's
+    side stream and in the graph's pool, so the capture reuses the
+    warm-up's blocks and nothing is left cached on the side stream."""
+
+    def __init__(self, fn, inputs: tuple, numbers: tuple):
+        self.inputs = tuple(x.clone() for x in inputs)
+        device = self.inputs[0].device
+        stream = torch.cuda.current_stream(device)
+        side = _SIDE_STREAMS.get(device)
+        if side is None:
+            side = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
         side.wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            _tls_fixed(*self.inputs, c2, gnc_factor, iterations)
+        with torch.cuda.stream(side):  # also the current device
+            self.pool = torch.cuda.MemPool()
+            with torch.cuda.use_mem_pool(self.pool):
+                fn(*self.inputs, *numbers)
             # Not `torch.cuda.graph`: its entry empties the allocator's
             # cache, which the next call would then refill by cudaMalloc.
-            self.graph.capture_begin()
+            self.graph.capture_begin(pool=self.pool.id)
             try:
-                self.outputs = _tls_fixed(*self.inputs, c2, gnc_factor, iterations)
+                self.outputs = fn(*self.inputs, *numbers)
             finally:
                 self.graph.capture_end()
         stream.wait_stream(side)
         tracing.count("gnc.graph_captures")
 
-    def __call__(self, src: Tensor, dst: Tensor, valid: Tensor) -> tuple[Tensor, Tensor]:
+    def __call__(self, *inputs: Tensor) -> tuple:
         """Replay on these inputs: copies in, one graph launch, copies of
         the outputs (the next replay overwrites the static ones)."""
-        for buf, x in zip(self.inputs, (src, dst, valid)):
+        for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
         self.graph.replay()
         tracing.count("gnc.graph_replays")
         return tuple(t.clone() for t in self.outputs)
+
+
+def _replayed(fn, inputs: tuple, *numbers) -> tuple:
+    """`fn(*inputs, *numbers)` by one replay of its graph, captured at the
+    first call of its `_graph_key`."""
+    key = _graph_key(fn, inputs, *numbers)
+    return _GRAPHS.get(key, lambda: _Graph(fn, inputs, numbers))(*inputs)
 
 
 def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
@@ -191,10 +224,7 @@ def gnc_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
     valid = valid.to(src.dtype)
     if kind == "tls" and not early_exit:
         if init_transform is None and _replays(src):
-            key = _graph_key(src, dst, valid, noise_bound, gnc_factor, max_iterations)
-            graph = _GRAPHS.get(key, lambda: _FixedGraph(src, dst, valid, c2, gnc_factor,
-                                                         max_iterations))
-            out = graph(src, dst, valid)
+            out = _replayed(_tls_fixed, (src, dst, valid), c2, gnc_factor, max_iterations)
         else:
             out = _tls_fixed(src, dst, valid, c2, gnc_factor, max_iterations, init_transform)
         tracing.count("gnc.iterations", max_iterations)
@@ -333,16 +363,38 @@ def _tim_pose(src: Tensor, dst: Tensor, keep: Tensor, deg: Tensor,
     return init
 
 
+# The polish's schedule: the reference polish's gnc_factor and
+# max_iterations (`gnc_pose`'s defaults).
+POLISH_FACTOR = 1.4
+POLISH_ITERATIONS = 100
+
+
+def _teaser_fixed(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float,
+                  prune_rounds: int) -> tuple[Tensor, Tensor]:
+    """The polished `teaser_pose`: fixed shapes and no host read, so it is
+    captured whole."""
+    keep, deg = compatibility_core(src, dst, valid, noise_bound, rounds=prune_rounds)
+    init = _tim_pose(src, dst, keep, deg, noise_bound)
+    return _tls_fixed(src, dst, keep.to(src.dtype), noise_bound * noise_bound, POLISH_FACTOR,
+                      POLISH_ITERATIONS, init)
+
+
 @f32_geometry()
 def teaser_pose(src: Tensor, dst: Tensor, valid: Tensor, noise_bound: float = 0.02,
                 prune_rounds: int = 4, polish: bool = True) -> tuple[Tensor, Tensor]:
     """TEASER-style pose: `compatibility_core` -> `_tim_pose` -> GNC-TLS
-    polish (`gnc_pose` from that estimate on the kept set). src/dst
-    [b, n, 3], valid [b, n] -> (transform [b, 4, 4], weights [b, n]).
-    Without `polish`, the weights are the kept matches within
-    `noise_bound` of the TIM estimate."""
+    polish from that estimate on the kept set, on TLS's fixed schedule.
+    src/dst [b, n, 3], valid [b, n] -> (transform [b, 4, 4], weights
+    [b, n]). The polished pose replays a captured graph where `_replays`
+    allows (the module's docstring). Without `polish`, the weights are the
+    kept matches within `noise_bound` of the TIM estimate."""
+    if polish:
+        if _replays(src):
+            out = _replayed(_teaser_fixed, (src, dst, valid), noise_bound, prune_rounds)
+        else:
+            out = _teaser_fixed(src, dst, valid, noise_bound, prune_rounds)
+        tracing.count("gnc.iterations", POLISH_ITERATIONS)
+        return out
     keep, deg = compatibility_core(src, dst, valid, noise_bound, rounds=prune_rounds)
     init = _tim_pose(src, dst, keep, deg, noise_bound)
-    if polish:
-        return gnc_pose(src, dst, keep, noise_bound=noise_bound, init_transform=init)
     return init, (keep & (_residuals(init, src, dst) <= noise_bound)).to(src.dtype)

@@ -19,6 +19,7 @@ from rift_tpu.registration.metrics import pair_errors as j_pair_errors
 from rift_tpu_torch import tracing
 from rift_tpu_torch.data import SyntheticPairs
 from rift_tpu_torch.models import PVCNNClassifier
+from rift_tpu_torch.ops.precision import f32_geometry
 from rift_tpu_torch.registration import gnc
 from rift_tpu_torch.registration import (gnc_pose, pair_errors, register_batch,
                                          rotation_from_h, weighted_kabsch)
@@ -104,21 +105,52 @@ def test_gnc_pose_fixed_schedule_matches_reference(rng):
     assert torch.equal(t, t_exit) and torch.equal(w, w_exit)
 
 
+@pytest.mark.parametrize("start", ["kabsch", "teaser"])
 @pytest.mark.parametrize("outliers", [0.3, 0.6, 0.9, 0.97])
 @pytest.mark.parametrize("max_iterations", [100, 7])
-def test_gnc_pose_schedules_are_bit_equal(outliers, max_iterations):
+def test_gnc_pose_schedules_are_bit_equal(outliers, max_iterations, start):
     """Past its fixed point a pair's iterations repeat it bit for bit, so
     the fixed-length schedule ends where the early exit stops, up to 97%
     outliers (where GNC ends on a few inliers); cut at 7 iterations both
-    run all 7. Kind "gm" ignores the flag."""
+    run all 7. Kind "gm" ignores the flag. From the plain Kabsch on the
+    valid set, and as TEASER's polish: from `_tim_pose`'s estimate on the
+    degree core's kept set."""
     rng = np.random.RandomState(int(outliers * 100) + max_iterations)
-    src, dst, valid = _matches(rng, 3, 256, outliers)
-    args = tuple(map(torch.from_numpy, (src, dst, valid)))
+    src, dst, valid = map(torch.from_numpy, _matches(rng, 3, 256, outliers))
+    kw = {}
+    if start == "teaser":
+        valid, deg = gnc.compatibility_core(src, dst, valid, 0.02)
+        kw["init_transform"] = gnc._tim_pose(src, dst, valid, deg, 0.02)
     for kind in ("tls", "gm"):
-        t, w = gnc_pose(*args, max_iterations=max_iterations, kind=kind, early_exit=False)
-        t_exit, w_exit = gnc_pose(*args, max_iterations=max_iterations, kind=kind)
+        t, w = gnc_pose(src, dst, valid, max_iterations=max_iterations, kind=kind,
+                        early_exit=False, **kw)
+        t_exit, w_exit = gnc_pose(src, dst, valid, max_iterations=max_iterations, kind=kind,
+                                  **kw)
         assert torch.equal(t, t_exit) and torch.equal(w, w_exit), kind
         assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.parametrize("outliers", [0.3, 0.6, 0.9, 0.97])
+def test_teaser_pose_equals_the_early_exit_polish(outliers):
+    """`teaser_pose`, whose polish runs TLS's fixed 100 iterations (the
+    body a card captures), gives the reference's route bit for bit in
+    transforms and weights: `_tim_pose`'s estimate polished by
+    `gnc_pose`'s early exit. It counts the 100 iterations, no host read
+    and, on the CPU, no graph."""
+    rng = np.random.RandomState(int(outliers * 100))
+    src, dst, valid = map(torch.from_numpy, _matches(rng, 4, 256, outliers))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        t, w = gnc.teaser_pose(src, dst, valid)
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    assert counters == {"gnc.iterations": 100}, counters
+    with f32_geometry():
+        keep, deg = gnc.compatibility_core(src, dst, valid, 0.02)
+        init = gnc._tim_pose(src, dst, keep, deg, 0.02)
+        t_exit, w_exit = gnc_pose(src, dst, keep, init_transform=init)
+    assert torch.equal(t, t_exit) and torch.equal(w, w_exit)
+    assert bool(torch.isfinite(t).all())
 
 
 def test_gnc_pose_fixed_schedule_reads_nothing_on_the_host(rng, monkeypatch):
@@ -165,22 +197,23 @@ def test_gnc_pose_off_the_graph_path_runs_the_eager_loop(rng, case):
 
 
 def _graph_key(shape=(4, 64), dtype=torch.float32, noise_bound=0.02, gnc_factor=1.4,
-               iterations=100, tf32=False):
+               iterations=100, tf32=False, fn=gnc._tls_fixed):
     src = torch.zeros(shape + (3,), dtype=dtype)
     valid = torch.zeros(shape, dtype=dtype)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        return gnc._graph_key(src, src, valid, noise_bound, gnc_factor, iterations)
+        return gnc._graph_key(fn, (src, src, valid), noise_bound, gnc_factor, iterations)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("change", [{"shape": (8, 64)}, {"shape": (4, 128)},
                                     {"dtype": torch.float64}, {"noise_bound": 0.04},
-                                    {"gnc_factor": 1.3}, {"iterations": 7}, {"tf32": True}],
+                                    {"gnc_factor": 1.3}, {"iterations": 7}, {"tf32": True},
+                                    {"fn": gnc._teaser_fixed}],
                          ids=["b", "n", "dtype", "noise_bound", "gnc_factor", "iterations",
-                              "tf32"])
+                              "tf32", "fn"])
 def test_graph_key_separates_what_a_capture_depends_on(change):
     assert _graph_key() == _graph_key()
     assert _graph_key(**change) != _graph_key()
